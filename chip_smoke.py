@@ -16,16 +16,19 @@ What it does, in order; any failure exits non-zero with no result line:
 4. aligns the corpus once through ``PretrainedAligner.align_corpus`` in
    speaker-independent mode (batch 32) with every launch count set to 0
    just before, exports TextGrids, and requires every kernel to have been
-   launched and every utterance to have an alignment; five warm runs give
-   the steady throughput (their median), one with the card synchronised at
-   each phase the phase breakdown, and one more under ``torch.profiler``
-   the card's busy share and its time by kernel;
+   launched and every utterance to have an alignment; every call of the
+   three kernel wrappers in that run, and again in the first warm run, is
+   timed with CUDA events; five warm runs give the steady throughput (their
+   median), one with the card synchronised at each phase the phase
+   breakdown, and one more under ``torch.profiler`` the card's busy share
+   and its time by kernel;
 5. aligns 4 short utterances on the card and on the CPU (the plain PyTorch
    versions) and holds the two to the JAX package's parity bar;
 6. holds each kernel against its plain version on the first batch's real
    inputs (K1 backpointers and K2 states bit-identical, K1 alpha within
-   1e-4, K3 within rtol 1e-5 / atol 1e-3) and times both, and for K3 the
-   all-pdf emission path on the same batch;
+   1e-4, K3 within rtol 1e-5 / atol 1e-3) and times both, and for K3 two
+   yardsticks on the same batch: the all-pdf emission path, and the
+   gathered rows through ``torch.matmul`` and ``torch.logsumexp``;
 7. prints one ``{"kernels": [...]}`` line, then as the last line
    ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": 1}}``.
 
@@ -46,10 +49,11 @@ import numpy as np
 
 PKG = "montreal_forced_aligner_tpu_torch"
 
-# NVIDIA H100 SXM data sheet: HBM rate and float32 rate outside the tensor
-# cores (dense), at the full 700 W power limit
+# NVIDIA H100 SXM data sheet: HBM rate, float32 rate outside the tensor
+# cores and TF32 rate on them (dense), at the full 700 W power limit
 HBM_BYTES_PER_S = 3.35e12
 FP32_FLOP_PER_S = 67e12
+TF32_FLOP_PER_S = 495e12
 
 
 def _check(cond, msg: str) -> None:
@@ -223,27 +227,50 @@ def time_ms(fn, reps: int, device) -> float:
     return statistics.median(times)
 
 
-def bound_ms(nbytes: float, flops: float):
+def bound_ms(nbytes: float, flops: float, flop_per_s: float = FP32_FLOP_PER_S):
     """Least time the card could take: the larger of bytes over the memory
-    rate and operations over the float32 rate; and which of the two."""
+    rate and operations over ``flop_per_s`` (the float32 rate unless
+    given); and which of the two."""
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = flops / FP32_FLOP_PER_S * 1e3
+    t_ops = flops / flop_per_s * 1e3
     return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
 
 
-class FirstCall:
-    """Records the arguments of the first call of a module-level function
-    (the first batch's real inputs), calling through unchanged."""
+class CallRecorder:
+    """Wraps a module-level function for one ``with`` block, calling
+    through unchanged: records the arguments of its first call (the first
+    batch's real inputs) and, on the card, a pair of CUDA events around
+    every call, so :meth:`total_ms` gives the card's time over all calls."""
 
-    def __init__(self, module, name):
+    def __init__(self, module, name, device):
         self.module, self.name = module, name
         self.orig = getattr(module, name)
+        self.timed = device.type == "cuda"
         self.args = None
+        self.calls = 0
+        self.events = []
 
     def __call__(self, *args, **kwargs):
+        import torch
+
         if self.args is None:
             self.args = (args, kwargs)
-        return self.orig(*args, **kwargs)
+        self.calls += 1
+        if not self.timed:
+            return self.orig(*args, **kwargs)
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        out = self.orig(*args, **kwargs)
+        end.record()
+        self.events.append((start, end))
+        return out
+
+    def total_ms(self):
+        """Summed milliseconds of all calls (synchronises the card)."""
+        for _, end in self.events:
+            end.synchronize()
+        return sum(s.elapsed_time(e) for s, e in self.events)
 
     def __enter__(self):
         setattr(self.module, self.name, self)
@@ -251,6 +278,19 @@ class FirstCall:
 
     def __exit__(self, *exc):
         setattr(self.module, self.name, self.orig)
+
+
+def record_kernel_calls(device):
+    """One :class:`CallRecorder` per kernel wrapper, under the kernel's
+    name, at the module-level names the main path calls."""
+    import montreal_forced_aligner_tpu_torch.align.aligner as aligner_mod
+    import montreal_forced_aligner_tpu_torch.ops.viterbi as viterbi_mod
+
+    return {
+        "state_emission": CallRecorder(aligner_mod, "state_loglikes", device),
+        "band_forward": CallRecorder(viterbi_mod, "band_forward", device),
+        "band_backtrace": CallRecorder(viterbi_mod, "band_backtrace", device),
+    }
 
 
 def _frame_labels(aln, frame_shift):
@@ -304,11 +344,14 @@ def run_main_path(model_path, dict_path, corpus_dir, out_dir, device,
                   batch_size=32, warm_runs=5):
     """Phase 4: one counted run of the main path, then ``warm_runs`` warm
     runs (their median gives the throughput), then one with the card
-    synchronised at each phase. Returns (report, aligner, captured calls)."""
+    synchronised at each phase. The kernel wrappers' calls are timed in the
+    counted run and in the first warm run. Returns (report, aligner,
+    captured first-batch calls)."""
+    import contextlib
+
     import torch
 
     import montreal_forced_aligner_tpu_torch.align.aligner as aligner_mod
-    import montreal_forced_aligner_tpu_torch.ops.viterbi as viterbi_mod
     from montreal_forced_aligner_tpu_torch.corpus.corpus import Corpus
     from montreal_forced_aligner_tpu_torch.ops import cuda_build
 
@@ -325,9 +368,10 @@ def run_main_path(model_path, dict_path, corpus_dir, out_dir, device,
         len(w) / aligner.mfcc_config.sample_rate
         for w in corpus.load_audio_parallel(aligner.mfcc_config.sample_rate)
     )
-    with FirstCall(aligner_mod, "state_loglikes") as k3, \
-            FirstCall(viterbi_mod, "band_forward") as k1, \
-            FirstCall(viterbi_mod, "band_backtrace") as k2:
+    counted = record_kernel_calls(device)
+    with contextlib.ExitStack() as stack:
+        for rec in counted.values():
+            stack.enter_context(rec)
         if device.type == "cuda":
             torch.cuda.synchronize()
         cuda_build.reset_launch_counts()
@@ -356,12 +400,17 @@ def run_main_path(model_path, dict_path, corpus_dir, out_dir, device,
     # warm: CUDA context, cuFFT plans, kernel libraries and the graph
     # compiler's caches are in place from the first run
     warm_walls = []
-    for _ in range(warm_runs):
-        t0 = time.perf_counter()
-        aligner.align_corpus(corpus)
-        if device.type == "cuda":
-            torch.cuda.synchronize()
-        warm_walls.append(time.perf_counter() - t0)
+    warm = record_kernel_calls(device)
+    for i in range(warm_runs):
+        with contextlib.ExitStack() as stack:
+            if i == 0:
+                for rec in warm.values():
+                    stack.enter_context(rec)
+            t0 = time.perf_counter()
+            aligner.align_corpus(corpus)
+            if device.type == "cuda":
+                torch.cuda.synchronize()
+            warm_walls.append(time.perf_counter() - t0)
     warm_wall = statistics.median(warm_walls)
     aligner.sync_phases = True
     t0 = time.perf_counter()
@@ -376,6 +425,9 @@ def run_main_path(model_path, dict_path, corpus_dir, out_dir, device,
         "wall_s": wall,
         "audio_s_per_s": audio_s / wall,
         "launches": launches,
+        "kernel_calls": {k: r.calls for k, r in counted.items()},
+        "kernel_ms": {k: r.total_ms() for k, r in counted.items()},
+        "warm_kernel_ms": {k: r.total_ms() for k, r in warm.items()},
         "phases_dispatch_s": phases,
         "warm_walls_s": warm_walls,
         "warm_median_wall_s": warm_wall,
@@ -384,9 +436,7 @@ def run_main_path(model_path, dict_path, corpus_dir, out_dir, device,
         "phases_synced_s": synced,
         "textgrids": len(paths),
     }
-    return report, aligner, {"state_emission": k3.args,
-                             "band_forward": k1.args,
-                             "band_backtrace": k2.args}
+    return report, aligner, {k: r.args for k, r in counted.items()}
 
 
 def profile_warm_run(aligner, corpus_dir, top=8):
@@ -465,16 +515,18 @@ def kernel_checks(captured, gmm, device, reps=5):
     out = {}
 
     # K3: state emissions
-    (feats, state_pdf, rows), _ = captured["state_emission"]
+    (feats, state_pdf, rows, rows_split), _ = captured["state_emission"]
     B, T, Df = feats.shape
     S = state_pdf.shape[1]
     P, G, d2p = rows.shape
-    got = CE.state_loglikes(feats, state_pdf, rows)
+    got = CE.state_loglikes(feats, state_pdf, rows, rows_split)
     want = CE.state_loglikes_plain(feats, state_pdf, rows)
     err = (got - want).abs()
     _check(bool(torch.isfinite(got).all()), "K3: non-finite emissions")
-    ok = bool((err <= 1e-3 + 1e-5 * want.abs()).all())
+    bar = 1e-3 + 1e-5 * want.abs()
+    ok = bool((err <= bar).all())
     _check(ok, f"K3 disagrees with its plain version: max abs {err.max().item()}")
+    worst_share = (err / bar).max().item()
 
     def library():
         # the all-pdf product and a gather, in row chunks that fit memory
@@ -482,22 +534,46 @@ def kernel_checks(captured, gmm, device, reps=5):
             ll = gmm_loglikes(feats[b : b + 1], gmm.W, gmm.gconsts)
             select_state_emissions(ll, state_pdf[b : b + 1])
 
+    xx = CE.quad_features(feats, d2p)[:, None]  # (B, 1, T, D2p)
+    gathered_out = torch.empty_like(want)
+
+    def gathered(chunk=128):
+        # each state's own rows, gathered, through one float32 matmul per
+        # chunk of states (TF32 off) and a logsumexp over Gaussians
+        for s0 in range(0, S, chunk):
+            r = rows[state_pdf[:, s0 : s0 + chunk].long()]  # (B, c, G, D2p)
+            q = torch.matmul(xx, r.permute(0, 2, 3, 1))  # (B, G, T, c)
+            gathered_out[:, :, s0 : s0 + chunk] = torch.logsumexp(q, dim=1)
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    gathered()
+    g_err = (gathered_out - want).abs()
+    _check(bool((g_err <= bar).all()),
+           f"K3 gathered yardstick differs by {g_err.max().item()}")
+    g_err = g_err.max().item()
+
     n_pdfs_used = int(torch.unique(state_pdf).numel())
     nbytes = (feats.numel() * 4 + state_pdf.numel() * 4
               + n_pdfs_used * G * d2p * 4 + B * T * S * 4)
-    flops = 2.0 * B * T * S * G * (2 * Df + 2)
-    bnd, by = bound_ms(nbytes, flops)
+    # 3xTF32: three tensor-core products for each multiply-add
+    flops = 3 * 2.0 * B * T * S * G * (2 * Df + 2)
+    bnd, by = bound_ms(nbytes, flops, TF32_FLOP_PER_S)
     out["state_emission"] = {
         "shape": {"B": B, "T": T, "S": S, "P": P, "G": G, "D": Df},
         "max_abs_err": err.max().item(),
-        "ms": time_ms(lambda: CE.state_loglikes(feats, state_pdf, rows), reps, device),
+        "worst_err_share_of_bar": worst_share,
+        "ms": time_ms(lambda: CE.state_loglikes(feats, state_pdf, rows, rows_split),
+                      reps, device),
         "plain_ms": time_ms(lambda: CE.state_loglikes_plain(feats, state_pdf, rows),
                             3, device),
         "bound_ms": bnd,
         "bound_by": by,
+        "fp32_cuda_core_bound_ms": bound_ms(nbytes, flops / 3)[0],
         "library_ms": time_ms(library, 3, device),
+        "gathered_matmul_ms": time_ms(gathered, 3, device),
+        "gathered_max_abs_err": g_err,
     }
-    del got, want, err
+    del got, want, err, bar, xx, gathered_out
 
     # K1: band forward
     (emit, flens, band, start, lb, ub, scale), _ = captured["band_forward"]
@@ -620,7 +696,10 @@ def main() -> int:
             model_path, dict_path, small_dir, device)})
         checks = kernel_checks(captured, aligner.gmm, device)
         for name, c in checks.items():
-            _emit({"kernel_check": name, **c})
+            _emit({"kernel_check": name, **c,
+                   "main_path_calls": report["kernel_calls"][name],
+                   "main_path_ms": report["kernel_ms"][name],
+                   "warm_main_path_ms": report["warm_kernel_ms"][name]})
         _emit(kernels_line(checks, report["launches"]))
 
     _emit({"ok": True, "device": {

@@ -127,7 +127,7 @@ def _emit_and_align(
     arc offsets fit a band, dense max-plus otherwise). Returns
     (state_path (B, T) int32, best_score (B,))."""
     if use_emission_kernel:
-        emit = state_loglikes(ff, graph.state_pdf, gmm.rows)
+        emit = state_loglikes(ff, graph.state_pdf, gmm.rows, gmm.rows_split)
     else:
         ll = gmm_loglikes(ff, gmm.W, gmm.gconsts)  # (B, T, P)
         emit = select_state_emissions(ll, graph.state_pdf)

@@ -23,6 +23,24 @@ from montreal_forced_aligner_tpu_torch.ops import cuda_build
 
 NEG_INF = -1.0e30
 
+# The (lb, ub) band buckets: alignment-graph arcs have small state offsets
+# (self-loops 0, forward 1-3, silence skips and pronunciation-variant joins
+# up to a few dozen). K1 is compiled for each of them.
+BAND_BUCKETS = [
+    (1, 4),
+    (2, 8),
+    (2, 12),
+    (4, 16),
+    (8, 32),
+    (16, 64),
+    (16, 128),
+]
+
+# band_forward's modes that read the band as (B, D, S) from global memory,
+# and the one that keeps alpha in a global scratch row (csrc/band_viterbi.cu
+# band_forward_plan)
+_BAND_L2, _ALL_GLOBAL = 2, 3
+
 
 # ---------------------------------------------------------------------------
 # plain versions
@@ -97,9 +115,8 @@ def _declare(lib) -> None:
     lib.band_forward.argtypes = [p, p, p, p, p, p, p, i, i, i, i, i,
                                  ctypes.c_float, p]
     lib.band_forward.restype = i
-    lib.band_forward_smem.argtypes = [i, i, i, ctypes.POINTER(i),
-                                      ctypes.POINTER(i)]
-    lib.band_forward_smem.restype = ctypes.c_size_t
+    lib.band_forward_plan.argtypes = [i, i, i] + [ctypes.POINTER(i)] * 3
+    lib.band_forward_plan.restype = ctypes.c_size_t
     lib.band_backtrace.argtypes = [p, p, p, p, i, i, i, i, p]
     lib.band_backtrace.restype = i
 
@@ -129,7 +146,7 @@ def band_forward(
         raise ValueError(f"band_forward: device {emit.device}")
     B, T, S = emit.shape
     D = lb + ub + 1
-    if not (lb >= 0 and ub >= 0 and D <= 255 and T >= 1):
+    if (lb, ub) not in BAND_BUCKETS or T < 1:
         raise ValueError(f"band_forward: lb={lb} ub={ub} T={T}")
     cuda_build.check_inputs("band_forward", emit.device, (
         ("emit", emit, torch.float32, (B, T, S)),
@@ -137,21 +154,24 @@ def band_forward(
         ("start", start, torch.float32, (B, S)),
         ("frame_lengths", frame_lengths, torch.int32, (B,)),
     ))
-    band_dbs = band.permute(0, 2, 1).contiguous()  # (B, D, S)
     alpha_T = torch.empty((B, S), dtype=torch.float32, device=emit.device)
     bp = torch.empty((T, B, S), dtype=torch.uint8, device=emit.device)
     if B == 0 or S == 0:
         return alpha_T, bp
     lib = _lib()
-    a_in, b_in = ctypes.c_int(0), ctypes.c_int(0)
-    lib.band_forward_smem(S, lb, ub, ctypes.byref(a_in), ctypes.byref(b_in))
+    threads, mode, spt = (ctypes.c_int(0) for _ in range(3))
+    lib.band_forward_plan(S, lb, ub, *(ctypes.byref(x) for x in
+                                       (threads, mode, spt)))
     scratch = None
-    if not a_in.value:
+    if mode.value == _ALL_GLOBAL:
         scratch = torch.empty((B, 2, ub + S + lb), dtype=torch.float32,
                               device=emit.device)
+    if mode.value in (_BAND_L2, _ALL_GLOBAL):
+        # read from L2 by neighbouring threads: (B, D, S)
+        band = band.permute(0, 2, 1).contiguous()
     stream = torch.cuda.current_stream(emit.device).cuda_stream
     err = lib.band_forward(
-        emit.data_ptr(), band_dbs.data_ptr(), start.data_ptr(),
+        emit.data_ptr(), band.data_ptr(), start.data_ptr(),
         frame_lengths.data_ptr(), alpha_T.data_ptr(), bp.data_ptr(),
         None if scratch is None else scratch.data_ptr(),
         B, T, S, lb, ub, float(acoustic_scale), stream,

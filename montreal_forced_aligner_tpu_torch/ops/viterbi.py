@@ -24,6 +24,7 @@ import numpy as np
 import torch
 
 from montreal_forced_aligner_tpu_torch.ops.cuda_viterbi import (
+    BAND_BUCKETS,
     band_backtrace,
     band_forward,
 )
@@ -149,21 +150,10 @@ def frame_tids_host(
 # ---------------------------------------------------------------------------
 # Band-sparse Viterbi
 # ---------------------------------------------------------------------------
-# Alignment-graph arcs have small state offsets (self-loops 0, forward 1-3,
-# silence skips and pronunciation-variant joins up to a few dozen). Storing
-# transitions as a (B, S, D) band over offsets d in [-LB, UB] turns the
-# O(S^2) dense max-plus step into O(S*D). Graphs whose offsets exceed the
-# largest bucket run the dense recursion.
-
-BAND_BUCKETS = [
-    (1, 4),
-    (2, 8),
-    (2, 12),
-    (4, 16),
-    (8, 32),
-    (16, 64),
-    (16, 128),
-]
+# Storing transitions as a (B, S, D) band over offsets d in [-LB, UB] turns
+# the O(S^2) dense max-plus step into O(S*D); the buckets (BAND_BUCKETS, in
+# ops/cuda_viterbi.py) are those K1 is compiled for. Graphs whose offsets
+# exceed the largest bucket run the dense recursion.
 
 
 def band_limits_for(graphs_offsets_min: int, graphs_offsets_max: int):

@@ -15,7 +15,10 @@ from typing import Optional
 import numpy as np
 import torch
 
-from montreal_forced_aligner_tpu_torch.ops.cuda_emission import pack_rows
+from montreal_forced_aligner_tpu_torch.ops.cuda_emission import (
+    pack_rows,
+    split_rows,
+)
 
 
 class GmmParams(torch.nn.Module):
@@ -24,8 +27,10 @@ class GmmParams(torch.nn.Module):
     * ``W`` (2D, P*G): ``[means*invvars; -0.5*invvars]`` for the all-pdf
       product (``ops/gmm_loglikes.py``);
     * ``gconsts`` (P, G), -inf on padded Gaussians;
-    * ``rows`` (P, G, D2p): per-pdf rows for the state-emission kernel
+    * ``rows`` (P, G, D2p): per-pdf rows for the state-emission path
       (``ops/cuda_emission.py``), gconst folded in;
+    * ``rows_split`` (P, G, 2*D2p): the same rows split into TF32 hi and lo
+      parts in the order the state-emission kernel reads them;
     * ``lda`` (E, D*7) or None: the model's LDA transform.
     """
 
@@ -34,6 +39,7 @@ class GmmParams(torch.nn.Module):
         self.register_buffer("W", W)
         self.register_buffer("gconsts", gconsts)
         self.register_buffer("rows", rows)
+        self.register_buffer("rows_split", split_rows(rows))
         self.register_buffer("lda", lda)
 
     @property

@@ -267,6 +267,10 @@ def test_chip_smoke_phases_run_on_cpu(tmp_path, monkeypatch):
         "band_forward": 0, "band_backtrace": 0, "state_emission": 0
     }
     assert all(v is not None for v in captured.values())
+    # every wrapper call of the counted run is recorded (timed on the card)
+    assert all(n > 0 for n in report["kernel_calls"].values())
+    assert set(report["kernel_ms"]) == set(report["warm_kernel_ms"]) == set(
+        report["launches"])
     assert chip_smoke.reference_check(model_path, dict_path, corpus_dir, cpu)[
         "frame_agreement"] == 1.0
     checks = chip_smoke.kernel_checks(captured, aligner.gmm, cpu, reps=1)

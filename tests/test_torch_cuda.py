@@ -8,8 +8,10 @@ This file imports no JAX, so it runs where JAX is not installed:
 
 Tolerances: K1 backpointers (within each row's frames), K1 alpha_T and K2
 states bit-identical (same operations in the same order, no FMA
-contraction); K3 rtol 1e-5 / atol 1e-3 (another summation order); the
-aligned corpus on the card against the CPU, the JAX package's parity bar.
+contraction), in every band bucket; K3 rtol 1e-5 / atol 1e-3 (3xTF32
+products on the tensor cores against float32 ones, another summation
+order); the aligned corpus on the card against the CPU, the JAX package's
+parity bar.
 """
 
 import sys
@@ -50,7 +52,12 @@ def _no_plain(*a, **k):
         (16, 128, 1100, 40),  # band too large for shared memory
         (1, 4, 29100, 4),  # alpha too large for shared memory
         (4, 16, 33, 1),
-    ],
+    ]
+    # every bucket at 300 states (band in registers through (4, 16), else in
+    # shared memory or L2) and at 1100, past one block of threads (two
+    # states a thread in registers through (2, 12), else shared memory or
+    # L2), each longer than the emission ring
+    + [(lb, ub, S, 24) for lb, ub in CV.BAND_BUCKETS for S in (300, 1100)],
 )
 def test_band_kernels_match_plain(cuda_device, monkeypatch, lb, ub, S, T):
     B = 4 if T > 3 else 2
@@ -90,21 +97,38 @@ def test_backtrace_walks_out_of_range_like_plain(cuda_device):
     assert torch.equal(got.cpu(), want)
 
 
-@pytest.mark.parametrize("B,T,S,P,G", [(3, 100, 130, 40, 8), (1, 7, 3, 5, 33)])
-def test_state_emission_matches_plain(cuda_device, monkeypatch, B, T, S, P, G):
-    miv, iv, gc = gmm_arrays(5, P, G, 40, padded_pdfs=(3,))
+# T and S not multiples of the block's 128 frames and 64 states; G of 1
+# and 33 (odd, past 32); D of 39 (deltas, D2p 80) and 40 (LDA, D2p 88);
+# features of scale 1 to 8 against the SAT-scale GMM draw
+@pytest.mark.parametrize(
+    "B,T,S,P,G,D,scale",
+    [
+        (3, 100, 130, 40, 8, 40, 2.0),
+        (1, 7, 3, 5, 33, 40, 2.0),
+        (2, 131, 70, 50, 33, 39, 8.0),
+        (2, 129, 65, 30, 1, 39, 8.0),
+        (1, 300, 200, 60, 32, 40, 1.0),
+        (2, 257, 131, 45, 32, 40, 3.0),
+    ],
+)
+def test_state_emission_matches_plain(cuda_device, monkeypatch, B, T, S, P, G,
+                                      D, scale):
+    miv, iv, gc = gmm_arrays(5, P, G, D, padded_pdfs=(3,))
     rng = np.random.RandomState(5)
-    feats = torch.from_numpy((rng.randn(B, T, 40) * 2).astype(np.float32))
+    feats = torch.from_numpy((rng.randn(B, T, D) * scale).astype(np.float32))
     state_pdf = torch.from_numpy(rng.randint(0, P, (B, S)).astype(np.int32))
-    rows = gmm_params_from_numpy(miv, iv, gc).rows
-    feats, state_pdf, rows = (x.to(cuda_device) for x in (feats, state_pdf, rows))
-    want = CE.state_loglikes_plain(feats, state_pdf, rows)
+    params = gmm_params_from_numpy(miv, iv, gc).to(cuda_device)
+    feats, state_pdf = feats.to(cuda_device), state_pdf.to(cuda_device)
+    want = CE.state_loglikes_plain(feats, state_pdf, params.rows)
     monkeypatch.setattr(CE, "state_loglikes_plain", _no_plain)
     cuda_build.reset_launch_counts()
-    got = CE.state_loglikes(feats, state_pdf, rows)
+    got = CE.state_loglikes(feats, state_pdf, params.rows, params.rows_split)
+    # without the split rows the wrapper makes them, to the same result
+    got2 = CE.state_loglikes(feats, state_pdf, params.rows)
     torch.cuda.synchronize()
-    assert cuda_build.LAUNCHES["state_emission"] == 1
+    assert cuda_build.LAUNCHES["state_emission"] == 2
     torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-3)
+    assert torch.equal(got, got2)
 
 
 def test_wrappers_check_their_inputs(cuda_device):
@@ -116,17 +140,28 @@ def test_wrappers_check_their_inputs(cuda_device):
         CV.band_forward(e, f.cpu(), b, s, 2, 8, 0.1)
     with pytest.raises(ValueError):  # band width does not match lb, ub
         CV.band_forward(e, f, b, s, 2, 9, 0.1)
+    e3, b3, s3, _f, f3 = band_inputs(0, 4, 6, 20, 3, 12)
+    with pytest.raises(ValueError):  # (3, 12) is not one of the buckets
+        CV.band_forward(*(torch.from_numpy(x).to(cuda_device)
+                          for x in (e3, f3, b3, s3)), 3, 12, 0.1)
     with pytest.raises(ValueError):  # not contiguous
         CV.band_forward(e.transpose(1, 2).contiguous().transpose(1, 2), f, b, s,
                         2, 8, 0.1)
     bp = torch.zeros((6, 4, 20), dtype=torch.uint8, device=cuda_device)
     with pytest.raises(ValueError):
         CV.band_backtrace(bp, f, torch.zeros(4, device=cuda_device), 2)
-    rows = torch.zeros((5, 2, 30), device=cuda_device)  # not a multiple of 4
-    with pytest.raises(ValueError):
+    for d2p in (30, 36):  # not a multiple of 8
+        rows = torch.zeros((5, 2, d2p), device=cuda_device)
+        with pytest.raises(ValueError):
+            CE.state_loglikes(torch.zeros((1, 3, 13), device=cuda_device),
+                              torch.zeros((1, 4), dtype=torch.int32,
+                                          device=cuda_device),
+                              rows)
+    rows = torch.zeros((5, 2, 32), device=cuda_device)
+    with pytest.raises(ValueError):  # split rows of the wrong width
         CE.state_loglikes(torch.zeros((1, 3, 13), device=cuda_device),
                           torch.zeros((1, 4), dtype=torch.int32, device=cuda_device),
-                          rows)
+                          rows, torch.zeros((5, 2, 32), device=cuda_device))
 
 
 def test_aligner_on_card_matches_cpu(cuda_device, tmp_path):

@@ -157,7 +157,7 @@ def test_state_emission_matches_pallas(interpret, B, T, S, P, G, D):
         )
     )
     params = gmm_params_from_numpy(miv, iv, gc)
-    assert params.rows.shape[2] % 4 == 0
+    assert params.rows.shape[2] % 8 == 0
     cuda_build.reset_launch_counts()
     got = CE.state_loglikes(
         torch.from_numpy(feats), torch.from_numpy(state_pdf), params.rows
