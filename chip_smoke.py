@@ -26,9 +26,12 @@ What it does, in order; any failure exits non-zero with no result line:
    versions) and holds the two to the JAX package's parity bar;
 6. holds each kernel against its plain version on the first batch's real
    inputs (K1 backpointers and K2 states bit-identical, K1 alpha within
-   1e-4, K3 within rtol 1e-5 / atol 1e-3) and times both, and for K3 two
+   1e-4, K3 within rtol 1e-5 / atol 1e-3) and times both, K2 also on the
+   last batch's (its ``last_batch``, with S > 1024), and for K3 two
    yardsticks on the same batch: the all-pdf emission path, and the
-   gathered rows through ``torch.matmul`` and ``torch.logsumexp``;
+   gathered rows through ``torch.matmul`` and ``torch.logsumexp``; K2's
+   line adds its chain floor, the longest row's steps times one
+   shared-memory load (``SMEM_LOAD_CYCLES``) at ``clocks.max.sm``;
 7. prints one ``{"kernels": [...]}`` line, then as the last line
    ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": 1}}``.
 
@@ -54,6 +57,9 @@ PKG = "montreal_forced_aligner_tpu_torch"
 HBM_BYTES_PER_S = 3.35e12
 FP32_FLOP_PER_S = 67e12
 TF32_FLOP_PER_S = 495e12
+# load-to-use latency of a dependent shared-memory load on Hopper, in SM
+# cycles: a round figure taken for K2's chain floor, not measured here
+SMEM_LOAD_CYCLES = 30
 
 
 def _check(cond, msg: str) -> None:
@@ -204,9 +210,10 @@ def build_corpus(tmp: Path, words, num_utts: int, min_s=2.0, max_s=30.0,
 # -- measurement helpers -----------------------------------------------------
 
 
-def time_ms(fn, reps: int, device) -> float:
-    """Median milliseconds of ``fn()`` over ``reps`` runs after one warm-up:
-    CUDA events on the card, the host clock elsewhere."""
+def time_ms(fn, reps: int, device, calls: int = 1) -> float:
+    """Median milliseconds of ``fn()`` over ``reps`` runs after one warm-up,
+    each run ``calls`` calls back to back, divided by ``calls``: CUDA events
+    on the card, the host clock elsewhere."""
     import torch
 
     fn()
@@ -216,14 +223,16 @@ def time_ms(fn, reps: int, device) -> float:
             start = torch.cuda.Event(enable_timing=True)
             end = torch.cuda.Event(enable_timing=True)
             start.record()
-            fn()
+            for _ in range(calls):
+                fn()
             end.record()
             end.synchronize()
-            times.append(start.elapsed_time(end))
+            times.append(start.elapsed_time(end) / calls)
         else:
             t0 = time.perf_counter()
-            fn()
-            times.append((time.perf_counter() - t0) * 1e3)
+            for _ in range(calls):
+                fn()
+            times.append((time.perf_counter() - t0) * 1e3 / calls)
     return statistics.median(times)
 
 
@@ -239,14 +248,16 @@ def bound_ms(nbytes: float, flops: float, flop_per_s: float = FP32_FLOP_PER_S):
 class CallRecorder:
     """Wraps a module-level function for one ``with`` block, calling
     through unchanged: records the arguments of its first call (the first
-    batch's real inputs) and, on the card, a pair of CUDA events around
-    every call, so :meth:`total_ms` gives the card's time over all calls."""
+    batch's real inputs) and of its last (the last batch's) and, on the
+    card, a pair of CUDA events around every call, so :meth:`total_ms`
+    gives the card's time over all calls."""
 
     def __init__(self, module, name, device):
         self.module, self.name = module, name
         self.orig = getattr(module, name)
         self.timed = device.type == "cuda"
         self.args = None
+        self.last_args = None
         self.calls = 0
         self.events = []
 
@@ -255,6 +266,7 @@ class CallRecorder:
 
         if self.args is None:
             self.args = (args, kwargs)
+        self.last_args = (args, kwargs)
         self.calls += 1
         if not self.timed:
             return self.orig(*args, **kwargs)
@@ -346,7 +358,8 @@ def run_main_path(model_path, dict_path, corpus_dir, out_dir, device,
     runs (their median gives the throughput), then one with the card
     synchronised at each phase. The kernel wrappers' calls are timed in the
     counted run and in the first warm run. Returns (report, aligner,
-    captured first-batch calls)."""
+    captured first-batch calls, with K2's last call beside them under
+    ``band_backtrace_last``)."""
     import contextlib
 
     import torch
@@ -436,7 +449,9 @@ def run_main_path(model_path, dict_path, corpus_dir, out_dir, device,
         "phases_synced_s": synced,
         "textgrids": len(paths),
     }
-    return report, aligner, {k: r.args for k, r in counted.items()}
+    captured = {k: r.args for k, r in counted.items()}
+    captured["band_backtrace_last"] = counted["band_backtrace"].last_args
+    return report, aligner, captured
 
 
 def profile_warm_run(aligner, corpus_dir, top=8):
@@ -500,9 +515,10 @@ def reference_check(model_path, dict_path, corpus_dir, device):
     return parity(r_got, r_want, got.frame_shift)
 
 
-def kernel_checks(captured, gmm, device, reps=5):
+def kernel_checks(captured, gmm, device, reps=5, sm_clock_mhz=None):
     """Phase 6: each kernel against its plain version on the first batch's
-    inputs, with times and bounds."""
+    inputs, with times and bounds; K2 also on the last batch's, with the
+    chain floor at ``sm_clock_mhz`` (none without it)."""
     import torch
 
     from montreal_forced_aligner_tpu_torch.ops import cuda_emission as CE
@@ -605,24 +621,46 @@ def kernel_checks(captured, gmm, device, reps=5):
         "library_ms": None,
     }
 
-    # K2: band backtrace, on the main path's own backpointers
-    (bp, flens2, best, lb2), _ = captured["band_backtrace"]
-    st_k = CV.band_backtrace(bp, flens2, best, lb2)
-    st_p = CV.band_backtrace_plain(bp, flens2, best, lb2)
-    _check(torch.equal(st_k, st_p), "K2 states differ from the plain version")
-    T2, B2, _S2 = bp.shape
-    steps = int(torch.clamp(flens2.long() - 1, min=0).sum().item())
-    nbytes = steps * 1 + B2 * 4 * 2 + B2 * T2 * 4
-    bnd, by = bound_ms(nbytes, 0.0)
+    # K2: band backtrace, on the main path's own backpointers of the first
+    # batch and of the last (the longer half, S > 1024)
+    def backtrace_check(call):
+        (bp, flens2, best, lb2), _ = call
+        st_k = CV.band_backtrace(bp, flens2, best, lb2)
+        st_p = CV.band_backtrace_plain(bp, flens2, best, lb2)
+        _check(torch.equal(st_k, st_p), "K2 states differ from the plain version")
+        T2, B2, S2 = bp.shape
+        row_steps = torch.clamp(torch.clamp(flens2.long(), max=T2) - 1, min=0)
+        steps = int(row_steps.sum().item())
+        nbytes = steps * 1 + B2 * 4 * 2 + B2 * T2 * 4
+        bnd, by = bound_ms(nbytes, 0.0)
+        # reckoned, not measured: the longest row's chain of dependent
+        # shared-memory loads at the card's highest SM clock
+        chain_floor = (int(row_steps.max().item()) * SMEM_LOAD_CYCLES
+                       / (sm_clock_mhz * 1e3) if sm_clock_mhz else None)
+        return {
+            "shape": {"B": B2, "T": T2, "S": S2},
+            "plan": CV.band_backtrace_plan(S2)._asdict(),
+            "max_abs_err": float((st_k - st_p).abs().max().item()),
+            # one launch, timed as K1's and K3's are; K2 takes tens of
+            # microseconds, about what the host takes to launch it, so the
+            # mean of 20 launches back to back is a second reading beside it
+            "ms": time_ms(lambda: CV.band_backtrace(bp, flens2, best, lb2), reps,
+                          device),
+            "back_to_back_ms": time_ms(
+                lambda: CV.band_backtrace(bp, flens2, best, lb2), reps, device,
+                calls=20),
+            "plain_ms": time_ms(lambda: CV.band_backtrace_plain(
+                bp, flens2, best, lb2), 3, device),
+            "bound_ms": bnd,
+            "bound_by": by,
+            "chain_floor_ms": chain_floor,
+            "chain_floor_ms_is": "reckoned",
+        }
+
     out["band_backtrace"] = {
-        "shape": {"B": B2, "T": T2},
-        "max_abs_err": float((st_k - st_p).abs().max().item()),
-        "ms": time_ms(lambda: CV.band_backtrace(bp, flens2, best, lb2), reps, device),
-        "plain_ms": time_ms(lambda: CV.band_backtrace_plain(bp, flens2, best, lb2),
-                            3, device),
-        "bound_ms": bnd,
-        "bound_by": by,
+        **backtrace_check(captured["band_backtrace"]),
         "library_ms": None,
+        "last_batch": backtrace_check(captured["band_backtrace_last"]),
     }
     return out
 
@@ -670,6 +708,10 @@ def main() -> int:
     )
     for line in smi.stdout.strip().splitlines():
         print(line, flush=True)
+    sm_clock_mhz = float(subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm", "--format=csv,noheader,nounits"],
+        capture_output=True, text=True, timeout=60, check=True,
+    ).stdout.split()[0])
     device = torch.device("cuda")
 
     from montreal_forced_aligner_tpu_torch.ops import cuda_build
@@ -694,7 +736,8 @@ def main() -> int:
         _emit({"profiled_warm_run": profile_warm_run(aligner, corpus_dir)})
         _emit({"reference_check": reference_check(
             model_path, dict_path, small_dir, device)})
-        checks = kernel_checks(captured, aligner.gmm, device)
+        checks = kernel_checks(captured, aligner.gmm, device,
+                               sm_clock_mhz=sm_clock_mhz)
         for name, c in checks.items():
             _emit({"kernel_check": name, **c,
                    "main_path_calls": report["kernel_calls"][name],

@@ -54,10 +54,49 @@
 //
 // K2 walks each row backwards from best[b]:
 //   state[t-1] = state[t] - (bp[t, b, state[t]] - lb)  while 1 <= t < flens[b]
-// and holds the state otherwise. It is a chain of T dependent one-byte loads
-// per row, so load latency bounds it; one thread per row. A state outside
-// [0, S) reads slot 0, as the TPU kernel's one-hot select and the plain
-// version do.
+// and holds the state otherwise. A state outside [0, S) reads slot 0, as the
+// TPU kernel's one-hot select and the plain version do, so it moves by +lb a
+// frame and may come back into range.
+//
+// What bounds K2 on this card: the chain. Each step's load address depends
+// on the step before, so a row costs its frame count times one load-to-use
+// latency plus the operations between loads; the bytes it needs (one per
+// step, a state per frame out) are nothing. Read from bp in device memory,
+// just written by K1 and mostly missing L2, a step costs hundreds of cycles;
+// read from shared memory, tens. Staging frames to read one byte of each
+// moves many bytes a step, though, through the one SM that walks the row, so
+// the copy is the second bound: the design stages a window of each frame,
+// and on the card the copy then keeps pace with the walk, neither far ahead.
+//
+// What the design does about it: one block per batch row, two warps. Warp 1
+// copies the row's frames, last first, in chunks of BT_FRAMES frames into a
+// ring of BT_STAGES chunks in shared memory, one TMA bulk copy per frame
+// row, completing on the stage's "full" mbarrier; warp 0 walks a chunk once
+// it is full and then frees its stage on the "empty" mbarrier, so the copies
+// run up to three chunks ahead. A staged row holds WL = min(S, RB - 16)
+// states from lo, where RB is the plan's power-of-two row size (at most
+// 512): all of them (lo = 0) for graphs of up to RB - 16 states; else a
+// window that the copier places from the state the walker last published
+// (lo = that state - WL + 16, within [0, S - WL]), since real paths move a
+// state or so a frame and downwards. Frame row t of row b starts at byte
+// (t*B + b)*S of bp, 16-byte aligned only when S is a multiple of 16, so the
+// copy takes the aligned 16-byte blocks that cover [lo, lo + WL); state s
+// then sits at byte ((address of bp[t, b, lo]) & 15) + s - lo of the stage
+// row. An aligned block that holds a byte of the tensor never crosses a
+// page boundary, so the over-read is safe, and the bytes it brings from
+// neighbouring rows, and from frames t = 0 and t >= flens that K1 never
+// wrote, are never used. The walker keeps its state r relative to the stage
+// row, so a step is three dependent instructions: the address
+// (row | (r & (RB - 1)), rows RB-aligned), the byte load, and r + c - j, the
+// frame's alignment shift and lb folded into c. It notes, off the chain,
+// whether r left the staged states; if it did (the path left the window or
+// [0, S), or the chunk is a short last one), it walks the chunk again step by
+// step, reading such a step's byte from bp in device memory, or taking slot
+// 0 outside [0, S). Lane k keeps the state of the chunk's k-th frame, and
+// the warp stores a chunk's states with one coalesced store; frames t >=
+// flens hold best[b] and are written by both warps before the walk.
+// band_backtrace_plan (ops/cuda_viterbi.py) gives the row size and says
+// which layout (whole rows or a window) a graph gets; both are this code.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -83,6 +122,14 @@ enum {
                      // read from global memory: graphs too large for shared
 };
 
+// band_backtrace's chunk of frames (one per lane of the walking warp), the
+// chunks in its ring, and its largest staged row
+#define BT_FRAMES 32
+#define BT_STAGES 4
+#define BT_MAX_ROW 512
+// states a window reaches above the state it was placed from
+#define BT_UP 16
+
 __device__ __forceinline__ void cp_async4(float* dst, const float* src)
 {
     const unsigned d = (unsigned)__cvta_generic_to_shared(dst);
@@ -97,6 +144,57 @@ __device__ __forceinline__ void cp_async_commit()
 __device__ __forceinline__ void cp_async_wait_ring()
 {
     asm volatile("cp.async.wait_group %0;\n" ::"n"(RING - 1));
+}
+
+__device__ __forceinline__ unsigned smem_addr(const void* p)
+{
+    return (unsigned)__cvta_generic_to_shared(p);
+}
+
+__device__ __forceinline__ void mbar_init(unsigned bar)
+{
+    asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;\n" ::"r"(bar));
+}
+
+__device__ __forceinline__ void mbar_expect_tx(unsigned bar, unsigned bytes)
+{
+    asm volatile("mbarrier.expect_tx.shared::cta.b64 [%0], %1;\n" ::"r"(bar), "r"(bytes)
+                 : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(unsigned bar)
+{
+    asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar) : "memory");
+}
+
+__device__ __forceinline__ void mbar_wait(unsigned bar, unsigned parity)
+{
+    asm volatile(
+        "{\n"
+        ".reg .pred P1;\n"
+        "WAIT:\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 P1, [%0], %1;\n"
+        "@P1 bra DONE;\n"
+        "bra WAIT;\n"
+        "DONE:\n"
+        "}\n" ::"r"(bar), "r"(parity) : "memory");
+}
+
+// TMA bulk copy of `bytes` (a multiple of 16, both ends 16-byte aligned)
+// completing on the mbarrier `bar`
+__device__ __forceinline__ void bulk_copy(unsigned dst, const uint8_t* src, unsigned bytes,
+                                          unsigned bar)
+{
+    asm volatile(
+        "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes"
+        " [%0], [%1], %2, [%3];\n" ::"r"(dst), "l"(src), "r"(bytes), "r"(bar) : "memory");
+}
+
+__device__ __forceinline__ int lds_u8(unsigned addr)
+{
+    int v;
+    asm volatile("ld.shared.u8 %0, [%1];\n" : "=r"(v) : "r"(addr));
+    return v;
 }
 
 // The best of the D slots into state s: ascending j, strict '>'.
@@ -241,27 +339,122 @@ __global__ void __launch_bounds__(MAX_THREADS) band_forward_kernel(
     }
 }
 
-__global__ void band_backtrace_kernel(
-    const uint8_t* __restrict__ bp,  // (T, B, S)
+// One block of two warps per row b: warp 0 walks (its lanes in step), warp 1
+// copies. Chunk c holds frames hi(c) = L-1 - c*BT_FRAMES down to
+// max(hi(c) - BT_FRAMES + 1, 1), frame hi(c) - k in row k of stage
+// c % BT_STAGES. The ring starts at the first RB-aligned byte of the
+// dynamic shared memory.
+__global__ void __launch_bounds__(64) band_backtrace_kernel(
+    const uint8_t* __restrict__ bp,  // (T, B, S); rows t < 1 or t >= flens unread
     const int* __restrict__ flens,   // (B,)
     const int* __restrict__ best,    // (B,)
     int* __restrict__ states,        // (B, T)
-    int B, int T, int S, int lb)
+    int B, int T, int S, int lb, int RB)
 {
-    const int b = blockIdx.x * blockDim.x + threadIdx.x;
-    if (b >= B) return;
-    int state = best[b];
-    const int L = flens[b];
+    extern __shared__ __align__(128) uint8_t bt_smem[];
+    __shared__ __align__(8) uint64_t bars[2 * BT_STAGES];  // full, then empty
+    __shared__ int lo_of[BT_STAGES];  // the first staged state of each stage
+    __shared__ int published;         // the walker's state at its last chunk
+    const int b = blockIdx.x;
+    const int tid = threadIdx.x;
+    const int warp = tid >> 5;
+    const int lane = tid & 31;
+    const int start = best[b];
+    // frames L-1 .. 1 are walked; frames L .. T-1 hold the start state
+    const int L = max(min(flens[b], T), 1);
     int* out = states + (size_t)b * T;
-    for (int t = T - 1; t >= 1; --t) {
-        out[t] = state;
-        if (t < L) {
-            const int j = (state >= 0 && state < S)
-                ? bp[((size_t)t * B + b) * S + state] : 0;
-            state = state - (j - lb);
-        }
+    for (int t = L + tid; t < T; t += blockDim.x) out[t] = start;
+
+    const int NC = (L - 1 + BT_FRAMES - 1) / BT_FRAMES;
+    const int WL = min(S, RB - 16);
+    const unsigned ring = (smem_addr(bt_smem) + RB - 1) & ~(unsigned)(RB - 1);
+    const unsigned full = smem_addr(bars);
+    const unsigned empty = full + 8 * BT_STAGES;
+    if (tid == 0) {
+        for (int s = 0; s < 2 * BT_STAGES; ++s) mbar_init(full + 8 * s);
+        published = start;
+        asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
     }
-    out[0] = state;
+    __syncthreads();
+
+    if (warp == 1) {
+        for (int c = 0; c < NC; ++c) {
+            const int s = c % BT_STAGES;
+            if (c >= BT_STAGES) mbar_wait(empty + 8 * s, (c / BT_STAGES - 1) & 1);
+            const int hi = L - 1 - c * BT_FRAMES;
+            // lane 0 reads the walker's state once and the warp takes its
+            // window from there, so every lane stages the same states
+            int lo = 0;
+            if (lane == 0) {
+                lo = max(0, min(*(volatile int*)&published - (WL - BT_UP), S - WL));
+                lo_of[s] = lo;
+            }
+            lo = __shfl_sync(0xffffffffu, lo, 0);
+            if (lane < min(BT_FRAMES, hi)) {
+                const uint8_t* from = bp + ((size_t)(hi - lane) * B + b) * S + lo;
+                const int o = (int)((uintptr_t)from & 15);
+                const unsigned bytes = (unsigned)((o + WL + 15) >> 4) * 16;
+                mbar_expect_tx(full + 8 * s, bytes);
+                bulk_copy(ring + (unsigned)((s * BT_FRAMES + lane) * RB), from - o, bytes,
+                          full + 8 * s);
+            }
+            __syncwarp();
+            if (lane == 0) mbar_arrive(full + 8 * s);
+        }
+        return;
+    }
+
+    const unsigned mask = (unsigned)RB - 1;
+    const unsigned frame_step = (unsigned)B * (unsigned)S;
+    int state = start;
+    for (int c = 0; c < NC; ++c) {
+        const int s = c % BT_STAGES;
+        if (lane == 0) *(volatile int*)&published = state;
+        mbar_wait(full + 8 * s, (c / BT_STAGES) & 1);
+        const int lo = lo_of[s];
+        const int hi = L - 1 - c * BT_FRAMES;
+        const int nf = min(BT_FRAMES, hi);
+        const unsigned stage = ring + (unsigned)(s * BT_FRAMES * RB);
+        // the low bits of the address of bp[hi, b, lo]; frame hi - k's is
+        // k * frame_step lower
+        const unsigned a0 = (unsigned)(uintptr_t)bp + (unsigned)lo
+            + ((unsigned)hi * (unsigned)B + (unsigned)b) * (unsigned)S;
+        const int entry = state;
+        int mine = 0;  // lane k: the state at frame hi - k
+        bool missed = nf < BT_FRAMES;
+        if (!missed) {
+            int o = (int)(a0 & 15);
+            int r = state - lo + o;  // byte of the state in its stage row
+#pragma unroll
+            for (int k = 0; k < BT_FRAMES; ++k) {
+                const int next_o = (int)((a0 - (unsigned)(k + 1) * frame_step) & 15);
+                if (lane == k) mine = r - o + lo;
+                missed |= (unsigned)(r - o) >= (unsigned)WL;
+                const int j = lds_u8((stage + (unsigned)(k * RB)) | ((unsigned)r & mask));
+                r += lb + next_o - o - j;
+                o = next_o;
+            }
+            state = r - o + lo;
+        }
+        if (missed) {
+            state = entry;
+            for (int k = 0; k < nf; ++k) {
+                if (lane == k) mine = state;
+                const unsigned u = (unsigned)(state - lo);
+                int j = 0;
+                if (u < (unsigned)WL)
+                    j = lds_u8(stage + (unsigned)(k * RB)
+                               + ((a0 - (unsigned)k * frame_step) & 15) + u);
+                else if ((unsigned)state < (unsigned)S)
+                    j = bp[((size_t)(hi - k) * B + b) * S + state];
+                state += lb - j;
+            }
+        }
+        if (lane < nf) out[hi - lane] = mine;
+        __syncwarp();
+        if (lane == 0) mbar_arrive(empty + 8 * s);
+    }
+    if (lane == 0) out[0] = state;
 }
 
 // How band_forward lays out a launch for these sizes: its block size, its
@@ -360,13 +553,24 @@ extern "C" int band_forward(
     return (int)cudaErrorInvalidValue;
 }
 
+// The launch takes band_backtrace_plan's (ops/cuda_viterbi.py) bytes a staged
+// row (RB) and shared bytes. A row size this file cannot run (a window of
+// fewer than BT_MAX_ROW - 16 states, or not a power of two) is refused, and
+// so are shared bytes other than this file's ring, so the plan's chunk and
+// ring sizes cannot drift from BT_FRAMES and BT_STAGES.
 extern "C" int band_backtrace(
     const uint8_t* bp, const int* flens, const int* best, int* states,
-    int B, int T, int S, int lb, void* stream)
+    int B, int T, int S, int lb, int row_bytes, size_t smem, void* stream)
 {
-    const int threads = 32;
-    const int blocks = (B + threads - 1) / threads;
-    band_backtrace_kernel<<<blocks, threads, 0, (cudaStream_t)stream>>>(
-        bp, flens, best, states, B, T, S, lb);
+    const int RB = row_bytes;
+    if (RB < 32 || RB > BT_MAX_ROW || (RB & (RB - 1)) != 0
+        || (S > RB - 16 && RB != BT_MAX_ROW)
+        || smem != (size_t)(BT_STAGES * BT_FRAMES + 1) * RB)
+        return (int)cudaErrorInvalidValue;
+    const cudaError_t err = cudaFuncSetAttribute(
+        band_backtrace_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err != cudaSuccess) return (int)err;
+    band_backtrace_kernel<<<B, 64, smem, (cudaStream_t)stream>>>(
+        bp, flens, best, states, B, T, S, lb, RB);
     return (int)cudaGetLastError();
 }

@@ -14,7 +14,7 @@ tensors it launches its kernel or raises.
 from __future__ import annotations
 
 import ctypes
-from typing import Tuple
+from typing import NamedTuple, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -40,6 +40,40 @@ BAND_BUCKETS = [
 # and the one that keeps alpha in a global scratch row (csrc/band_viterbi.cu
 # band_forward_plan)
 _BAND_L2, _ALL_GLOBAL = 2, 3
+
+# band_backtrace's layouts (csrc/band_viterbi.cu), which follow from S and
+# the row size: whole frame rows staged in shared memory, or a window of
+# each row, whose misses read bp from device memory
+BT_ROWS, BT_WINDOW = 0, 1
+# shared memory a block may use on sm_90 (227 KB)
+MAX_SMEM = 232448
+# BT_FRAMES, BT_STAGES and BT_MAX_ROW of csrc/band_viterbi.cu; its launcher
+# refuses shared bytes other than its own ring's, so these cannot drift
+_BT_FRAMES, _BT_STAGES, _BT_MAX_ROW = 32, 4, 512
+
+
+class BacktracePlan(NamedTuple):
+    """How band_backtrace lays out a launch (see csrc/band_viterbi.cu). The
+    launcher takes row_bytes and smem_bytes; the rest describes them."""
+
+    mode: int  # BT_ROWS or BT_WINDOW
+    frames: int  # frames a chunk
+    stages: int  # chunks in the ring
+    row_bytes: int  # a staged frame row, a power of two
+    smem_bytes: int  # dynamic shared memory: the ring and one row to align it
+
+
+def band_backtrace_plan(S: int) -> BacktracePlan:
+    """The launch plan for a graph of ``S`` states. A staged row holds up to
+    row_bytes - 16 states: the copy takes the aligned 16-byte blocks that
+    cover them, wherever the frame row starts. Rows grow by powers of two to
+    512 bytes; larger graphs stage a 496-state window of each frame."""
+    row = 32
+    while row < min(-(-S // 16) * 16 + 16, _BT_MAX_ROW):
+        row *= 2
+    mode = BT_ROWS if S <= row - 16 else BT_WINDOW
+    return BacktracePlan(mode, _BT_FRAMES, _BT_STAGES, row,
+                         (_BT_STAGES * _BT_FRAMES + 1) * row)
 
 
 # ---------------------------------------------------------------------------
@@ -117,7 +151,7 @@ def _declare(lib) -> None:
     lib.band_forward.restype = i
     lib.band_forward_plan.argtypes = [i, i, i] + [ctypes.POINTER(i)] * 3
     lib.band_forward_plan.restype = ctypes.c_size_t
-    lib.band_backtrace.argtypes = [p, p, p, p, i, i, i, i, p]
+    lib.band_backtrace.argtypes = [p, p, p, p] + [i] * 5 + [ctypes.c_size_t, p]
     lib.band_backtrace.restype = i
 
 
@@ -205,10 +239,11 @@ def band_backtrace(
     if B == 0 or S == 0:
         return states
     lib = _lib()
+    plan = band_backtrace_plan(S)
     stream = torch.cuda.current_stream(bp.device).cuda_stream
     err = lib.band_backtrace(
         bp.data_ptr(), frame_lengths.data_ptr(), best_state.data_ptr(),
-        states.data_ptr(), B, T, S, lb, stream,
+        states.data_ptr(), B, T, S, lb, plan.row_bytes, plan.smem_bytes, stream,
     )
     cuda_build.check(err, "band_backtrace")
     cuda_build.LAUNCHES["band_backtrace"] += 1

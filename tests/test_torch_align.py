@@ -274,6 +274,11 @@ def test_chip_smoke_phases_run_on_cpu(tmp_path, monkeypatch):
     assert chip_smoke.reference_check(model_path, dict_path, corpus_dir, cpu)[
         "frame_agreement"] == 1.0
     checks = chip_smoke.kernel_checks(captured, aligner.gmm, cpu, reps=1)
+    # K2 is held on the last batch too (5 utterances in batches of 3)
+    assert captured["band_backtrace_last"] is not captured["band_backtrace"]
+    last = checks["band_backtrace"]["last_batch"]
+    assert last["max_abs_err"] == 0.0 and last["bound_ms"] > 0
+    assert last["chain_floor_ms"] is None  # no SM clock given
     line = chip_smoke.kernels_line(checks, {k: 2 for k in checks})
     keys = {"name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms"}

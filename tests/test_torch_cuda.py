@@ -29,7 +29,12 @@ from montreal_forced_aligner_tpu_torch.params import gmm_params_from_numpy
 sys.path.insert(0, str(Path(__file__).resolve().parent))
 sys.path.insert(0, str(Path(__file__).resolve().parent.parent))
 import chip_smoke  # noqa: E402
-from torch_port_inputs import band_inputs, gmm_arrays  # noqa: E402
+from torch_port_inputs import (  # noqa: E402
+    backtrace_inputs,
+    band_inputs,
+    gmm_arrays,
+    leaves_range_across_chunks,
+)
 
 pytestmark = pytest.mark.cuda
 
@@ -83,6 +88,70 @@ def test_band_kernels_match_plain(cuda_device, monkeypatch, lb, ub, S, T):
     within[0] = False
     assert torch.equal(bp_k[within], bp_r[within])
     assert torch.equal(st_k, st_r)
+
+
+def _backtrace_cases():
+    """(S, T, B, offset) for K2 alone: both layouts of its plan (whole rows
+    through S = 300, a window from 832), S a multiple of 16 and not, T at 1,
+    2, the plan's chunk -1 / 0 / +1 and 1600, B of 1, 5 and 33 in turn (1
+    where bp would pass 64 MB), and bp starting 0 or 5 bytes past an
+    allocation."""
+    cases = []
+    for S in (1, 29, 300, 832, 1100, 29100):
+        tc = CV.band_backtrace_plan(S).frames
+        for i, T in enumerate(sorted({1, 2, tc - 1, tc, tc + 1, 1600} - {0})):
+            B = (1, 5, 33)[i % 3]
+            cases.append((S, T, B if T * B * S <= 1 << 26 else 1, 5 * (i % 2)))
+    return cases
+
+
+@pytest.mark.parametrize("S,T,B,offset", _backtrace_cases())
+def test_band_backtrace_matches_plain(cuda_device, monkeypatch, S, T, B, offset):
+    lb, ub = 2, 12
+    bp, flens, best = backtrace_inputs(S + T + B, T, B, S, lb, ub)
+    flat = torch.zeros(offset + bp.size, dtype=torch.uint8, device=cuda_device)
+    flat[offset:] = torch.from_numpy(bp.reshape(-1)).to(cuda_device)
+    bp = flat[offset:].view(T, B, S)
+    flens, best = (torch.from_numpy(x).to(cuda_device) for x in (flens, best))
+    want = CV.band_backtrace_plain(bp, flens, best, lb)
+    monkeypatch.setattr(CV, "band_backtrace_plain", _no_plain)
+    cuda_build.reset_launch_counts()
+    got = CV.band_backtrace(bp, flens, best, lb)
+    torch.cuda.synchronize()
+    assert cuda_build.LAUNCHES["band_backtrace"] == 1
+    assert torch.equal(got, want)
+
+
+def test_band_backtrace_leaves_range_across_chunks(cuda_device, monkeypatch):
+    S, lb, ub = 29, 2, 12
+    tc = CV.band_backtrace_plan(S).frames
+    T = 3 * tc + 5
+    bp, flens, best = backtrace_inputs(11, T, 5, S, lb, ub)
+    args = [torch.from_numpy(x).to(cuda_device) for x in (bp, flens, best)]
+    want = CV.band_backtrace_plain(*args, lb)
+    assert leaves_range_across_chunks(want.cpu().numpy(), flens, S, tc)
+    monkeypatch.setattr(CV, "band_backtrace_plain", _no_plain)
+    cuda_build.reset_launch_counts()
+    got = CV.band_backtrace(*args, lb)
+    torch.cuda.synchronize()
+    assert cuda_build.LAUNCHES["band_backtrace"] == 1
+    assert torch.equal(got, want)
+
+
+def test_band_backtrace_window_follows_a_long_path(cuda_device, monkeypatch):
+    """A path that drifts down a state a frame on average through 1600
+    frames of a 2000-state graph: the staged window moves with it."""
+    T, B, S, lb = 1600, 4, 2000, 2
+    rng = np.random.RandomState(8)
+    bp = torch.from_numpy(rng.randint(lb, lb + 3, (T, B, S)).astype(np.uint8))
+    flens = torch.tensor([T, T - 1, 1000, 33], dtype=torch.int32)
+    best = torch.tensor([S - 1, S - 2, 1500, 600], dtype=torch.int32)
+    args = [x.to(cuda_device) for x in (bp, flens, best)]
+    want = CV.band_backtrace_plain(*args, lb)
+    assert ((want >= 0) & (want < S)).all()
+    monkeypatch.setattr(CV, "band_backtrace_plain", _no_plain)
+    got = CV.band_backtrace(*args, lb)
+    assert torch.equal(got, want)
 
 
 def test_backtrace_walks_out_of_range_like_plain(cuda_device):

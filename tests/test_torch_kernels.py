@@ -37,7 +37,12 @@ from montreal_forced_aligner_tpu_torch.ops.gmm_loglikes import (
 )
 from montreal_forced_aligner_tpu_torch.params import gmm_params_from_numpy
 
-from torch_port_inputs import band_inputs, gmm_arrays
+from torch_port_inputs import (
+    backtrace_inputs,
+    band_inputs,
+    gmm_arrays,
+    leaves_range_across_chunks,
+)
 
 
 @pytest.fixture
@@ -139,6 +144,170 @@ def test_band_backtrace_matches_pallas_on_random_backpointers(interpret, seed):
     )
     assert ((st_j < 0) | (st_j >= S)).any()  # the case is exercised
     np.testing.assert_array_equal(st_p.numpy(), st_j)
+
+
+def _pallas_backtrace(bp, flens, best, lb):
+    """States (B, T) from the Pallas kernel, bp padded with junk frames to
+    its chunk of 8."""
+    T = bp.shape[0]
+    Tp = -(-T // PV._TC) * PV._TC
+    padded = np.concatenate([bp, np.full((Tp - T,) + bp.shape[1:], 255, np.uint8)])
+    return np.asarray(PV.band_backtrace_pallas(
+        jnp.asarray(padded), jnp.asarray(flens), jnp.asarray(best), lb, T))
+
+
+def _staged_walk(bp, offset, flens, best, lb, plan, rng=None):
+    """The card's walk (csrc/band_viterbi.cu band_backtrace_kernel), step
+    for step, in numpy. bp sits at byte ``offset`` + 16 of a junk-filled
+    memory. Chunk c stages, from frame row t, the aligned 16-byte blocks
+    that cover states [lo, lo + WL) into a junk-filled row of its stage; lo
+    follows the copier's rule from the state the walker published at the
+    start of chunk c - stages + 1 (the earliest the ring allows), or is
+    drawn from ``rng``. The fast pass keeps r, the state's byte in its stage
+    row, and reads byte r & (row - 1); if r ever left the staged states, or
+    the chunk is short, the chunk is walked again exactly. Returns (states,
+    full chunks walked again)."""
+    T, B, S = bp.shape
+    RB, NS, TC = plan.row_bytes, plan.stages, plan.frames
+    WL = min(S, RB - 16)
+    step = B * S
+    base = 16 + offset
+    mem = np.full(base + bp.size + 32, 254, np.uint8)
+    mem[base : base + bp.size] = bp.reshape(-1)
+    out = np.empty((B, T), np.int32)
+    misses = 0
+    for b in range(B):
+        L = max(min(int(flens[b]), T), 1)
+        out[b, L:] = best[b]
+        state = int(best[b])
+        entries = []
+        for c in range((L - 1 + TC - 1) // TC):
+            entries.append(state)
+            hi = L - 1 - c * TC
+            nf = min(TC, hi)
+            if rng is None:
+                lo = max(0, min(entries[max(0, c - NS + 1)] - (WL - 16), S - WL))
+            else:
+                lo = int(rng.randint(0, S - WL + 1))
+            stage = np.full((TC, RB), 253, np.uint8)
+            for k in range(nf):
+                frm = base + ((hi - k) * B + b) * S + lo
+                o = frm & 15
+                n = ((o + WL + 15) >> 4) * 16
+                assert n <= RB
+                # the first and last blocks hold bytes of the tensor
+                assert base <= frm and frm - o + n - 16 < base + bp.size
+                stage[k, :n] = mem[frm - o : frm - o + n]
+            a0 = base + lo + (hi * B + b) * S
+            mine = np.empty(nf, np.int64)
+            missed = nf < TC
+            if not missed:
+                o = a0 & 15
+                r = state - lo + o
+                for k in range(TC):
+                    next_o = (a0 - (k + 1) * step) & 15
+                    mine[k] = r - o + lo
+                    missed |= not 0 <= r - o < WL
+                    r += lb + next_o - o - int(stage[k, r & (RB - 1)])
+                    o = next_o
+                state = r - o + lo
+            if missed:
+                misses += nf == TC
+                state = entries[-1]
+                for k in range(nf):
+                    mine[k] = state
+                    u = state - lo
+                    if 0 <= u < WL:
+                        j = int(stage[k, ((a0 - k * step) & 15) + u])
+                    elif 0 <= state < S:
+                        j = int(bp[hi - k, b, state])
+                    else:
+                        j = 0
+                    state += lb - j
+            out[b, hi - np.arange(nf)] = mine
+        out[b, 0] = state
+    return out, misses
+
+
+def test_band_backtrace_plan_fits_every_graph():
+    """A layout for every S up to 100k: whole rows while they fit a
+    512-byte staged row, else a window; the ring fits the 227 KB a block
+    may use, and a staged row covers its states wherever the frame row
+    starts."""
+    modes = set()
+    for S in range(1, 100_001):
+        plan = CV.band_backtrace_plan(S)
+        modes.add(plan.mode)
+        rb = plan.row_bytes
+        assert plan.frames >= 1
+        assert plan.smem_bytes == (plan.stages * plan.frames + 1) * rb <= CV.MAX_SMEM
+        assert 32 <= rb <= 512 and rb & (rb - 1) == 0
+        if plan.mode == CV.BT_ROWS:
+            assert S + 15 < rb  # any start offset, then S states
+        else:
+            assert plan.mode == CV.BT_WINDOW and S > rb - 16 and rb == 512
+    assert modes == {CV.BT_ROWS, CV.BT_WINDOW}
+    assert CV.band_backtrace_plan(300).mode == CV.BT_ROWS
+    assert CV.band_backtrace_plan(832).mode == CV.BT_WINDOW  # the first batch
+
+
+@pytest.mark.parametrize("S", [29, 300, 1100])
+@pytest.mark.parametrize("edge", [-1, 0, 1, 2, 66])
+def test_band_backtrace_matches_pallas_at_chunk_boundaries(interpret, S, edge):
+    """K2's plain version against the Pallas kernel on random backpointers
+    that leave [0, S), at T = TC + edge for the plan's chunk of TC frames
+    (T - 1 frames are walked), with frame lengths 1, 2 and T; and the
+    card's walk, emulated, on the same inputs, with bp at two byte offsets
+    and the window placed by the copier's rule and at random."""
+    lb, ub = 2, 12
+    plan = CV.band_backtrace_plan(S)
+    T = plan.frames + edge
+    bp, flens, best = backtrace_inputs(S + edge, T, 5, S, lb, ub)
+    want = _pallas_backtrace(bp, flens, best, lb)
+    assert ((want < 0) | (want >= S)).any()
+    got = CV.band_backtrace(torch.from_numpy(bp), torch.from_numpy(flens),
+                            torch.from_numpy(best), lb)
+    np.testing.assert_array_equal(got.numpy(), want)
+    for offset in (0, 5):
+        np.testing.assert_array_equal(
+            _staged_walk(bp, offset, flens, best, lb, plan)[0], want)
+    np.testing.assert_array_equal(
+        _staged_walk(bp, 7, flens, best, lb, plan, np.random.RandomState(S))[0], want)
+
+
+def test_band_backtrace_leaves_range_across_chunks(interpret):
+    """Walks that leave [0, S) in one chunk and come back in the next: the
+    plain version and the emulated card walk against the Pallas kernel."""
+    S, lb, ub = 29, 2, 12
+    plan = CV.band_backtrace_plan(S)
+    T = 3 * plan.frames + 5
+    bp, flens, best = backtrace_inputs(11, T, 5, S, lb, ub)
+    want = _pallas_backtrace(bp, flens, best, lb)
+    assert leaves_range_across_chunks(want, flens, S, plan.frames)
+    got = CV.band_backtrace(torch.from_numpy(bp), torch.from_numpy(flens),
+                            torch.from_numpy(best), lb)
+    np.testing.assert_array_equal(got.numpy(), want)
+    np.testing.assert_array_equal(_staged_walk(bp, 3, flens, best, lb, plan)[0], want)
+
+
+def test_band_backtrace_window_follows_the_path():
+    """A path that drifts down about a state a frame through a graph wider
+    than the window (the main path's shape, shortened): the emulated card
+    walk stays inside the copier's windows on every full chunk, and matches
+    the plain version."""
+    T, B, S, lb = 200, 3, 1100, 2
+    plan = CV.band_backtrace_plan(S)
+    assert plan.mode == CV.BT_WINDOW
+    rng = np.random.RandomState(4)
+    bp = rng.randint(lb, lb + 3, size=(T, B, S)).astype(np.uint8)
+    flens = np.array([T, T - 7, 150], np.int32)
+    best = np.array([S - 1, 700, 400], np.int32)
+    want = CV.band_backtrace_plain(torch.from_numpy(bp), torch.from_numpy(flens),
+                                   torch.from_numpy(best), lb).numpy()
+    assert ((want >= 0) & (want < S)).all()
+    got, misses = _staged_walk(bp, 9, flens, best, lb, plan)
+    np.testing.assert_array_equal(got, want)
+    assert misses == 0
 
 
 @pytest.mark.parametrize(

@@ -29,6 +29,44 @@ def band_inputs(seed, B, T, S, lb, ub, ties=True):
     return emit, band, start, final, flens
 
 
+def backtrace_inputs(seed, T, B, S, lb, ub):
+    """Random backpointers (T, B, S) uint8 in [0, lb + ub], frame lengths
+    starting T, 1, 2 (then T + 5, past T, and random ones) and start states
+    near 0 but the last, S - 1. Random slots walk states down by about
+    (ub - lb) / 2 a frame, out of [0, S), and +lb a frame back in. Rows
+    t = 0 and t >= flens, which K1 never writes, hold 255 junk."""
+    rng = np.random.RandomState(seed)
+    bp = rng.randint(0, lb + ub + 1, size=(T, B, S)).astype(np.uint8)
+    flens = rng.randint(1, T + 1, size=B).astype(np.int32)
+    flens[:4] = [T, 1, 2, T + 5][:B]
+    bp[0] = 255
+    for b in range(B):
+        bp[flens[b]:, b] = 255
+    best = rng.randint(0, min(S, 40), size=B).astype(np.int32)
+    best[-1] = S - 1
+    return bp, flens, best
+
+
+def leaves_range_across_chunks(states, flens, S, frames):
+    """Whether some row's walk is outside [0, S) at a frame of one chunk of
+    ``frames`` frames (counted back from the row's last frame) and first
+    comes back into range in a later chunk."""
+    B, T = states.shape
+    for b in range(B):
+        L = max(min(int(flens[b]), T), 1)
+        left = None  # chunk where the current out-of-range run began
+        for t in range(L - 1, -1, -1):
+            chunk = (L - 1 - t) // frames
+            inside = 0 <= states[b, t] < S
+            if not inside and left is None:
+                left = chunk
+            elif inside and left is not None:
+                if chunk > left:
+                    return True
+                left = None
+    return False
+
+
 def gmm_arrays(seed, P, G, D, padded_pdfs=()):
     rng = np.random.RandomState(seed)
     means = (rng.randn(P, G, D) * 2).astype(np.float32)
