@@ -6,34 +6,53 @@
 What it does, in order; any failure exits non-zero with no result line:
 
 1. prints the card's name and power limit as ``nvidia-smi`` gives them;
-2. builds the port's CUDA kernels from ``montreal_forced_aligner_tpu_torch/
-   csrc`` (one ``nvcc`` per source, all started together);
+2. builds the port's native code, the CUDA kernels of
+   ``montreal_forced_aligner_tpu_torch/csrc`` and the fMLLR solver of
+   ``native/`` (one compiler per source, all started together);
 3. builds, with the port's own modules, a synthetic acoustic model at SAT
    scale (random weights from a seed: 40 phones, about 5k pdfs, 32
    Gaussians per pdf, a 40-dim LDA over +-3 spliced 13-dim MFCCs, and a
-   speaker-independent alignment model) and a corpus of 64 utterances of
-   2-30 s over 8 speakers;
-4. aligns the corpus once through ``PretrainedAligner.align_corpus`` in
-   speaker-independent mode (batch 32) with every launch count set to 0
-   just before, exports TextGrids, and requires every kernel to have been
-   launched and every utterance to have an alignment; every call of the
-   three kernel wrappers in that run, and again in the first warm run, is
-   timed with CUDA events; five warm runs give the steady throughput (their
+   speaker-independent alignment model), a corpus of 64 utterances of 2-30
+   s over 8 speakers, two small corpora and one utterance of 10.5 minutes;
+4. main path **sat-2pass**: aligns the corpus through
+   ``PretrainedAligner.align_corpus`` with speaker adaptation (the fMLLR
+   two-pass; batch 32) with every launch count set to 0 just before,
+   exports TextGrids, and requires every kernel to have been launched
+   twice per batch and every utterance to have an alignment and at least
+   one speaker to have passed ``fmllr_min_count``; every call of the three
+   kernel wrappers in that run, and again in the first warm run, is timed
+   with CUDA events, and each batch's fMLLR statistics are replayed under
+   the profiler for the card's busy time in them; five warm runs give the steady throughput (their
    median), one with the card synchronised at each phase the phase
    breakdown, and one more under ``torch.profiler`` the card's busy share
-   and its time by kernel;
-5. aligns 4 short utterances on the card and on the CPU (the plain PyTorch
-   versions) and holds the two to the JAX package's parity bar;
-6. holds each kernel against its plain version on the first batch's real
-   inputs (K1 backpointers and K2 states bit-identical, K1 alpha within
-   1e-4, K3 within rtol 1e-5 / atol 1e-3) and times both, K2 also on the
-   last batch's (its ``last_batch``, with S > 1024), and for K3 two
-   yardsticks on the same batch: the all-pdf emission path, and the
-   gathered rows through ``torch.matmul`` and ``torch.logsumexp``; K2's
-   line adds its chain floor, the longest row's steps times one
-   shared-memory load (``SMEM_LOAD_CYCLES``) at ``clocks.max.sm``;
-7. prints one ``{"kernels": [...]}`` line, then as the last line
-   ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": 1}}``.
+   and its time by kernel (the kernels' own symbols beside the events);
+5. main path **sat-si**: the same corpus single-pass with the
+   speaker-independent model, counted again from 0, three warm runs, one
+   synchronised and one profiled;
+6. aligns small corpora on the card and on the CPU (the plain PyTorch
+   versions), speaker-independent and two-pass, and holds each pair to the
+   JAX package's parity bar;
+7. holds each kernel against its plain version on the real inputs of the
+   first batch of sat-si and of sat-2pass's second pass (adapted features,
+   final model): K1 backpointers and K2 states bit-identical, K1 alpha
+   within 1e-4, K3 within rtol 1e-5 / atol 1e-3; times both, K2 also on
+   the last batch's (``last_batch``), and for K3 two yardsticks: the
+   all-pdf emission path, and the gathered rows through ``torch.matmul``
+   and ``torch.logsumexp``; K2's line adds its chain floor, the longest
+   row's steps times one shared-memory load (``SMEM_LOAD_CYCLES``) at
+   ``clocks.max.sm``;
+8. aligns the 10.5-minute utterance through ``align_corpus`` (the
+   single-utterance two-pass and the chunked exact Viterbi), then on its
+   final features holds ``viterbi_align_long`` against one
+   whole-utterance emit and align (identical state path, score within
+   1e-3), times each sweep, checks the path's launches exactly, and holds
+   K3, K1 and K2 on one chunk against their plain versions;
+9. holds the native fMLLR solve against its numpy sweep on sat-2pass's own
+   statistics (atol 2e-4) and times both (before step 8, whose own
+   two-pass replaces the aligner's estimate);
+10. prints one ``{"kernels": [...]}`` line (sat-2pass's launches and
+    second-pass checks), then as the last line
+    ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": 1}}``.
 
 It imports nothing of JAX and nothing of the JAX package.
 """
@@ -182,9 +201,10 @@ def build_sat_scale_model(
 
 
 def build_corpus(tmp: Path, words, num_utts: int, min_s=2.0, max_s=30.0,
-                 seed=0, name="corpus", sr=16000):
-    """Utterances of min_s-max_s seconds over 8 speakers: noise plus three
-    tones each, and 2.5 random words per second. Returns (dir, seconds)."""
+                 seed=0, name="corpus", sr=16000, num_speakers=8):
+    """Utterances of min_s-max_s seconds over ``num_speakers`` speakers:
+    noise plus three tones each, and 2.5 random words per second. Returns
+    (dir, seconds)."""
     from montreal_forced_aligner_tpu_torch.io.wav import write_wave
 
     rng = np.random.RandomState(seed)
@@ -192,7 +212,7 @@ def build_corpus(tmp: Path, words, num_utts: int, min_s=2.0, max_s=30.0,
     words = sorted(words)
     total = 0.0
     for u in range(num_utts):
-        d = corp / f"spk{u % 8}"
+        d = corp / f"spk{u % num_speakers}"
         d.mkdir(parents=True, exist_ok=True)
         seconds = float(rng.uniform(min_s, max_s))
         n = int(seconds * sr)
@@ -247,27 +267,35 @@ def bound_ms(nbytes: float, flops: float, flop_per_s: float = FP32_FLOP_PER_S):
 
 class CallRecorder:
     """Wraps a module-level function for one ``with`` block, calling
-    through unchanged: records the arguments of its first call (the first
-    batch's real inputs) and of its last (the last batch's) and, on the
-    card, a pair of CUDA events around every call, so :meth:`total_ms`
-    gives the card's time over all calls."""
+    through unchanged: records the arguments of every call (``all_args``;
+    ``args`` the first, the first batch's real inputs, and ``last_args`` the
+    last) and, on the card, a pair of CUDA events around every call, so
+    :meth:`total_ms` gives the time between the events over all calls:
+    the card's time in the call, and any time it waited on the host there."""
 
     def __init__(self, module, name, device):
         self.module, self.name = module, name
         self.orig = getattr(module, name)
         self.timed = device.type == "cuda"
-        self.args = None
-        self.last_args = None
-        self.calls = 0
+        self.all_args = []
         self.events = []
+
+    @property
+    def calls(self):
+        return len(self.all_args)
+
+    @property
+    def args(self):
+        return self.all_args[0] if self.all_args else None
+
+    @property
+    def last_args(self):
+        return self.all_args[-1] if self.all_args else None
 
     def __call__(self, *args, **kwargs):
         import torch
 
-        if self.args is None:
-            self.args = (args, kwargs)
-        self.last_args = (args, kwargs)
-        self.calls += 1
+        self.all_args.append((args, kwargs))
         if not self.timed:
             return self.orig(*args, **kwargs)
         start = torch.cuda.Event(enable_timing=True)
@@ -349,17 +377,36 @@ def parity(got, want, frame_shift):
     return out
 
 
+def fmllr_summary(aligner):
+    """The speakers over ``fmllr_min_count`` in the aligner's last two-pass
+    run (at least one, or the run adapted nothing) and its transforms'
+    largest deviation from the identity."""
+    est = aligner.last_fmllr
+    _check(est is not None, "the two-pass run left no fMLLR estimate")
+    D = est.transforms.shape[1]
+    ident = np.hstack([np.eye(D), np.zeros((D, 1))])
+    over = int((est.beta >= aligner.config.fmllr_min_count).sum())
+    _check(over >= 1, f"no speaker passed fmllr_min_count: beta {est.beta}")
+    return {
+        "speakers": int(len(est.beta)),
+        "speakers_over_min_count": over,
+        "min_count": aligner.config.fmllr_min_count,
+        "beta": [float(b) for b in est.beta],
+        "max_dev_from_identity": float(np.abs(est.transforms - ident).max()),
+    }
+
+
 # -- phases ------------------------------------------------------------------
 
 
 def run_main_path(model_path, dict_path, corpus_dir, out_dir, device,
-                  batch_size=32, warm_runs=5):
-    """Phase 4: one counted run of the main path, then ``warm_runs`` warm
-    runs (their median gives the throughput), then one with the card
+                  batch_size=32, warm_runs=5, adaptation=True):
+    """One counted run of a main path (``adaptation``: the fMLLR two-pass,
+    else speaker-independent single-pass), then ``warm_runs`` warm runs
+    (their median gives the throughput), then one with the card
     synchronised at each phase. The kernel wrappers' calls are timed in the
-    counted run and in the first warm run. Returns (report, aligner,
-    captured first-batch calls, with K2's last call beside them under
-    ``band_backtrace_last``)."""
+    counted run and in the first warm run. Returns (report, aligner, the
+    counted run's :class:`CallRecorder` by kernel)."""
     import contextlib
 
     import torch
@@ -372,18 +419,20 @@ def run_main_path(model_path, dict_path, corpus_dir, out_dir, device,
     aligner = aligner_mod.PretrainedAligner(
         model_path, dict_path,
         aligner_mod.AlignerConfig(batch_size=batch_size,
-                                  uses_speaker_adaptation=False),
+                                  uses_speaker_adaptation=adaptation),
         device=device,
     )
     setup_s = time.perf_counter() - t0
+    _check(aligner.two_pass == adaptation, "two-pass wiring")
     corpus = Corpus.load(corpus_dir)
     audio_s = sum(
         len(w) / aligner.mfcc_config.sample_rate
         for w in corpus.load_audio_parallel(aligner.mfcc_config.sample_rate)
     )
     counted = record_kernel_calls(device)
+    stats_calls = CallRecorder(aligner_mod, "accumulate_fmllr_stats", device)
     with contextlib.ExitStack() as stack:
-        for rec in counted.values():
+        for rec in (*counted.values(), stats_calls):
             stack.enter_context(rec)
         if device.type == "cuda":
             torch.cuda.synchronize()
@@ -406,9 +455,22 @@ def run_main_path(model_path, dict_path, corpus_dir, out_dir, device,
     _check(len(paths) == len(corpus.files), "TextGrid count")
     for p in paths:
         _check(p.stat().st_size > 0, f"empty TextGrid {p}")
+    n_batches = -(-corpus.num_utterances // batch_size)
+    per_kernel = n_batches * (2 if adaptation else 1)
     if device.type == "cuda":
         for name, n in launches.items():
-            _check(n > 0, f"kernel {name} was not launched on the main path")
+            _check(n == per_kernel,
+                   f"kernel {name}: {n} launches on the main path, not {per_kernel}")
+    fmllr = None
+    if adaptation:
+        fmllr = fmllr_summary(aligner)
+        _check(stats_calls.calls == n_batches, "one fMLLR accumulation a batch")
+        if device.type == "cuda":
+            # the card's busy time in each batch's statistics, on its own
+            fmllr["stats_device_ms"] = [
+                device_busy_ms(lambda a=a: stats_calls.orig(*a[0], **a[1]))
+                for a in stats_calls.all_args]
+    del stats_calls
 
     # warm: CUDA context, cuFFT plans, kernel libraries and the graph
     # compiler's caches are in place from the first run
@@ -432,8 +494,10 @@ def run_main_path(model_path, dict_path, corpus_dir, out_dir, device,
     synced = dict(aligner.last_phase_seconds)
     aligner.sync_phases = False
     report = {
+        "path": "sat-2pass" if adaptation else "sat-si",
         "utterances": corpus.num_utterances,
         "audio_s": audio_s,
+        "batches": n_batches,
         "setup_s": setup_s,
         "wall_s": wall,
         "audio_s_per_s": audio_s / wall,
@@ -448,16 +512,33 @@ def run_main_path(model_path, dict_path, corpus_dir, out_dir, device,
         "synced_wall_s": synced_wall,
         "phases_synced_s": synced,
         "textgrids": len(paths),
+        "fmllr": fmllr,
     }
-    captured = {k: r.args for k, r in counted.items()}
-    captured["band_backtrace_last"] = counted["band_backtrace"].last_args
-    return report, aligner, captured
+    return report, aligner, counted
+
+
+def batch_inputs(counted, first_call: int):
+    """The recorded inputs of one batch's kernel calls (call ``first_call``
+    of each wrapper), with K2's last call beside them under
+    ``band_backtrace_last``."""
+    out = {k: r.all_args[first_call] for k, r in counted.items()}
+    out["band_backtrace_last"] = counted["band_backtrace"].last_args
+    return out
+
+
+# the symbols of the port's kernels, as the profiler names them
+KERNEL_SYMBOLS = {
+    "band_forward": "band_forward_kernel",
+    "band_backtrace": "band_backtrace_kernel",
+    "state_emission": "state_emission_kernel",
+}
 
 
 def profile_warm_run(aligner, corpus_dir, top=8):
     """One more warm run under ``torch.profiler``: the union of the card's
-    busy intervals against the wall time (the device's busy share), and
-    the card's time by kernel name."""
+    busy intervals against the wall time (the device's busy share), the
+    card's time by kernel name, and each port kernel's summed device time
+    under its own symbol."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -483,21 +564,28 @@ def profile_warm_run(aligner, corpus_dir, top=8):
             cur_end = max(cur_end, end)
     busy_us += cur_end - cur_start
     by_name = {}
+    by_kernel = {k: 0.0 for k in KERNEL_SYMBOLS}
     for e in events:
+        ms = (e.time_range.end - e.time_range.start) / 1e3
         name = e.name.split("(")[0][:60]
-        by_name[name] = by_name.get(name, 0.0) + (e.time_range.end - e.time_range.start) / 1e3
+        by_name[name] = by_name.get(name, 0.0) + ms
+        for k, sym in KERNEL_SYMBOLS.items():
+            if sym in e.name:
+                by_kernel[k] += ms
     ranked = sorted(by_name.items(), key=lambda kv: -kv[1])[:top]
     return {
         "wall_s": wall,
         "device_busy_s": busy_us / 1e6,
         "device_busy_share": busy_us / 1e6 / wall,
         "device_ms_by_kernel": dict(ranked),
+        "device_ms_by_port_kernel": by_kernel,
     }
 
 
-def reference_check(model_path, dict_path, corpus_dir, device):
-    """Phase 5: the card's alignment of a small corpus against the plain
-    PyTorch path on the CPU."""
+def reference_check(model_path, dict_path, corpus_dir, device, adaptation=False):
+    """The card's alignment of a small corpus against the plain PyTorch
+    path on the CPU; with ``adaptation`` the two-pass, whose transforms are
+    compared too."""
     import torch
 
     from montreal_forced_aligner_tpu_torch.align.aligner import (
@@ -506,19 +594,64 @@ def reference_check(model_path, dict_path, corpus_dir, device):
     )
     from montreal_forced_aligner_tpu_torch.corpus.corpus import Corpus
 
-    cfg = AlignerConfig(batch_size=4, uses_speaker_adaptation=False)
+    cfg = AlignerConfig(batch_size=4, uses_speaker_adaptation=adaptation)
     got = PretrainedAligner(model_path, dict_path, cfg, device=device)
     want = PretrainedAligner(model_path, dict_path, cfg,
                              device=torch.device("cpu"))
     r_got = got.align_corpus(Corpus.load(corpus_dir))
     r_want = want.align_corpus(Corpus.load(corpus_dir))
-    return parity(r_got, r_want, got.frame_shift)
+    out = parity(r_got, r_want, got.frame_shift)
+    if adaptation:
+        out["fmllr"] = fmllr_summary(got)
+        out["transforms_max_abs_diff"] = float(np.abs(
+            got.last_fmllr.transforms - want.last_fmllr.transforms).max())
+    return out
+
+
+def k3_work(feats, state_pdf, G, d2p):
+    """K3's (bytes, operations): each input and the (B, T, S) output once,
+    and the 3xTF32 products (three tensor-core products per multiply-add),
+    for ``bound_ms(..., TF32_FLOP_PER_S)``."""
+    import torch
+
+    B, T, Df = feats.shape
+    S = state_pdf.shape[1]
+    n_pdfs_used = int(torch.unique(state_pdf).numel())
+    nbytes = (feats.numel() * 4 + state_pdf.numel() * 4
+              + n_pdfs_used * G * d2p * 4 + B * T * S * 4)
+    return nbytes, 3 * 2.0 * B * T * S * G * (2 * Df + 2)
+
+
+def k1_bound(flens, B, S, D):
+    """K1's least time: emissions of the real frames, band, start, frame
+    counts read once, alpha_T and a backpointer byte per real step written
+    once; 2D + 2 operations per state and step."""
+    import torch
+
+    steps = int(torch.clamp(flens.long() - 1, min=0).sum().item())
+    frames = int(flens.long().sum().item())
+    nbytes = (frames * S * 4 + B * S * D * 4 + B * S * 4 + B * 4
+              + B * S * 4 + steps * S)
+    return bound_ms(nbytes, float(steps) * S * (2 * D + 2))
+
+
+def k2_bound(flens, T, B):
+    """K2's least time: a backpointer byte per step, best states and frame
+    counts read once, the (B, T) states written once. Returns (bound, by,
+    the longest row's steps)."""
+    import torch
+
+    row_steps = torch.clamp(torch.clamp(flens.long(), max=T) - 1, min=0)
+    steps = int(row_steps.sum().item())
+    return (*bound_ms(steps * 1 + B * 4 * 2 + B * T * 4, 0.0),
+            int(row_steps.max().item()))
 
 
 def kernel_checks(captured, gmm, device, reps=5, sm_clock_mhz=None):
-    """Phase 6: each kernel against its plain version on the first batch's
-    inputs, with times and bounds; K2 also on the last batch's, with the
-    chain floor at ``sm_clock_mhz`` (none without it)."""
+    """Each kernel against its plain version on one batch's recorded
+    inputs (:func:`batch_inputs`), with times and bounds; K2 also on the
+    last batch's, with the chain floor at ``sm_clock_mhz`` (none without
+    it)."""
     import torch
 
     from montreal_forced_aligner_tpu_torch.ops import cuda_emission as CE
@@ -568,11 +701,7 @@ def kernel_checks(captured, gmm, device, reps=5, sm_clock_mhz=None):
            f"K3 gathered yardstick differs by {g_err.max().item()}")
     g_err = g_err.max().item()
 
-    n_pdfs_used = int(torch.unique(state_pdf).numel())
-    nbytes = (feats.numel() * 4 + state_pdf.numel() * 4
-              + n_pdfs_used * G * d2p * 4 + B * T * S * 4)
-    # 3xTF32: three tensor-core products for each multiply-add
-    flops = 3 * 2.0 * B * T * S * G * (2 * Df + 2)
+    nbytes, flops = k3_work(feats, state_pdf, G, d2p)
     bnd, by = bound_ms(nbytes, flops, TF32_FLOP_PER_S)
     out["state_emission"] = {
         "shape": {"B": B, "T": T, "S": S, "P": P, "G": G, "D": Df},
@@ -603,12 +732,7 @@ def kernel_checks(captured, gmm, device, reps=5, sm_clock_mhz=None):
            "K1 backpointers differ from the plain version")
     a_err = (aT_k - aT_p).abs().max().item()
     _check(a_err <= 1e-4, f"K1 alpha_T differs by {a_err}")
-    steps = int(torch.clamp(flens.long() - 1, min=0).sum().item())
-    frames = int(flens.long().sum().item())
-    nbytes = (frames * S * 4 + B * S * D * 4 + B * S * 4 + B * 4
-              + B * S * 4 + steps * S)
-    flops = float(steps) * S * (2 * D + 2)
-    bnd, by = bound_ms(nbytes, flops)
+    bnd, by = k1_bound(flens, B, S, D)
     out["band_forward"] = {
         "shape": {"B": B, "T": T, "S": S, "lb": lb, "ub": ub},
         "max_abs_err": a_err,
@@ -629,14 +753,11 @@ def kernel_checks(captured, gmm, device, reps=5, sm_clock_mhz=None):
         st_p = CV.band_backtrace_plain(bp, flens2, best, lb2)
         _check(torch.equal(st_k, st_p), "K2 states differ from the plain version")
         T2, B2, S2 = bp.shape
-        row_steps = torch.clamp(torch.clamp(flens2.long(), max=T2) - 1, min=0)
-        steps = int(row_steps.sum().item())
-        nbytes = steps * 1 + B2 * 4 * 2 + B2 * T2 * 4
-        bnd, by = bound_ms(nbytes, 0.0)
+        bnd, by, longest = k2_bound(flens2, T2, B2)
         # reckoned, not measured: the longest row's chain of dependent
         # shared-memory loads at the card's highest SM clock
-        chain_floor = (int(row_steps.max().item()) * SMEM_LOAD_CYCLES
-                       / (sm_clock_mhz * 1e3) if sm_clock_mhz else None)
+        chain_floor = (longest * SMEM_LOAD_CYCLES / (sm_clock_mhz * 1e3)
+                       if sm_clock_mhz else None)
         return {
             "shape": {"B": B2, "T": T2, "S": S2},
             "plan": CV.band_backtrace_plan(S2)._asdict(),
@@ -663,6 +784,219 @@ def kernel_checks(captured, gmm, device, reps=5, sm_clock_mhz=None):
         "last_batch": backtrace_check(captured["band_backtrace_last"]),
     }
     return out
+
+
+def _sync(device):
+    import torch
+
+    if device.type == "cuda":
+        torch.cuda.synchronize()
+
+
+def long_utterance_phase(aligner, corpus_dir, device, reps=3):
+    """A corpus of one long utterance through ``align_corpus`` (over
+    ``LONG_UTTERANCE_FRAMES``, so the single-utterance path, two-pass for a
+    SAT model); then, on the final pass's features, ``viterbi_align_long``
+    sweep by sweep against one whole-utterance emit and align (identical
+    state path, score within 1e-3), the path's launches counted exactly, and
+    K3, K1 and K2 on the last chunk (frames from the one before it, emission
+    row 0 zeroed, started from its checkpoint) against their plain versions
+    (K3 rtol 1e-5 / atol 1e-3, K1 and K2 bit-identical)."""
+    import torch
+
+    import montreal_forced_aligner_tpu_torch.online.alignment as online_mod
+    from montreal_forced_aligner_tpu_torch.align.aligner import _emit_and_align
+    from montreal_forced_aligner_tpu_torch.corpus.corpus import Corpus
+    from montreal_forced_aligner_tpu_torch.ops import cuda_build
+    from montreal_forced_aligner_tpu_torch.ops import cuda_emission as CE
+    from montreal_forced_aligner_tpu_torch.ops import cuda_viterbi as CV
+    from montreal_forced_aligner_tpu_torch.ops import long_viterbi as LV
+
+    corpus = Corpus.load(corpus_dir)
+    _check(corpus.num_utterances == 1, "one long utterance")
+    rec = CallRecorder(online_mod, "viterbi_align_long", device)
+    with rec:
+        _sync(device)
+        cuda_build.reset_launch_counts()
+        t0 = time.perf_counter()
+        results = aligner.align_corpus(corpus)
+        _sync(device)
+        wall = time.perf_counter() - t0
+        launches = dict(cuda_build.LAUNCHES)
+    (aln,) = results.values()
+    _check(aln.words and np.isfinite(aln.log_likelihood)
+           and aln.log_likelihood > -1e29, "long utterance: empty alignment")
+    _check(rec.calls == (2 if aligner.two_pass else 1),
+           f"long utterance: {rec.calls} chunked decodes")
+    out = {
+        "align_corpus_s": wall,
+        "phases_s": dict(aligner.last_phase_seconds),
+        "launches": launches,
+        "words": len(aln.words),
+        "fmllr": fmllr_summary(aligner) if aligner.two_pass else None,
+    }
+
+    (feats, garrs, gmm), kw = rec.last_args  # the final pass
+    scale, use_k = kw["acoustic_scale"], kw["use_emission_kernel"]
+    chunk = kw.get("chunk") or LV.CHUNK_FRAMES
+    T = feats.shape[0]
+    lg = LV.prepare_long_graph(garrs, feats.device)
+    _check(lg.band_limits is not None, "long graph outside the band buckets")
+    lb, ub = lg.band_limits
+    S = int(lg.graph.state_pdf.shape[1])
+    _sync(device)
+    if device.type == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    checkpoints, best, score = LV.long_forward_sweep(feats, lg, gmm, scale, chunk,
+                                                     use_k)
+    _sync(device)
+    fwd_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    path = LV.long_backward_sweep(feats, lg, gmm, scale, chunk, use_k,
+                                  checkpoints, best)
+    _sync(device)
+    bwd_s = time.perf_counter() - t0
+    chunked_peak = (torch.cuda.max_memory_allocated() / 2**30
+                    if device.type == "cuda" else None)
+    t0 = time.perf_counter()
+    flens = torch.tensor([T], dtype=torch.int32, device=feats.device)
+    whole_path, whole_score = _emit_and_align(
+        feats[None], flens, lg.graph, gmm, scale, band_limits=lg.band_limits,
+        use_emission_kernel=use_k,
+    )
+    _sync(device)
+    whole_s = time.perf_counter() - t0
+    whole_peak = (torch.cuda.max_memory_allocated() / 2**30
+                  if device.type == "cuda" else None)
+    _check(torch.equal(path, whole_path[0]),
+           "viterbi_align_long: state path differs from the whole-utterance run")
+    score_diff = abs(float(score[0]) - float(whole_score[0]))
+    _check(score_diff <= 1e-3, f"viterbi_align_long: score differs by {score_diff}")
+    del whole_path
+    out.update({
+        "T": T, "S": S, "band": [lb, ub], "chunk": chunk,
+        "chunks": len(checkpoints), "forward_sweep_s": fwd_s,
+        "backward_sweep_s": bwd_s, "whole_run_s": whole_s,
+        "score": float(score[0]), "score_diff": score_diff,
+        "paths_identical": True, "chunked_peak_gib": chunked_peak,
+        "whole_run_peak_gib": whole_peak,
+    })
+
+    # the path's launches: each pass, every chunk through K3 and K1 in both
+    # sweeps and through K2 in the backward one (none on the CPU, where every
+    # wrapper takes its plain version)
+    per_pass = (len(checkpoints) if device.type == "cuda" else 0) * (
+        2 if aligner.two_pass else 1)
+    want_launches = {"band_forward": 2 * per_pass, "band_backtrace": per_pass,
+                     "state_emission": 2 * per_pass}
+    _check(use_k, "long utterance: the final model does not take K3")
+    _check(launches == want_launches,
+           f"long utterance: launches {launches}, expected {want_launches}")
+
+    # K3, K1 and K2 on the last chunk against their plain versions
+    c = len(checkpoints) - 1
+    lo = c * chunk
+    emit = LV.chunk_emissions(feats, lo, T, lg.graph.state_pdf, gmm, use_k,
+                              lead_row=c > 0)
+    f = feats[lo - 1 if c > 0 else lo :][None].contiguous()
+    want = CE.state_loglikes_plain(f, lg.graph.state_pdf, gmm.rows)
+    if c > 0:
+        want[:, 0] = 0.0
+    _check(bool(torch.isfinite(emit).all()), "long chunk: K3 non-finite emissions")
+    k3_err = (emit - want).abs()
+    _check(bool((k3_err <= 1e-3 + 1e-5 * want.abs()).all()),
+           f"long chunk: K3 differs from its plain version by {k3_err.max().item()}")
+    k3_err = k3_err.max().item()
+    del want
+    n = torch.tensor([emit.shape[1]], dtype=torch.int32, device=feats.device)
+    start = checkpoints[c]
+    aT_k, bp_k = CV.band_forward(emit, n, lg.band, start, lb, ub, scale)
+    aT_p, bp_p = CV.band_forward_plain(emit, n, lg.band, start, lb, ub, scale)
+    _check(torch.equal(bp_k[1:], bp_p[1:]), "long chunk: K1 backpointers differ")
+    _check(torch.equal(aT_k, aT_p), "long chunk: K1 alpha differs")
+    k1_err = (aT_k - aT_p).abs().max().item()
+    st_k = CV.band_backtrace(bp_k, n, best, lb)
+    st_p = CV.band_backtrace_plain(bp_p, n, best, lb)
+    _check(torch.equal(st_k, st_p), "long chunk: K2 states differ")
+    _check(torch.equal(st_k[0, 1:], path[lo:]), "long chunk: walk differs from the sweep")
+    k2_err = float((st_k - st_p).abs().max().item())
+    k3 = bound_ms(*k3_work(f, lg.graph.state_pdf, gmm.num_gauss, gmm.rows.shape[2]),
+                  TF32_FLOP_PER_S)
+    k1 = k1_bound(n, 1, S, lb + ub + 1)
+    k2 = k2_bound(n, int(n[0]), 1)[:2]
+    out["last_chunk"] = {
+        "frames": int(emit.shape[1]), "S": S,
+        "state_emission_bound_ms": k3[0], "state_emission_bound_by": k3[1],
+        "band_forward_bound_ms": k1[0], "band_forward_bound_by": k1[1],
+        "band_backtrace_bound_ms": k2[0], "band_backtrace_bound_by": k2[1],
+        "state_emission_ms": time_ms(lambda: LV.chunk_emissions(
+            feats, lo, T, lg.graph.state_pdf, gmm, use_k, lead_row=c > 0),
+            reps, device),
+        "state_emission_plain_ms": time_ms(lambda: CE.state_loglikes_plain(
+            f, lg.graph.state_pdf, gmm.rows), 1, device),
+        "band_forward_ms": time_ms(lambda: CV.band_forward(
+            emit, n, lg.band, start, lb, ub, scale), reps, device),
+        "band_forward_plain_ms": time_ms(lambda: CV.band_forward_plain(
+            emit, n, lg.band, start, lb, ub, scale), 1, device),
+        "band_backtrace_ms": time_ms(lambda: CV.band_backtrace(bp_k, n, best, lb),
+                                     reps, device),
+        "band_backtrace_plain_ms": time_ms(lambda: CV.band_backtrace_plain(
+            bp_p, n, best, lb), 1, device),
+        "state_emission_max_abs_err": k3_err,
+        "band_forward_max_abs_err": k1_err,
+        "band_backtrace_max_abs_err": k2_err,
+    }
+    return out
+
+
+def device_busy_ms(fn):
+    """The card's busy milliseconds (union of its kernels' and copies'
+    intervals) in one call of ``fn`` under ``torch.profiler``, after one
+    warm-up call."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    spans = sorted((e.time_range.start, e.time_range.end) for e in prof.events()
+                   if e.device_type == torch.autograd.DeviceType.CUDA)
+    _check(spans, "the profiler saw no work on the card")
+    busy, (cur_start, cur_end) = 0.0, spans[0]
+    for start, end in spans[1:]:
+        if start > cur_end:
+            busy += cur_end - cur_start
+            cur_start, cur_end = start, end
+        else:
+            cur_end = max(cur_end, end)
+    return (busy + cur_end - cur_start) / 1e3
+
+
+def native_solve_check(aligner):
+    """The native fMLLR solve against its numpy sweep on the speakers over
+    ``fmllr_min_count`` of the aligner's last two-pass run (atol 2e-4, the
+    JAX package's bar for its native solver), each timed once on the
+    host."""
+    from montreal_forced_aligner_tpu_torch.ops import transforms as TR
+
+    est = aligner.last_fmllr
+    ok = est.beta >= aligner.config.fmllr_min_count
+    K, G, beta = est.K[ok], est.G[ok], est.beta[ok]
+    t0 = time.perf_counter()
+    native = TR.solve_fmllr_batched(K, G, beta)
+    native_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    plain = TR._solve_fmllr_batched_numpy(K, G, beta)
+    numpy_s = time.perf_counter() - t0
+    err = float(np.abs(native - plain).max())
+    _check(err <= 2e-4, f"native fMLLR solve differs from numpy by {err}")
+    _check(np.array_equal(native, est.transforms[ok]),
+           "the run's transforms are not the native solve's")
+    return {"speakers": int(ok.sum()), "max_abs_err": err,
+            "native_s": native_s, "numpy_s": numpy_s}
 
 
 KERNELS = [
@@ -727,23 +1061,47 @@ def main() -> int:
         corpus_dir, _ = build_corpus(tmp, words, 64)
         small_dir, _ = build_corpus(tmp, words, 4, min_s=2.0, max_s=4.0,
                                     seed=1, name="small")
-        _emit({"fixture_s": time.perf_counter() - t0})
+        small2_dir, _ = build_corpus(tmp, words, 8, min_s=3.0, max_s=6.0,
+                                     seed=2, name="small2", num_speakers=2)
+        long_dir, long_s = build_corpus(tmp, words, 1, min_s=630.0, max_s=630.0,
+                                        seed=3, name="long", num_speakers=1)
+        _emit({"fixture_s": time.perf_counter() - t0, "long_utterance_s": long_s})
 
-        report, aligner, captured = run_main_path(
-            model_path, dict_path, corpus_dir, tmp / "textgrids", device
-        )
-        _emit({"main_path": report})
-        _emit({"profiled_warm_run": profile_warm_run(aligner, corpus_dir)})
-        _emit({"reference_check": reference_check(
-            model_path, dict_path, small_dir, device)})
-        checks = kernel_checks(captured, aligner.gmm, device,
-                               sm_clock_mhz=sm_clock_mhz)
-        for name, c in checks.items():
-            _emit({"kernel_check": name, **c,
-                   "main_path_calls": report["kernel_calls"][name],
-                   "main_path_ms": report["kernel_ms"][name],
-                   "warm_main_path_ms": report["warm_kernel_ms"][name]})
-        _emit(kernels_line(checks, report["launches"]))
+        reports, aligners, inputs = {}, {}, {}
+        for adaptation, warm_runs in ((True, 5), (False, 3)):
+            report, aligner, counted = run_main_path(
+                model_path, dict_path, corpus_dir, tmp / f"tg{adaptation}",
+                device, warm_runs=warm_runs, adaptation=adaptation,
+            )
+            path = report["path"]
+            report["profiled_warm_run"] = profile_warm_run(aligner, corpus_dir)
+            _emit({"main_path": report})
+            reports[path], aligners[path] = report, aligner
+            # sat-2pass: the second pass's first batch; sat-si: the first
+            inputs[path] = batch_inputs(counted, report["batches"] if adaptation
+                                        else 0)
+            del counted
+        for adaptation, d in ((False, small_dir), (True, small2_dir)):
+            _emit({"reference_check": "sat-2pass" if adaptation else "sat-si",
+                   **reference_check(model_path, dict_path, d, device, adaptation)})
+        checks = {}
+        for path in ("sat-si", "sat-2pass"):
+            checks[path] = kernel_checks(inputs.pop(path), aligners[path].gmm,
+                                         device, sm_clock_mhz=sm_clock_mhz)
+            rep = reports[path]
+            for name, c in checks[path].items():
+                _emit({"kernel_check": name, "path": path, **c,
+                       "main_path_calls": rep["kernel_calls"][name],
+                       "main_path_event_ms": rep["kernel_ms"][name],
+                       "warm_main_path_event_ms": rep["warm_kernel_ms"][name],
+                       "warm_main_path_profiler_ms":
+                           rep["profiled_warm_run"]["device_ms_by_port_kernel"][name]})
+        del aligners["sat-si"]
+        # before the long utterance's own two-pass replaces the estimate
+        _emit({"native_fmllr_solve": native_solve_check(aligners["sat-2pass"])})
+        _emit({"long_utterance": long_utterance_phase(
+            aligners["sat-2pass"], long_dir, device)})
+        _emit(kernels_line(checks["sat-2pass"], reports["sat-2pass"]["launches"]))
 
     _emit({"ok": True, "device": {
         "platform": "gpu",

@@ -7,6 +7,14 @@ graph ship → final features, CMVN then deltas or splice+LDA (device) →
 graph-state emissions and band Viterbi (device: kernels K3, K1, K2) → one
 fetch of every state path → CTM intervals → TextGrid export.
 
+SAT models with speaker adaptation run two passes (reference
+``_fmllr_second_pass_feats``): the speaker-independent model aligns, the
+final model's fMLLR statistics are summed per speaker on the device, one
+fetch brings them to the host for the row-sweep solve, and the adapted
+features align with the final model. Utterances over
+``online.alignment.LONG_UTTERANCE_FRAMES`` take the single-utterance path
+with the chunked exact Viterbi.
+
 Utterances are bucketed by length so each batch pads little; every batch
 is dispatched before any result is fetched, so host work (graph compile,
 padding) overlaps the device's.
@@ -18,7 +26,7 @@ import logging
 import time
 from dataclasses import dataclass
 from pathlib import Path
-from typing import Dict, List, Optional
+from typing import Dict, List, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
@@ -45,9 +53,12 @@ from montreal_forced_aligner_tpu_torch.io.wav import read_wave
 from montreal_forced_aligner_tpu_torch.models.acoustic_model import AcousticModel
 from montreal_forced_aligner_tpu_torch.ops.cuda_emission import state_loglikes
 from montreal_forced_aligner_tpu_torch.ops.feats import (
+    apply_per_speaker_transform,
     apply_transform,
     compute_deltas,
     frame_mask,
+    nonsilence_weight,
+    silence_pdf_mask,
     splice_frames,
 )
 from montreal_forced_aligner_tpu_torch.ops.gmm_loglikes import (
@@ -59,6 +70,12 @@ from montreal_forced_aligner_tpu_torch.ops.mfcc import (
     _mfcc_device,
     pad_waves_for_mfcc,
 )
+from montreal_forced_aligner_tpu_torch.ops.transforms import (
+    FmllrEstimate,
+    accumulate_fmllr_stats,
+    estimate_speaker_fmllr,
+    stats_to_host,
+)
 from montreal_forced_aligner_tpu_torch.ops.viterbi import (
     BatchedGraph,
     band_limits_from_arcs,
@@ -67,15 +84,33 @@ from montreal_forced_aligner_tpu_torch.ops.viterbi import (
     viterbi_align_batch,
     viterbi_align_batch_band,
 )
-from montreal_forced_aligner_tpu_torch.params import GmmParams, gmm_params_from_numpy
+from montreal_forced_aligner_tpu_torch.params import (
+    FmllrParams,
+    GmmParams,
+    fmllr_params_from_numpy,
+    gmm_params_from_numpy,
+)
 
 POSITIONS = ("_B", "_E", "_I", "_S")
 
-# utterances longer than this (10 min) take the chunked long-utterance path
-# of the reference (online/alignment.py), which is not ported yet
-LONG_UTTERANCE_FRAMES = 60000
+# bytes of the (B, frames, P*G) Gaussian log-likelihoods per chunk of the
+# confidence margin
+_CONFIDENCE_CHUNK_BYTES = 512 << 20
 
 _logger = logging.getLogger("mfa_tpu")
+
+
+def _mfcc_and_sums(
+    padded_waves: torch.Tensor,  # (B, L) int16 or float32
+    frame_lengths: torch.Tensor,  # (B,) int32
+    cfg: MfccConfig,
+    max_frames: int,
+):
+    """MFCC + masked per-utterance feature sums (for CMVN): (feats (B, T,
+    D), sums (B, D))."""
+    feats = _mfcc_device(padded_waves, cfg, max_frames)
+    mask = frame_mask(frame_lengths, feats.shape[1])[..., None]
+    return feats, torch.where(mask, feats, 0.0).sum(dim=1)
 
 
 def _mfcc_and_spk_stats(
@@ -88,9 +123,7 @@ def _mfcc_and_spk_stats(
 ):
     """Phase A: MFCC + per-speaker sums of the valid frames, reduced on the
     device with ``index_add_``: returns (feats (B, T, D), spk_sum (N, D))."""
-    feats = _mfcc_device(padded_waves, cfg, max_frames)
-    mask = frame_mask(frame_lengths, feats.shape[1])[..., None]
-    sums = torch.where(mask, feats, 0.0).sum(dim=1)  # (B, D)
+    feats, sums = _mfcc_and_sums(padded_waves, frame_lengths, cfg, max_frames)
     spk_sum = torch.zeros(
         (num_speakers, feats.shape[2]), dtype=feats.dtype, device=feats.device
     )
@@ -104,6 +137,24 @@ def _final_feats(feats, frame_lengths, mean_rows, lda=None):
     if lda is None:
         return compute_deltas(x, frame_lengths)
     return apply_transform(splice_frames(x, frame_lengths, 3, 3), lda)
+
+
+def _phone_confidence(ff, state_path, graph, W, gconsts) -> torch.Tensor:
+    """Per-frame confidence margin (B, T): the aligned pdf's log-likelihood
+    minus the best pdf's (reference ``PhoneConfidenceFunction``,
+    ``alignment/multiprocessing.py:1353``); always <= 0. All pdfs in
+    float32 and a gather, in chunks of frames."""
+    B, T, _D = ff.shape
+    P, G = gconsts.shape
+    frame_pdf = graph.state_pdf.gather(1, state_path.long()).long()
+    out = torch.empty((B, T), dtype=torch.float32, device=ff.device)
+    step = max(1, _CONFIDENCE_CHUNK_BYTES // (B * P * G * 4))
+    for t0 in range(0, T, step):
+        ts = slice(t0, min(T, t0 + step))
+        ll = gmm_loglikes(ff[:, ts], W, gconsts)  # (B, t, P)
+        selected = ll.gather(2, frame_pdf[:, ts, None])[..., 0]
+        out[:, ts] = selected - ll.max(dim=-1).values
+    return out
 
 
 def _emission_kernel_eligible(num_pdfs: int, num_gauss: int) -> bool:
@@ -139,6 +190,19 @@ def _emit_and_align(
             acoustic_scale=acoustic_scale,
         )
     return viterbi_align_batch(emit, frame_lengths, graph, acoustic_scale)
+
+
+class _Batch(NamedTuple):
+    """One batch on its way through the device phases."""
+
+    utts: List[int]  # corpus utterance indices, one per row
+    flens: np.ndarray  # (B,) int32 frame counts
+    garrs: dict  # batch_graphs arrays (host)
+    graph: BatchedGraph  # the same on the device
+    ff: torch.Tensor  # (B, T, D) final (or adapted) features
+    flens_dev: torch.Tensor
+    band_limits: Optional[Tuple[int, int]]
+    spk_dev: torch.Tensor  # (B,) int64 speaker index
 
 
 @dataclass
@@ -179,9 +243,6 @@ class AlignerConfig:
         if self.num_graph_workers > 0:
             out.append("num_graph_workers > 0: ROADMAP.md Queue 1 item 16 "
                        "(host extras)")
-        if self.compute_confidence:
-            out.append("compute_confidence: ROADMAP.md Queue 1 item 11 "
-                       "(alignment extras)")
         if self.language is not None:
             out.append("language: ROADMAP.md Queue 1 item 16 (host extras)")
         return out
@@ -273,16 +334,6 @@ class PretrainedAligner:
             self.model.phone_table = reconstruct_phone_table(
                 self.model.meta, self.model.transition_model.topo
             )
-        if (
-            self.model.uses_fmllr
-            and self.model.alignment_model is not None
-            and self.config.uses_speaker_adaptation
-        ):
-            raise NotImplementedError(
-                "two-pass fMLLR: next slice (ROADMAP.md Queue 1 item 9); "
-                "align this SAT model with uses_speaker_adaptation=False "
-                "(--single_speaker)"
-            )
         self.lexicons, self.speaker_dictionary_map, default_key = (
             load_dictionary_argument(
                 dictionary_path, phone_table=self.model.phone_table
@@ -337,14 +388,35 @@ class PretrainedAligner:
                 "pitch features: ROADMAP.md Queue 1 item 11 (alignment extras)"
             )
         self.frame_shift = self.mfcc_config.frame_shift_ms / 1000.0
-        # a SAT model aligns single-pass with its speaker-independent
-        # final.alimdl (reference first-pass-only behaviour,
-        # ``alignment/base.py:491-558``); any other model with final.mdl
-        si_mode = self.model.uses_fmllr and self.model.alignment_model is not None
+        # A SAT model (final.mdl, final.alimdl, fMLLR) with speaker adaptation
+        # runs two passes: its speaker-independent final.alimdl aligns
+        # (si_gmm), the final model's unboosted tensors feed the fMLLR
+        # statistics (fmllr), and the final model aligns the adapted
+        # features (gmm). Without adaptation (--single_speaker) it aligns
+        # single-pass with final.alimdl (reference first-pass-only
+        # behaviour, ``alignment/base.py:491-558``); any other model with
+        # final.mdl. Each aligning model has its own emission rule.
+        sat = self.model.uses_fmllr and self.model.alignment_model is not None
+        self.two_pass = sat and self.config.uses_speaker_adaptation
+        si_mode = sat and not self.config.uses_speaker_adaptation
         self.gmm = self._ali_params_on() if si_mode else self._prepare_gmm()
         self.use_emission_kernel = _emission_kernel_eligible(
             self.gmm.num_pdfs, self.gmm.num_gauss
         )
+        self.si_gmm: Optional[GmmParams] = None
+        self.si_use_emission_kernel = False
+        self.fmllr: Optional[FmllrParams] = None
+        if self.two_pass:
+            self.si_gmm = self._ali_params_on()
+            self.si_use_emission_kernel = _emission_kernel_eligible(
+                self.si_gmm.num_pdfs, self.si_gmm.num_gauss
+            )
+            gmm = self.model.gmm
+            self.fmllr = fmllr_params_from_numpy(
+                gmm, silence_pdf_mask(self._silence_pdfs(), gmm.num_pdfs)
+            ).to(self.device)
+        # statistics and transforms of the last two-pass run
+        self.last_fmllr: Optional[FmllrEstimate] = None
         self.last_phase_seconds: Dict[str, float] = {}
         # synchronise the card at every phase mark, so that each phase's
         # seconds include its device work (a measurement switch: it removes
@@ -399,11 +471,52 @@ class PretrainedAligner:
         return np.array(sorted(pdfs), dtype=np.int32)
 
     # -- pipeline ------------------------------------------------------------
+    def _fmllr_second_pass_feats(self, prepared, num_speakers, mark):
+        """Pass 1 with the speaker-independent model, per-speaker fMLLR
+        statistics on the device, one fetch of their sums, the host solve,
+        and the adapted features (reference ``_fmllr_second_pass_feats``,
+        two-pass align ``alignment/base.py:491-558``; estimation spec
+        ``corpus/features.py:422-548`` with silence_weight=0). Nothing else
+        leaves the device between the two passes."""
+        fm = self.fmllr
+        stats = None
+        for b in prepared:
+            state_path, _sc = _emit_and_align(
+                b.ff, b.flens_dev, b.graph, self.si_gmm,
+                self.config.acoustic_scale, band_limits=b.band_limits,
+                use_emission_kernel=self.si_use_emission_kernel,
+            )
+            frame_pdf = b.graph.state_pdf.gather(1, state_path.long())
+            out = accumulate_fmllr_stats(
+                b.ff, b.flens_dev, frame_pdf, b.spk_dev,
+                nonsilence_weight(frame_pdf, fm.sil_mask),
+                fm.means, fm.inv_vars, fm.gconsts, fm.miv, num_speakers,
+            )
+            # float32 sums on the device, in batch order
+            stats = out if stats is None else tuple(a + b for a, b in zip(stats, out))
+        mark("fmllr_pass1")
+        K, G, beta = stats_to_host(*stats)
+        mark("fmllr_stats_fetch")
+        transforms = estimate_speaker_fmllr(
+            K, G, beta, min_count=self.config.fmllr_min_count
+        )
+        self.last_fmllr = FmllrEstimate(K, G, beta, transforms)
+        mark("fmllr_solve")
+        trans_dev = torch.from_numpy(transforms).to(self.device)
+        adapted = [
+            b._replace(ff=apply_per_speaker_transform(b.ff, b.spk_dev, trans_dev))
+            for b in prepared
+        ]
+        mark("fmllr_apply")
+        return adapted
+
     def align_corpus(self, corpus: Corpus) -> Dict[int, UtteranceAlignment]:
         """Align every utterance; returns {utterance_id: UtteranceAlignment}.
         Host-clock seconds of each phase are left in ``last_phase_seconds``:
         dispatch times, since the device runs behind the host until the path
         fetch, unless ``sync_phases`` is set."""
+        from montreal_forced_aligner_tpu_torch.online import alignment as online
+
         cfg = self.config
         dev = self.device
         phase = {}
@@ -422,20 +535,39 @@ class PretrainedAligner:
         waves: List[np.ndarray] = corpus.load_audio_parallel(
             self.mfcc_config.sample_rate, num_workers=cfg.num_loader_threads
         )
+        long_set = set()
         for i, (utt, w) in enumerate(zip(corpus.utterances, waves)):
             utt.num_samples = len(w)
-            if self.mfcc_config.num_frames(len(w)) > LONG_UTTERANCE_FRAMES:
-                raise NotImplementedError(
-                    f"utterance {i} is longer than {LONG_UTTERANCE_FRAMES} "
-                    "frames: long utterances are ROADMAP.md Queue 1 item 10"
-                )
+            if self.mfcc_config.num_frames(len(w)) > online.LONG_UTTERANCE_FRAMES:
+                long_set.add(i)
         mark("audio_load")
 
-        order = np.argsort([len(w) for w in waves], kind="stable")
+        # very long utterances align one at a time through the chunked exact
+        # Viterbi, with their own CMVN (the single-utterance semantics):
+        # batched, one would pad its whole batch to its length, and its
+        # O(T*S) emissions and backpointers outgrow the card
+        results: Dict[int, UtteranceAlignment] = {}
+        for i in sorted(long_set):
+            utt = corpus.utterances[i]
+            utt.num_frames = self.mfcc_config.num_frames(len(waves[i]))
+            aln = online.align_utterance_online(self, waves[i], utt.text,
+                                                utterance_id=i)
+            if utt.begin:  # segment-relative times -> file times
+                for iv in list(aln.words) + list(aln.phones):
+                    iv.begin += utt.begin
+                    iv.end += utt.begin
+            results[i] = aln
+        if long_set:
+            mark("long_utterances")
+
+        order = [int(i) for i in np.argsort([len(w) for w in waves], kind="stable")
+                 if int(i) not in long_set]
         batches = [
-            [int(i) for i in order[i : i + cfg.batch_size]]
-            for i in range(0, len(order), cfg.batch_size)
+            order[i : i + cfg.batch_size] for i in range(0, len(order), cfg.batch_size)
         ]
+        if not batches:
+            self.last_phase_seconds = phase
+            return results
 
         # phase A: MFCC + per-speaker CMVN sums, reduced on the device. All
         # batches are dispatched before anything is fetched.
@@ -473,15 +605,18 @@ class PretrainedAligner:
                 corpus.utterances[i].num_frames = int(flens[row])
         mark("phase_a_dispatch")
 
-        # host graph compilation overlaps the device's phase A
-        graphs: List[Optional[CompiledGraph]] = []
-        for utt in corpus.utterances:
+        # host graph compilation overlaps the device's phase A; long
+        # utterances compiled their own
+        graphs: List[Optional[CompiledGraph]] = [None] * len(corpus.utterances)
+        for i, utt in enumerate(corpus.utterances):
+            if i in long_set:
+                continue
             tokens = self.tokenizer.tokenize(utt.text)
             utt.normalized_tokens = tokens
             key = self.speaker_dictionary_map.get(
                 utt.speaker, self.default_dictionary_key
             )
-            graphs.append(self.compilers[key].compile(tokens))
+            graphs[i] = self.compilers[key].compile(tokens)
         mark("graph_compile")
 
         spk_mean = spk_total / torch.from_numpy(
@@ -493,42 +628,53 @@ class PretrainedAligner:
             graph = ship_graph_to_device(garrs, dev)
             band_limits = band_limits_from_arcs(garrs)
             ff = _final_feats(feats_dev, flens_dev, spk_mean[spk_dev], self.gmm.lda)
-            prepared.append((batch, flens, garrs, graph, ff, flens_dev, band_limits))
+            prepared.append(
+                _Batch(batch, flens, garrs, graph, ff, flens_dev, band_limits, spk_dev)
+            )
         mark("graph_ship_and_final_feats")
 
+        if self.two_pass:
+            prepared = self._fmllr_second_pass_feats(prepared, num_speakers, mark)
+
         pending = []
-        for batch, flens, garrs, graph, ff, flens_dev, band_limits in prepared:
+        for b in prepared:
             state_path, scores = _emit_and_align(
-                ff, flens_dev, graph, self.gmm, cfg.acoustic_scale,
-                band_limits=band_limits,
+                b.ff, b.flens_dev, b.graph, self.gmm, cfg.acoustic_scale,
+                band_limits=b.band_limits,
                 use_emission_kernel=self.use_emission_kernel,
             )
+            conf = None
+            if cfg.compute_confidence:
+                conf = _phone_confidence(
+                    b.ff, state_path, b.graph, self.gmm.W, self.gmm.gconsts
+                )
             # halve the path bytes when state indices fit int16
-            if graph.state_pdf.shape[1] <= 32767:
+            if b.graph.state_pdf.shape[1] <= 32767:
                 state_path = state_path.to(torch.int16)
-            pending.append((batch, flens, garrs, state_path, scores))
+            pending.append((b.utts, b.flens, b.garrs, state_path, scores, conf))
         mark("emit_and_align_dispatch")
 
-        # pad to a common T and concatenate on the device: every path comes
-        # back in ONE device->host copy
-        results: Dict[int, UtteranceAlignment] = {}
-        if pending:
-            Tmax = max(sp.shape[1] for _b, _f, _g, sp, _s in pending)
-            all_sp = torch.cat(
-                [
-                    torch.nn.functional.pad(sp, (0, Tmax - sp.shape[1]))
-                    for _b, _f, _g, sp, _s in pending
-                ]
+        # pad to a common T and concatenate on the device: every path (and
+        # confidence) comes back in ONE device->host copy each
+        Tmax = max(p[3].shape[1] for p in pending)
+
+        def pad_cat(xs):
+            return torch.cat(
+                [torch.nn.functional.pad(x, (0, Tmax - x.shape[1])) for x in xs]
             ).cpu().numpy()
-            all_sc = torch.cat([sc for _b, _f, _g, _sp, sc in pending]).cpu().numpy()
+
+        all_sp = pad_cat([p[3] for p in pending])
+        all_sc = torch.cat([p[4] for p in pending]).cpu().numpy()
+        all_cf = pad_cat([p[5] for p in pending]) if cfg.compute_confidence else None
         mark("path_fetch")
 
         phone_names = self.model.phone_names
         row0 = 0
-        for batch, flens, garrs, state_path, _scores in pending:
-            n = state_path.shape[0]
-            sp = all_sp[row0 : row0 + n, : state_path.shape[1]].astype(np.int64)
+        for batch, flens, garrs, state_path, _scores, _conf in pending:
+            n, T = state_path.shape
+            sp = all_sp[row0 : row0 + n, :T].astype(np.int64)
             sc = all_sc[row0 : row0 + n]
+            cf = None if all_cf is None else all_cf[row0 : row0 + n]
             row0 += n
             phone_f, word_f, inst_f, _tstate_f = extract_frame_labels_host(
                 garrs, sp
@@ -544,6 +690,7 @@ class PretrainedAligner:
                     float(sc[row]),
                     phone_names,
                     self.frame_shift,
+                    confidence=None if cf is None else cf[row, :Lf],
                 )
         mark("ctm")
         self.last_phase_seconds = phase
@@ -631,9 +778,11 @@ def frames_to_alignment(
     score: float,
     phone_names: Dict[int, str],
     frame_shift: float,
+    confidence: Optional[np.ndarray] = None,
 ) -> UtteranceAlignment:
     """Run-length encode frame labels into phone/word intervals (reference
-    CTM generation, ``alignment/multiprocessing.py:1573-1741``)."""
+    CTM generation, ``alignment/multiprocessing.py:1573-1741``); with
+    per-frame ``confidence``, each phone gets its frames' mean."""
     L = len(phones)
     fs = frame_shift
     offset = utt.begin
@@ -652,6 +801,8 @@ def frames_to_alignment(
                 base = base[: -len(pos)]
                 break
         iv = CtmInterval(offset + s0 * fs, offset + s1 * fs, base, phone_id=pid)
+        if confidence is not None:
+            iv.confidence = round(float(confidence[s0:s1].mean()), 4)
         phone_intervals.append(iv)
         if widx >= 0:
             if widx not in word_map:

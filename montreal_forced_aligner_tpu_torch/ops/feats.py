@@ -98,3 +98,30 @@ def apply_transform(feats: torch.Tensor, transform: torch.Tensor) -> torch.Tenso
     if in_dim == D + 1:
         out = out + transform[:, D]
     return out
+
+
+def apply_per_speaker_transform(
+    feats: torch.Tensor,  # (B, T, D)
+    speaker_ids: torch.Tensor,  # (B,)
+    transforms: torch.Tensor,  # (S, E, D+1) per-speaker fMLLR transforms
+) -> torch.Tensor:
+    """Each row's features through its speaker's affine transform: (B, T, E)
+    in float32 (a batched product, TF32 off, then the offset column)."""
+    trans = transforms[speaker_ids.long()]  # (B, E, D+1)
+    D = feats.shape[-1]
+    out = torch.bmm(feats, trans[:, :, :D].transpose(1, 2))
+    return out + trans[:, None, :, D]
+
+
+def silence_pdf_mask(sil_pdfs, num_pdfs: int) -> np.ndarray:
+    """(P,) float32 mask: 1.0 at silence pdfs (for :func:`nonsilence_weight`)."""
+    mask = np.zeros(num_pdfs, np.float32)
+    mask[np.asarray(sil_pdfs, np.int64)] = 1.0
+    return mask
+
+
+def nonsilence_weight(frame_pdf: torch.Tensor, sil_mask: torch.Tensor) -> torch.Tensor:
+    """1.0 on non-silence frames, 0.0 on silence (fMLLR silence_weight=0,
+    reference ``corpus/features.py:608``): a gather over the (P,) silence
+    mask on the device, so per-frame pdfs never go to the host."""
+    return 1.0 - sil_mask[frame_pdf.long()]

@@ -4,7 +4,8 @@
 of either package's ``DiagGmmSet``, the speaker-independent
 ``alignment_model[1]``, ``lda_mat``) and returns a :class:`GmmParams`
 module, so the tests can feed the JAX reference and the port the same
-numbers.
+numbers. :func:`fmllr_params_from_numpy` makes the final model's tensors
+that the fMLLR statistics read (:class:`FmllrParams`).
 """
 
 from __future__ import annotations
@@ -78,4 +79,27 @@ def gmm_params_from_numpy(
         torch.from_numpy(rows),
         None if lda_mat is None
         else torch.from_numpy(np.ascontiguousarray(lda_mat, dtype=np.float32)),
+    )
+
+
+class FmllrParams(torch.nn.Module):
+    """Buffers of the final model that the fMLLR statistics read (reference
+    ``_fmllr_params_on``): ``means``, ``inv_vars`` and ``miv`` (P, G, D),
+    and the raw ``gconsts`` (P, G), -inf on padded Gaussians and never
+    silence-boosted; and ``sil_mask`` (P,), 1.0 at silence pdfs."""
+
+    def __init__(self, means, inv_vars, gconsts, miv, sil_mask):
+        super().__init__()
+        for name, x in (("means", means), ("inv_vars", inv_vars),
+                        ("gconsts", gconsts), ("miv", miv), ("sil_mask", sil_mask)):
+            self.register_buffer(
+                name, torch.from_numpy(np.ascontiguousarray(x, np.float32))
+            )
+
+
+def fmllr_params_from_numpy(gmm, sil_mask: np.ndarray) -> FmllrParams:
+    """A CPU :class:`FmllrParams` from a loaded ``DiagGmmSet`` (the final
+    model) and its (P,) silence mask; move it with ``.to(device)``."""
+    return FmllrParams(
+        gmm.get_means(), gmm.inv_vars, gmm.gconsts, gmm.means_invvars, sil_mask
     )

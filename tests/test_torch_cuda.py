@@ -11,7 +11,11 @@ states bit-identical (same operations in the same order, no FMA
 contraction), in every band bucket; K3 rtol 1e-5 / atol 1e-3 (3xTF32
 products on the tensor cores against float32 ones, another summation
 order); the aligned corpus on the card against the CPU, the JAX package's
-parity bar.
+parity bar, speaker-independent and two-pass; the fMLLR statistics within
+rtol 1e-4 of each tensor's largest magnitude (float32 sums in another
+order); the native solve within atol 2e-4 of its numpy sweep; the chunked
+long-utterance Viterbi's state path identical to one whole-utterance run,
+its score within 1e-3.
 """
 
 import sys
@@ -24,6 +28,8 @@ import torch
 from montreal_forced_aligner_tpu_torch.ops import cuda_build
 from montreal_forced_aligner_tpu_torch.ops import cuda_emission as CE
 from montreal_forced_aligner_tpu_torch.ops import cuda_viterbi as CV
+from montreal_forced_aligner_tpu_torch.ops import long_viterbi as LV
+from montreal_forced_aligner_tpu_torch.ops import transforms as TR
 from montreal_forced_aligner_tpu_torch.params import gmm_params_from_numpy
 
 sys.path.insert(0, str(Path(__file__).resolve().parent))
@@ -32,6 +38,8 @@ import chip_smoke  # noqa: E402
 from torch_port_inputs import (  # noqa: E402
     backtrace_inputs,
     band_inputs,
+    fmllr_inputs,
+    fmllr_system,
     gmm_arrays,
     leaves_range_across_chunks,
 )
@@ -233,9 +241,11 @@ def test_wrappers_check_their_inputs(cuda_device):
                           rows, torch.zeros((5, 2, 32), device=cuda_device))
 
 
-def test_aligner_on_card_matches_cpu(cuda_device, tmp_path):
+@pytest.mark.parametrize("adaptation", [False, True])
+def test_aligner_on_card_matches_cpu(cuda_device, tmp_path, adaptation):
     """A small SAT-scale corpus through every kernel on the card, against
-    the CPU path, with the state-emission kernel forced on."""
+    the CPU path, with the state-emission kernel forced on: single-pass
+    with the speaker-independent model, or the fMLLR two-pass."""
     from montreal_forced_aligner_tpu_torch.align.aligner import (
         AlignerConfig,
         PretrainedAligner,
@@ -245,17 +255,117 @@ def test_aligner_on_card_matches_cpu(cuda_device, tmp_path):
     model_path, dict_path, words = chip_smoke.build_sat_scale_model(
         tmp_path, num_phones=6, gauss_per_pdf=4, num_words=20
     )
-    corpus_dir, _ = chip_smoke.build_corpus(tmp_path, words, 6, 1.5, 5.0)
-    cfg = AlignerConfig(batch_size=4, uses_speaker_adaptation=False)
-    results = {}
+    corpus_dir, _ = chip_smoke.build_corpus(tmp_path, words, 6, 1.5, 5.0,
+                                            num_speakers=2)
+    cfg = AlignerConfig(batch_size=4, uses_speaker_adaptation=adaptation)
+    results, transforms = {}, {}
     for dev in (cuda_device, torch.device("cpu")):
         al = PretrainedAligner(model_path, dict_path, cfg, device=dev)
-        al.use_emission_kernel = True
+        al.use_emission_kernel = al.si_use_emission_kernel = True
         cuda_build.reset_launch_counts()
         results[dev.type] = al.align_corpus(Corpus.load(corpus_dir))
         launched = dict(cuda_build.LAUNCHES)
         if dev.type == "cuda":
-            assert all(n == 2 for n in launched.values()), launched
+            want = 4 if adaptation else 2
+            assert all(n == want for n in launched.values()), launched
         else:
             assert not any(launched.values()), launched
+        if adaptation:
+            transforms[dev.type] = al.last_fmllr.transforms
     chip_smoke.parity(results["cuda"], results["cpu"], 0.01)
+    if adaptation:
+        assert np.abs(transforms["cuda"] - transforms["cpu"]).max() < 1e-3
+
+
+def test_native_fmllr_solve_matches_numpy(cuda_device):
+    """The g++ build of native/fmllr_solve.cc on this machine."""
+    K, G, beta = fmllr_system(7, S=6, D=40)
+    native = TR.solve_fmllr_batched(K, G, beta)
+    plain = TR._solve_fmllr_batched_numpy(K, G, beta)
+    np.testing.assert_allclose(native, plain, atol=2e-4, rtol=0)
+
+
+def test_fmllr_stats_on_card_match_cpu(cuda_device):
+    a = fmllr_inputs(9, B=6, T=300, D=40, P=50, G=8, num_speakers=4)
+    names = ("feats", "flens", "frame_pdf", "spk", "weight", "means", "inv_vars",
+             "gconsts", "miv")
+    want = TR.accumulate_fmllr_stats(*(torch.from_numpy(a[k]) for k in names),
+                                     a["num_speakers"])
+    got = TR.accumulate_fmllr_stats(
+        *(torch.from_numpy(a[k]).to(cuda_device) for k in names), a["num_speakers"])
+    for g, w in zip(got, want):
+        assert g.device.type == "cuda"
+        err = (g.cpu().double() - w.double()).abs().max().item()
+        assert err <= 1e-4 * w.abs().max().item(), err
+
+
+def _long_case(tmp_path, num_words, T, seed=0):
+    """A reduced SAT model, a graph of ``num_words`` words, and T random
+    40-dim frames: (features on the card, graph arrays, the model's GMM on
+    the card)."""
+    from montreal_forced_aligner_tpu_torch.align.aligner import PretrainedAligner
+    from montreal_forced_aligner_tpu_torch.graph.compiler import batch_graphs
+
+    model_path, dict_path, words = chip_smoke.build_sat_scale_model(
+        tmp_path, num_phones=6, gauss_per_pdf=4, num_words=40
+    )
+    al = PretrainedAligner(model_path, dict_path, device="cuda")
+    rng = np.random.RandomState(seed)
+    text = " ".join(rng.choice(sorted(words), num_words))
+    garrs = batch_graphs([al.compiler.compile(al.tokenizer.tokenize(text))])
+    feats = torch.from_numpy((rng.randn(T, 40) * 2).astype(np.float32))
+    return feats.to("cuda"), garrs, al.gmm
+
+
+@pytest.mark.parametrize("num_words,chunk", [(15, 512), (15, 37), (55, 512),
+                                             (55, 37)])
+def test_long_viterbi_matches_whole_run(cuda_device, tmp_path, num_words, chunk):
+    """At S about 300 and 1100, T 5000: the chunked sweeps (K3, K1 from
+    each checkpoint, K2 from each handed-down state) against one
+    whole-utterance emit and align."""
+    from montreal_forced_aligner_tpu_torch.align.aligner import _emit_and_align
+
+    T = 5000
+    feats, garrs, gmm = _long_case(tmp_path, num_words, T)
+    S = garrs["state_pdf"].shape[1]
+    assert (200 < S < 400) if num_words == 15 else (900 < S < 1400), S
+    cuda_build.reset_launch_counts()
+    path, score = LV.viterbi_align_long(feats, garrs, gmm, chunk=chunk,
+                                        use_emission_kernel=True)
+    n = -(-T // chunk)
+    assert cuda_build.LAUNCHES == {
+        "band_forward": 2 * n, "band_backtrace": n, "state_emission": 2 * n
+    }
+    lg = LV.prepare_long_graph(garrs, cuda_device)
+    whole, whole_score = _emit_and_align(
+        feats[None], torch.tensor([T], dtype=torch.int32, device=cuda_device),
+        lg.graph, gmm, 0.1, band_limits=lg.band_limits, use_emission_kernel=True,
+    )
+    np.testing.assert_array_equal(path, whole[0].cpu().numpy())
+    assert abs(score - float(whole_score[0])) <= 1e-3
+
+
+@pytest.mark.parametrize("lb,ub,S", [(2, 12, 300), (2, 12, 1100), (16, 128, 300),
+                                     (1, 4, 29100)])
+def test_k1_from_a_checkpoint_with_zeroed_row(cuda_device, lb, ub, S):
+    """K1 on the card: a one-frame run of a zeroed emission row gives the
+    start back bit for bit, and a run from a checkpoint continues the whole
+    run bit for bit."""
+    T, lo = 60, 23
+    emit, band, start, _final, _fl = band_inputs(S, 1, T, S, lb, ub, ties=False)
+    emit, band, start = (torch.from_numpy(x).to(cuda_device)
+                         for x in (emit, band, start))
+
+    def n(k):
+        return torch.tensor([k], dtype=torch.int32, device=cuda_device)
+
+    aT, bp = CV.band_forward(emit, n(T), band, start, lb, ub, 0.1)
+    ck, _ = CV.band_forward(emit[:, :lo].contiguous(), n(lo), band, start, lb, ub,
+                            0.1)
+    sub = emit[:, lo - 1 :].clone()
+    sub[:, 0] = 0.0
+    one, _ = CV.band_forward(sub[:, :1].contiguous(), n(1), band, ck, lb, ub, 0.1)
+    assert torch.equal(one, ck)
+    aT2, bp2 = CV.band_forward(sub, n(T - lo + 1), band, ck, lb, ub, 0.1)
+    assert torch.equal(aT2, aT)
+    assert torch.equal(bp2[1:], bp[lo:])

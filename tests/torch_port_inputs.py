@@ -67,6 +67,48 @@ def leaves_range_across_chunks(states, flens, S, frames):
     return False
 
 
+def fmllr_inputs(seed, B=5, T=60, D=13, P=20, G=4, num_speakers=4):
+    """Arguments of ``accumulate_fmllr_stats`` for B utterances over the
+    first min(3, S) speakers (speaker 3 has none; 0 has two), with padded
+    frames, a pdf with padded Gaussians, and frame weights of 0 and 1."""
+    rng = np.random.RandomState(seed)
+    miv, inv_vars, gconsts = gmm_arrays(seed, P, G, D, padded_pdfs=(2,))
+    means = (miv / inv_vars).astype(np.float32)
+    flens = rng.randint(T // 2, T + 1, size=B).astype(np.int32)
+    flens[0] = T
+    feats = (rng.randn(B, T, D) * 2).astype(np.float32)
+    frame_pdf = rng.randint(0, P, (B, T)).astype(np.int32)
+    weight = (rng.rand(B, T) > 0.25).astype(np.float32)
+    spk = (np.arange(B) % min(3, num_speakers)).astype(np.int64)
+    return dict(feats=feats, flens=flens, frame_pdf=frame_pdf, spk=spk,
+                weight=weight, means=means, inv_vars=inv_vars, gconsts=gconsts,
+                miv=miv, num_speakers=num_speakers)
+
+
+def fmllr_system(seed, S, D, NG=4):
+    """(K, G, beta) float64 of S speakers from multi-Gaussian posteriors
+    (Kaldi ``gmm-est-fmllr`` semantics; rank > 1 keeps each row sweep away
+    from the tie where both quadratic roots score equally)."""
+    rng = np.random.RandomState(seed)
+    E = D + 1
+    K = np.zeros((S, D, E))
+    G = np.zeros((S, D, E, E))
+    beta = np.zeros(S)
+    for s in range(S):
+        n = 600 + 50 * s
+        x = rng.randn(n, D) * (1.0 + 0.2 * s) + 0.4 * (s + 1)
+        mus = rng.randn(NG, D) * 2.0
+        ivs = 1.0 / (0.5 + rng.rand(NG, D))
+        xp = np.hstack([x, np.ones((n, 1))])
+        post = rng.rand(n, NG)
+        post /= post.sum(axis=1, keepdims=True)
+        K[s] = np.einsum("ng,gd,ne->de", post, ivs * mus, xp)
+        wsum = np.einsum("ng,ne,nf->gef", post, xp, xp)
+        G[s] = np.einsum("gd,gef->def", ivs, wsum)
+        beta[s] = post.sum()
+    return K, G, beta
+
+
 def gmm_arrays(seed, P, G, D, padded_pdfs=()):
     rng = np.random.RandomState(seed)
     means = (rng.randn(P, G, D) * 2).astype(np.float32)
