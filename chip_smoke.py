@@ -50,8 +50,32 @@ What it does, in order; any failure exits non-zero with no result line:
 9. holds the native fMLLR solve against its numpy sweep on sat-2pass's own
    statistics (atol 2e-4) and times both (before step 8, whose own
    two-pass replaces the aligner's estimate);
-10. prints one ``{"kernels": [...]}`` line (sat-2pass's launches and
-    second-pass checks), then as the last line
+10. main path **train-mono**: ``TrainableAligner`` on the 64-utterance
+    corpus with ``bench.py``'s train workload (one monophone stage of 4
+    iterations to 64 Gaussians, batch 32, chain topology: flat start, equal
+    alignment, the realignments of its schedule), launch counts set to 0
+    just before: K1 and K2 must launch once per banded batch and
+    alignment, K3 as the emission rule says; one cold and three warm runs
+    (throughput: the warm median), one with the card synchronised at each
+    phase, one profiled for the card's busy share;
+11. main path **train-recipe**: the same corpus through mono -> tri -> LDA
+    -> SAT -> pron_prob at the default recipe's Gaussian and leaf counts,
+    iterations cut (each stage still realigns, LDA estimates MLLT and SAT
+    fMLLR more than once), counted from 0: per stage the wall seconds,
+    leaves, Gaussians, K3 eligibility, launches and log-likelihood per
+    iteration (finite, the last above the first); K1, K2 and K3 held to
+    their plain versions on the LDA stage's first realignment that runs
+    all three; the final archive aligns the corpus two-pass on the card,
+    every utterance;
+12. **train-reference**: the JAX package's training-test tone corpus and
+    its ``TINY_RECIPE`` trained on the card twice (bit-identical models),
+    once more under ``torch.use_deterministic_algorithms``, and once on the
+    CPU (mono log-likelihoods within 1e-3); both devices' models hold the
+    JAX test's alignment bar;
+13. prints one ``{"kernels": [...]}`` line (sat-2pass's launches and
+    second-pass checks; each row's ``launches_by_path`` adds the training
+    paths' launches and ``train_recipe_check`` the LDA-stage check), then as
+    the last line
     ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": 1}}``.
 
 It imports nothing of JAX and nothing of the JAX package.
@@ -60,6 +84,7 @@ It imports nothing of JAX and nothing of the JAX package.
 from __future__ import annotations
 
 import json
+import os
 import statistics
 import subprocess
 import sys
@@ -526,6 +551,24 @@ def batch_inputs(counted, first_call: int):
     return out
 
 
+def busy_seconds(prof):
+    """Seconds in the union of the card's busy intervals (its kernels and
+    copies) that a ``torch.profiler`` run saw."""
+    import torch
+
+    spans = sorted((e.time_range.start, e.time_range.end) for e in prof.events()
+                   if e.device_type == torch.autograd.DeviceType.CUDA)
+    _check(spans, "the profiler saw no work on the card")
+    busy, (cur_start, cur_end) = 0.0, spans[0]
+    for start, end in spans[1:]:
+        if start > cur_end:
+            busy += cur_end - cur_start
+            cur_start, cur_end = start, end
+        else:
+            cur_end = max(cur_end, end)
+    return (busy + cur_end - cur_start) / 1e6
+
+
 # the symbols of the port's kernels, as the profiler names them
 KERNEL_SYMBOLS = {
     "band_forward": "band_forward_kernel",
@@ -552,17 +595,7 @@ def profile_warm_run(aligner, corpus_dir, top=8):
         wall = time.perf_counter() - t0
     events = [e for e in prof.events()
               if e.device_type == torch.autograd.DeviceType.CUDA]
-    _check(events, "the profiler saw no work on the card")
-    spans = sorted((e.time_range.start, e.time_range.end) for e in events)
-    busy_us = 0.0
-    cur_start, cur_end = spans[0]
-    for start, end in spans[1:]:
-        if start > cur_end:
-            busy_us += cur_end - cur_start
-            cur_start, cur_end = start, end
-        else:
-            cur_end = max(cur_end, end)
-    busy_us += cur_end - cur_start
+    busy = busy_seconds(prof)
     by_name = {}
     by_kernel = {k: 0.0 for k in KERNEL_SYMBOLS}
     for e in events:
@@ -575,8 +608,8 @@ def profile_warm_run(aligner, corpus_dir, top=8):
     ranked = sorted(by_name.items(), key=lambda kv: -kv[1])[:top]
     return {
         "wall_s": wall,
-        "device_busy_s": busy_us / 1e6,
-        "device_busy_share": busy_us / 1e6 / wall,
+        "device_busy_s": busy,
+        "device_busy_share": busy / wall,
         "device_ms_by_kernel": dict(ranked),
         "device_ms_by_port_kernel": by_kernel,
     }
@@ -647,24 +680,98 @@ def k2_bound(flens, T, B):
             int(row_steps.max().item()))
 
 
-def kernel_checks(captured, gmm, device, reps=5, sm_clock_mhz=None):
-    """Each kernel against its plain version on one batch's recorded
-    inputs (:func:`batch_inputs`), with times and bounds; K2 also on the
-    last batch's, with the chain floor at ``sm_clock_mhz`` (none without
-    it)."""
+def k3_term_scale(feats, state_pdf, rows, chunk=128):
+    """(B, T, S): for each emission, the largest over the state's real
+    Gaussians of sum_k |xx_k * row_k|, the magnitude of the terms of its dot
+    product before they cancel (a float32 dot product of either kind errs
+    by at most a fixed share of it)."""
     import torch
 
     from montreal_forced_aligner_tpu_torch.ops import cuda_emission as CE
-    from montreal_forced_aligner_tpu_torch.ops import cuda_viterbi as CV
+
+    B, T, D = feats.shape
+    S = state_pdf.shape[1]
+    xx = CE.quad_features(feats, rows.shape[2]).abs()[:, None]  # (B, 1, T, D2p)
+    # padded Gaussians (gconst NEG_INF) take no part in the sum
+    real = (rows[:, :, 2 * D] > CE.NEG_INF / 2)[..., None]
+    rows = torch.where(real, rows.abs(), 0.0)
+    out = torch.empty((B, T, S), dtype=torch.float32, device=feats.device)
+    for s0 in range(0, S, chunk):
+        r = rows[state_pdf[:, s0 : s0 + chunk].long()]  # (B, c, G, D2p)
+        q = torch.matmul(xx, r.permute(0, 2, 3, 1))  # (B, G, T, c)
+        out[:, :, s0 : s0 + chunk] = q.amax(dim=1)
+    return out
+
+
+def k3_float64_rtol(d2p: int) -> float:
+    """Share of :func:`k3_term_scale` by which K3 may miss the exact (float64)
+    emission: 3 * 2^-22 for the 3xTF32 split (each product misses
+    lo(a)*lo(b), and each operand's hi + lo misses it by up to 2^-22), 2^-24
+    for x*x rounded to float32 before the split, and 2^-23 for each of the
+    3 * d2p / 8 tensor-core steps that add into one accumulator (a step's
+    float32 sum truncates, so these errors add up rather than cancel)."""
+    return 3 * 2.0 ** -22 + 2.0 ** -24 + 3 * (d2p // 8) * 2.0 ** -23
+
+
+def k3_term_rtol(d2p: int) -> float:
+    """Share of :func:`k3_term_scale` by which K3 and its plain version may
+    differ: K3's own (:func:`k3_float64_rtol`) and the plain float32 dot
+    product's, (d2p + 1) * 2^-24 (the classical n * u of its d2p terms and
+    x*x's rounding)."""
+    return k3_float64_rtol(d2p) + (d2p + 1) * 2.0 ** -24
+
+
+def k3_float64_check(got, want, feats, state_pdf, rows, scale, chunk=256):
+    """K3 (``got``) and its plain version (``want``) against the emissions
+    computed in float64, over every state in chunks of ``chunk``: K3 must
+    come within 1e-3 + 1e-5 |exact| + :func:`k3_float64_rtol` times
+    ``scale`` (:func:`k3_term_scale`) of exact. Returns each one's largest
+    error, largest error as a share of ``scale``, and K3's largest share of
+    its bar."""
+    from montreal_forced_aligner_tpu_torch.ops import cuda_emission as CE
+
+    rtol = k3_float64_rtol(rows.shape[2])
+    feats64, rows64 = feats.double(), rows.double()
+    out = {"states": int(state_pdf.shape[1]), "rtol": rtol,
+           "kernel_max_abs_err": 0.0, "plain_max_abs_err": 0.0,
+           "kernel_max_err_share_of_scale": 0.0,
+           "plain_max_err_share_of_scale": 0.0, "kernel_worst_share_of_bar": 0.0}
+    for s0 in range(0, state_pdf.shape[1], chunk):
+        sl = slice(s0, s0 + chunk)
+        exact = CE.state_loglikes_plain(feats64, state_pdf[:, sl].contiguous(), rows64)
+        sc = scale[:, :, sl].double().clamp(min=1e-30)
+        for name, val in (("kernel", got), ("plain", want)):
+            err = (val[:, :, sl].double() - exact).abs()
+            out[f"{name}_max_abs_err"] = max(out[f"{name}_max_abs_err"],
+                                             err.max().item())
+            out[f"{name}_max_err_share_of_scale"] = max(
+                out[f"{name}_max_err_share_of_scale"], (err / sc).max().item())
+            if name == "kernel":
+                bar = 1e-3 + 1e-5 * exact.abs() + rtol * sc
+                out["kernel_worst_share_of_bar"] = max(
+                    out["kernel_worst_share_of_bar"], (err / bar).max().item())
+        del exact, sc, err, bar
+    _check(out["kernel_worst_share_of_bar"] <= 1.0,
+           f"K3 is further from the float64 emissions than its bar: {out}")
+    return out
+
+
+def k3_check(call, gmm, device, reps=5, term_bound=False):
+    """K3 against its plain version on one recorded call, with its times,
+    bound and yardsticks. The bar is 1e-3 + 1e-5 |plain|; with
+    ``term_bound``, plus :func:`k3_term_rtol` times :func:`k3_term_scale`,
+    for a trained model whose terms cancel (narrow Gaussians: two float32
+    dot products differ there by a share of the terms, not of the result),
+    and K3 is also held against a float64 product (:func:`k3_float64_check`)."""
+    import torch
+
+    from montreal_forced_aligner_tpu_torch.ops import cuda_emission as CE
     from montreal_forced_aligner_tpu_torch.ops.gmm_loglikes import (
         gmm_loglikes,
         select_state_emissions,
     )
 
-    out = {}
-
-    # K3: state emissions
-    (feats, state_pdf, rows, rows_split), _ = captured["state_emission"]
+    (feats, state_pdf, rows, rows_split), _ = call
     B, T, Df = feats.shape
     S = state_pdf.shape[1]
     P, G, d2p = rows.shape
@@ -673,6 +780,15 @@ def kernel_checks(captured, gmm, device, reps=5, sm_clock_mhz=None):
     err = (got - want).abs()
     _check(bool(torch.isfinite(got).all()), "K3: non-finite emissions")
     bar = 1e-3 + 1e-5 * want.abs()
+    over_fixed_bar = float((err > bar).float().mean().item())
+    term_scale_max = term_rtol = f64 = None
+    if term_bound:
+        scale = k3_term_scale(feats, state_pdf, rows)
+        term_scale_max = float(scale.max().item())
+        term_rtol = k3_term_rtol(d2p)
+        bar = bar + term_rtol * scale
+        f64 = k3_float64_check(got, want, feats, state_pdf, rows, scale)
+        del scale
     ok = bool((err <= bar).all())
     _check(ok, f"K3 disagrees with its plain version: max abs {err.max().item()}")
     worst_share = (err / bar).max().item()
@@ -703,10 +819,14 @@ def kernel_checks(captured, gmm, device, reps=5, sm_clock_mhz=None):
 
     nbytes, flops = k3_work(feats, state_pdf, G, d2p)
     bnd, by = bound_ms(nbytes, flops, TF32_FLOP_PER_S)
-    out["state_emission"] = {
+    out = {
         "shape": {"B": B, "T": T, "S": S, "P": P, "G": G, "D": Df},
         "max_abs_err": err.max().item(),
         "worst_err_share_of_bar": worst_share,
+        "bar_term_rtol": term_rtol,
+        "term_scale_max": term_scale_max,
+        "share_over_fixed_bar": over_fixed_bar,
+        "against_float64": f64,
         "ms": time_ms(lambda: CE.state_loglikes(feats, state_pdf, rows, rows_split),
                       reps, device),
         "plain_ms": time_ms(lambda: CE.state_loglikes_plain(feats, state_pdf, rows),
@@ -719,6 +839,24 @@ def kernel_checks(captured, gmm, device, reps=5, sm_clock_mhz=None):
         "gathered_max_abs_err": g_err,
     }
     del got, want, err, bar, xx, gathered_out
+    return out
+
+
+def kernel_checks(captured, gmm, device, reps=5, sm_clock_mhz=None,
+                  k3_term_bound=False):
+    """Each kernel against its plain version on one batch's recorded
+    inputs (:func:`batch_inputs`), with times and bounds; K2 also on the
+    last batch's, with the chain floor at ``sm_clock_mhz`` (none without
+    it). K3 (:func:`k3_check`, ``k3_term_bound`` its ``term_bound``) only
+    where it was recorded."""
+    import torch
+
+    from montreal_forced_aligner_tpu_torch.ops import cuda_viterbi as CV
+
+    out = {}
+    if captured.get("state_emission") is not None:
+        out["state_emission"] = k3_check(captured["state_emission"], gmm, device,
+                                         reps, k3_term_bound)
 
     # K1: band forward
     (emit, flens, band, start, lb, ub, scale), _ = captured["band_forward"]
@@ -962,17 +1100,7 @@ def device_busy_ms(fn):
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         fn()
         torch.cuda.synchronize()
-    spans = sorted((e.time_range.start, e.time_range.end) for e in prof.events()
-                   if e.device_type == torch.autograd.DeviceType.CUDA)
-    _check(spans, "the profiler saw no work on the card")
-    busy, (cur_start, cur_end) = 0.0, spans[0]
-    for start, end in spans[1:]:
-        if start > cur_end:
-            busy += cur_end - cur_start
-            cur_start, cur_end = start, end
-        else:
-            cur_end = max(cur_end, end)
-    return (busy + cur_end - cur_start) / 1e3
+    return busy_seconds(prof) * 1e3
 
 
 def native_solve_check(aligner):
@@ -999,6 +1127,440 @@ def native_solve_check(aligner):
             "native_s": native_s, "numpy_s": numpy_s}
 
 
+# -- training phases -----------------------------------------------------------
+
+
+def profiled_run(fn, device):
+    """One call of ``fn`` under ``torch.profiler``: its wall seconds and the
+    union of the card's busy intervals (the device's busy share)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        _sync(device)
+        wall = time.perf_counter() - t0
+    busy = busy_seconds(prof)
+    return {"wall_s": wall, "device_busy_s": busy, "device_busy_share": busy / wall}
+
+
+def _loglikes(trainer):
+    return [e["loglike_per_frame"] for e in trainer.iteration_log]
+
+
+def train_mono_phase(corpus_dir, dict_path, audio_s, device, warm_runs=3,
+                     batch_size=32, sm_clock_mhz=None):
+    """``bench.py``'s train workload through ``TrainableAligner``: one
+    counted cold run, ``warm_runs`` warm runs (throughput: audio seconds
+    over their median wall), one synchronised run for the phase seconds and
+    one profiled run for the busy share. K1 and K2 are recorded in the cold
+    run and held against their plain versions on the equal alignment's
+    first and last batch and on the first realignment's. Returns (report,
+    those checks by alignment)."""
+    import contextlib
+
+    from montreal_forced_aligner_tpu_torch.align.aligner import (
+        _emission_kernel_eligible,
+    )
+    from montreal_forced_aligner_tpu_torch.ops import cuda_build
+    from montreal_forced_aligner_tpu_torch.training.trainer import (
+        StageConfig,
+        TrainableAligner,
+    )
+
+    iterations = 4
+
+    def make():
+        return TrainableAligner(
+            corpus_dir, dict_path,
+            recipe=[StageConfig("monophone", "mono", iterations, 64)],
+            batch_size=batch_size, variable_length_topology=False, device=device,
+        )
+
+    ta = make()
+    recs = record_kernel_calls(device)
+    with contextlib.ExitStack() as stack:
+        for r in recs.values():
+            stack.enter_context(r)
+        _sync(device)
+        cuda_build.reset_launch_counts()
+        t0 = time.perf_counter()
+        ta.train()
+        _sync(device)
+        cold = time.perf_counter() - t0
+        launches = dict(cuda_build.LAUNCHES)
+    trainer = ta.trainers["monophone"]
+    batches = ta.pipeline.batches
+    banded = sum(fb.band_limits is not None for fb in batches)
+    realigns = [i for i in trainer.realignment_iterations if i <= iterations]
+    alignments = 1 + len(realigns)  # the equal alignment, then the schedule's
+    gmm = trainer._mirror.align_gmm()
+    use_k = _emission_kernel_eligible(*gmm.params.gconsts.shape)
+    # on the CPU every wrapper takes its plain version: no launches
+    on_card = device.type == "cuda"
+    want = {"band_forward": banded * alignments * on_card,
+            "band_backtrace": banded * alignments * on_card,
+            "state_emission": banded * len(realigns) * on_card if use_k else 0}
+    _check(launches == want, f"train-mono launches {launches}, expected {want}")
+    # the equal alignment (position priors at acoustic scale 1.0) makes the
+    # first `banded` calls of each wrapper, the first realignment the next
+    fwd, back = recs["band_forward"], recs["band_backtrace"]
+    _check(fwd.calls == back.calls == banded * alignments,
+           f"train-mono wrapper calls {fwd.calls}/{back.calls}")
+    checks = {}
+    for label, first in (("train_mono_equal_align", 0),
+                         ("train_mono_realign", banded)):
+        checks[label] = kernel_checks(
+            {"band_forward": fwd.all_args[first],
+             "band_backtrace": back.all_args[first],
+             "band_backtrace_last": back.all_args[first + banded - 1]},
+            None, device, sm_clock_mhz=sm_clock_mhz)
+    del recs, fwd, back
+    lls = _loglikes(trainer)
+    _check(all(np.isfinite(lls)) and lls[-1] > lls[0], f"train-mono loglikes {lls}")
+    warm = []
+    for _ in range(warm_runs):
+        t0 = time.perf_counter()
+        make().train()
+        _sync(device)
+        warm.append(time.perf_counter() - t0)
+    synced = make()
+    synced.sync_phases = True
+    t0 = time.perf_counter()
+    synced.train()
+    synced_wall = time.perf_counter() - t0
+    median = statistics.median(warm)
+    return {
+        "path": "train-mono",
+        "audio_s": audio_s,
+        "batches": len(batches),
+        "banded_batches": banded,
+        "alignments": alignments,
+        "realignment_iterations": realigns,
+        "launches": launches,
+        "emission_kernel_eligible": use_k,
+        "pdfs_x_gauss": list(gmm.params.gconsts.shape),
+        "loglike_per_frame": lls,
+        "cold_wall_s": cold,
+        "cold_audio_s_per_s": audio_s / cold,
+        "warm_walls_s": warm,
+        "warm_median_wall_s": median,
+        "warm_audio_s_per_s": audio_s / median,
+        "synced_wall_s": synced_wall,
+        "phases_synced_s": dict(synced.phase_seconds),
+        "profiled_warm_run": (profiled_run(lambda: make().train(), device)
+                              if on_card else None),
+    }, checks
+
+
+# the default recipe's first four stages at their Gaussian and leaf counts
+# (training/trainer.py DEFAULT_RECIPE), iterations cut so each stage still
+# realigns on its schedule (tri/LDA/SAT at iteration 10), LDA estimates
+# MLLT at 2, 4, 6 and SAT fMLLR at 2, 4, 6; then the pronunciation stage
+TRAIN_RECIPE = [
+    ("monophone", "mono", 4, 1000, 0),
+    ("triphone", "tri", 11, 10000, 2000),
+    ("lda", "lda", 11, 15000, 2500),
+    ("sat_1", "sat", 11, 15000, 2500),
+    ("pron_prob_1", "pron_prob", 0, 0, 0),
+]
+
+
+def train_recipe_phase(corpus_dir, dict_path, out_dir, device, recipe=TRAIN_RECIPE,
+                       batch_size=32):
+    """The staged recipe on the card, counted from 0; K1-K3 recorded on the
+    LDA stage's first realignment that launches all three. Returns
+    (report, the recorded calls, the model they used)."""
+    import contextlib
+
+    import torch
+
+    from montreal_forced_aligner_tpu_torch.align.aligner import (
+        AlignerConfig,
+        PretrainedAligner,
+        _emission_kernel_eligible,
+    )
+    from montreal_forced_aligner_tpu_torch.corpus.corpus import Corpus
+    from montreal_forced_aligner_tpu_torch.ops import cuda_build
+    from montreal_forced_aligner_tpu_torch.training import lda as lda_mod
+    from montreal_forced_aligner_tpu_torch.training.trainer import (
+        StageConfig,
+        TrainableAligner,
+    )
+
+    captured = {}
+    orig = lda_mod.LdaTrainer._realign_batches
+
+    def recording(self, pipeline, equal):
+        if captured or equal:
+            return orig(self, pipeline, equal)
+        self._ensure_mirror(pipeline)
+        gmm = self._mirror.align_gmm()
+        if not gmm.use_emission_kernel:
+            return orig(self, pipeline, equal)
+        recs = record_kernel_calls(device)
+        with contextlib.ExitStack() as stack:
+            for r in recs.values():
+                stack.enter_context(r)
+            out = orig(self, pipeline, equal)
+        captured.update(calls=recs, gmm=gmm.params)
+        return out
+
+    ta = TrainableAligner(
+        corpus_dir, dict_path,
+        recipe=[StageConfig(n, k, it, g, num_leaves=lv)
+                for n, k, it, g, lv in recipe],
+        batch_size=batch_size, device=device,
+    )
+    lda_mod.LdaTrainer._realign_batches = recording
+    try:
+        _sync(device)
+        cuda_build.reset_launch_counts()
+        t0 = time.perf_counter()
+        final = ta.train()
+        _sync(device)
+        wall = time.perf_counter() - t0
+    finally:
+        lda_mod.LdaTrainer._realign_batches = orig
+    launches = dict(cuda_build.LAUNCHES)
+    _check(captured, "the LDA stage never launched K1, K2 and K3 in one realignment")
+    stages = {}
+    for name, kind, iters, gauss, leaves in recipe:
+        if kind == "pron_prob":
+            stages[name] = {"wall_s": ta.stage_seconds[name]}
+            continue
+        tr = ta.trainers[name]
+        P, G = tr.gmm.gconsts.shape
+        lls = _loglikes(tr)
+        _check(len(lls) == iters and all(np.isfinite(lls)),
+               f"{name}: log-likelihoods {lls}")
+        _check(lls[-1] > lls[0], f"{name}: last log-likelihood {lls[-1]} not above "
+               f"the first {lls[0]}")
+        stages[name] = {
+            "wall_s": ta.stage_seconds[name],
+            "tree_leaves": int(P),
+            "max_gaussians": gauss,
+            "final_gaussians": int(tr.gmm.total_gauss),
+            "padded_gauss": int(G),
+            "emission_kernel_eligible": _emission_kernel_eligible(P, G),
+            "launches": ta.stage_launches[name],
+            "loglike_per_frame": lls,
+        }
+    if device.type == "cuda":
+        # every stage realigns through K1 and K2; the triphone stages'
+        # models are past K3's threshold
+        for name, kind, *_ in recipe:
+            if kind == "pron_prob":
+                continue
+            n = stages[name]["launches"]
+            _check(n["band_forward"] > 0 and n["band_backtrace"] > 0,
+                   f"{name}: K1/K2 never ran: {n}")
+            _check(kind not in ("lda", "sat") or n["state_emission"] > 0,
+                   f"{name}: K3 never ran")
+    model_path = out_dir / "train_recipe.zip"
+    final.save(model_path)
+    aligner = PretrainedAligner(model_path, dict_path,
+                                AlignerConfig(batch_size=batch_size), device=device)
+    _check(aligner.two_pass, "the trained SAT model does not align two-pass")
+    corpus = Corpus.load(corpus_dir)
+    t0 = time.perf_counter()
+    results = aligner.align_corpus(corpus)
+    _sync(device)
+    align_s = time.perf_counter() - t0
+    _check(len(results) == corpus.num_utterances,
+           f"trained model aligned {len(results)} of {corpus.num_utterances}")
+    for key, aln in results.items():
+        _check(aln.words and aln.phones and np.isfinite(aln.log_likelihood)
+               and aln.log_likelihood > -1e29, f"utterance {key}: bad alignment")
+    report = {
+        "path": "train-recipe",
+        "wall_s": wall,
+        "stages": stages,
+        "phases_dispatch_s": dict(ta.phase_seconds),
+        "launches": launches,
+        "excluded_utterances": len(ta._excluded),
+        "align_two_pass_s": align_s,
+        "aligned_utterances": len(results),
+        "fmllr": fmllr_summary(aligner),
+    }
+    return report, captured
+
+
+SR = 16000
+TONES = {"aa": 330.0, "bb": 1800.0}
+WORD_PHONES = {"ab": ["aa", "bb"], "ba": ["bb", "aa"], "a": ["aa"], "b": ["bb"]}
+
+
+def make_tone_corpus(tmp: Path, n_utts=14, seed=3):
+    """The JAX package's training-test corpus (tests/test_training.py
+    ``make_training_corpus``): two tones as phones between noise silences,
+    2-3 words an utterance over two speakers. Returns (dir, truths)."""
+    from montreal_forced_aligner_tpu_torch.io.wav import write_wave
+
+    rng = np.random.RandomState(seed)
+    corpus_dir = tmp / "train_corpus"
+    truths = {}
+    for u in range(n_utts):
+        spk = f"spk{u % 2}"
+        d = corpus_dir / spk
+        d.mkdir(parents=True, exist_ok=True)
+        words = [
+            ["ab", "ba", "a", "b"][rng.randint(4)] for _ in range(rng.randint(2, 4))
+        ]
+        pieces = []
+        segs = []
+        t = 0.0
+
+        def add(phone, dur):
+            nonlocal t
+            n = int(dur * SR)
+            tt = np.arange(n) / SR
+            if phone == "sil":
+                x = rng.randn(n) * 10.0
+            else:
+                x = 6000 * np.sin(2 * np.pi * TONES[phone] * tt) + rng.randn(n) * 10.0
+            pieces.append(x.astype(np.float32))
+            segs.append((phone, t, t + dur))
+            t += dur
+
+        add("sil", 0.3 + 0.2 * rng.rand())
+        for w in words:
+            for ph in WORD_PHONES[w]:
+                add(ph, 0.25 + 0.3 * rng.rand())
+        add("sil", 0.3 + 0.2 * rng.rand())
+        write_wave(d / f"utt{u}.wav", np.concatenate(pieces), SR)
+        (d / f"utt{u}.lab").write_text(" ".join(words))
+        truths[f"utt{u}"] = segs
+    return corpus_dir, truths
+
+
+def tone_alignment_bar(results, corpus, truths):
+    """The JAX training test's bar: labels equal to the truth, median
+    boundary error under 30 ms. Returns the median."""
+    errors = []
+    for utt in corpus.utterances:
+        full = truths[utt.file_name]
+        truth = [(ph, b, e) for ph, b, e in full if ph != "sil"]
+        got = [p for p in results[utt.id].phones if p.label not in ("sil", "spn")]
+        _check([p.label for p in got] == [ph for ph, _b, _e in truth],
+               f"{utt.file_name}: labels differ from the truth")
+        nonsil = [i for i, (ph, _b, _e) in enumerate(full) if ph != "sil"]
+        for j, ((ph, b, e), p) in enumerate(zip(truth, got)):
+            i = nonsil[j]
+            if i == 0 or full[i - 1][0] != ph:
+                errors.append(abs(p.begin - b))
+            if i == len(full) - 1 or full[i + 1][0] != ph:
+                errors.append(abs(p.end - e))
+    median = float(np.median(errors))
+    _check(median < 0.03, f"median boundary error {median}")
+    return median
+
+
+TINY_RECIPE = [  # tests/test_full_training.py
+    ("monophone", "mono", 6, 40, 0),
+    ("triphone", "tri", 4, 64, 48),
+    ("lda", "lda", 5, 64, 48),
+    ("pron_prob", "pron_prob", 0, 0, 0),
+    ("sat", "sat", 5, 64, 48),
+]
+
+
+def _model_arrays(ta, model):
+    """Every array the trained recipe leaves: the final model's, the
+    alignment model's, the speaker transforms."""
+    out = {
+        "tm": model.transition_model.log_probs,
+        "weights": model.gmm.weights, "miv": model.gmm.means_invvars,
+        "iv": model.gmm.inv_vars, "gconsts": model.gmm.gconsts,
+        "lda": model.lda_mat,
+        "ali_miv": model.alignment_model[1].means_invvars,
+        "ali_iv": model.alignment_model[1].inv_vars,
+        "transforms": ta.trainers["sat"].speaker_transforms,
+    }
+    for name, tr in ta.trainers.items():
+        out[f"loglikes_{name}"] = np.asarray(_loglikes(tr))
+    return out
+
+
+def train_reference_phase(tmp: Path, device):
+    """TINY_RECIPE on the tone corpus: twice on the card (bit-identical),
+    once more under deterministic algorithms, once on the CPU."""
+    import torch
+
+    from montreal_forced_aligner_tpu_torch.align.aligner import (
+        AlignerConfig,
+        PretrainedAligner,
+    )
+    from montreal_forced_aligner_tpu_torch.corpus.corpus import Corpus
+    from montreal_forced_aligner_tpu_torch.training.base import TrainerConfig
+    from montreal_forced_aligner_tpu_torch.training.trainer import (
+        StageConfig,
+        TrainableAligner,
+    )
+
+    tmp.mkdir(parents=True, exist_ok=True)
+    corpus_dir, truths = make_tone_corpus(tmp)
+    dict_path = tmp / "tone.dict"
+    dict_path.write_text(
+        "".join(f"{w}\t{' '.join(p)}\n" for w, p in WORD_PHONES.items()))
+
+    def run(dev):
+        ta = TrainableAligner(
+            corpus_dir, dict_path,
+            recipe=[StageConfig(n, k, it, g, num_leaves=lv)
+                    for n, k, it, g, lv in TINY_RECIPE],
+            base_config=TrainerConfig(boost_silence=1.0), batch_size=4,
+            variable_length_topology=False, device=dev,
+        )
+        t0 = time.perf_counter()
+        model = ta.train()
+        _sync(dev)
+        return ta, model, time.perf_counter() - t0
+
+    cpu = torch.device("cpu")
+    runs = {"card_1": run(device), "card_2": run(device)}
+    torch.use_deterministic_algorithms(True)
+    try:
+        runs["card_deterministic"] = run(device)
+    finally:
+        torch.use_deterministic_algorithms(False)
+    runs["cpu"] = run(cpu)
+    arrays = {k: _model_arrays(ta, m) for k, (ta, m, _w) in runs.items()}
+    ref = arrays["card_1"]
+
+    def identical(other):
+        return [k for k in ref if not np.array_equal(ref[k], other[k])]
+
+    differ = identical(arrays["card_2"])
+    _check(not differ, f"two card runs differ in {differ}")
+    differ_det = identical(arrays["card_deterministic"])
+    _check(not differ_det, f"the deterministic-algorithms run differs in {differ_det}")
+    card_ll = ref["loglikes_monophone"]
+    cpu_ll = arrays["cpu"]["loglikes_monophone"]
+    rel = float(np.max(np.abs(card_ll - cpu_ll) / np.abs(cpu_ll)))
+    _check(rel <= 1e-3, f"mono log-likelihoods card vs CPU differ by {rel}")
+    medians = {}
+    for key, dev in (("card_1", device), ("cpu", cpu)):
+        ta, model, _w = runs[key]
+        path = tmp / f"tone_{key}.zip"
+        model.save(path)
+        aligner = PretrainedAligner(path, dict_path, AlignerConfig(batch_size=4),
+                                    device=dev)
+        corpus = Corpus.load(corpus_dir)
+        medians[key] = tone_alignment_bar(aligner.align_corpus(corpus), corpus,
+                                          truths)
+    return {
+        "path": "train-reference",
+        "walls_s": {k: w for k, (_ta, _m, w) in runs.items()},
+        "card_runs_identical": True,
+        "deterministic_run_identical": True,
+        "mono_loglike_max_rel_diff_card_cpu": rel,
+        "sat_leaves": {k: ta.models["sat"].gmm.num_pdfs
+                       for k, (ta, _m, _w) in runs.items()},
+        "median_boundary_error_s": medians,
+    }
+
+
 KERNELS = [
     ("band_forward", "montreal_forced_aligner_tpu_torch/csrc/band_viterbi.cu",
      "montreal_forced_aligner_tpu/ops/pallas_viterbi.py:151"),
@@ -1009,17 +1571,30 @@ KERNELS = [
 ]
 
 
-def kernels_line(checks, launches):
+def kernels_line(checks, launches, by_path=None, extra_checks=None):
+    """The kernels line: sat-2pass's launches and checks in the contract's
+    keys; ``by_path`` adds each path's launches (``launches_by_path``) and
+    ``extra_checks`` other paths' checks of the same kernel, by path."""
     rows = []
     for name, source, replaces in KERNELS:
         c = checks[name]
-        rows.append({
+        row = {
             "name": name, "route": "cuda", "source": source,
             "replaces": replaces, "launches": launches[name],
             "max_abs_err": c["max_abs_err"], "ms": c["ms"],
             "plain_ms": c["plain_ms"], "bound_ms": c["bound_ms"],
             "bound_by": c["bound_by"], "library_ms": c["library_ms"],
-        })
+        }
+        if by_path:
+            row["launches_by_path"] = {p: l[name] for p, l in by_path.items()}
+        for path, ec in (extra_checks or {}).items():
+            if name not in ec:
+                continue
+            e = ec[name]
+            row[f"{path}_check"] = {k: e[k] for k in (
+                "shape", "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
+                "library_ms")}
+        rows.append(row)
     return {"kernels": rows}
 
 
@@ -1030,6 +1605,9 @@ def main() -> int:
               file=sys.stderr)
         return 2
     sys.path.insert(0, str(root))
+    # cuBLAS's deterministic workspace, for the deterministic-algorithms run
+    # of train-reference (read when cuBLAS starts)
+    os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
     import torch
 
     if not torch.cuda.is_available():
@@ -1101,7 +1679,29 @@ def main() -> int:
         _emit({"native_fmllr_solve": native_solve_check(aligners["sat-2pass"])})
         _emit({"long_utterance": long_utterance_phase(
             aligners["sat-2pass"], long_dir, device)})
-        _emit(kernels_line(checks["sat-2pass"], reports["sat-2pass"]["launches"]))
+        del aligners
+        audio_s = reports["sat-2pass"]["audio_s"]
+        mono, mono_checks = train_mono_phase(corpus_dir, dict_path, audio_s, device,
+                                             sm_clock_mhz=sm_clock_mhz)
+        _emit({"main_path": mono})
+        for label, cks in mono_checks.items():
+            for name, c in cks.items():
+                _emit({"kernel_check": name, "path": label, **c})
+        recipe, captured = train_recipe_phase(corpus_dir, dict_path, tmp, device)
+        _emit({"main_path": recipe})
+        calls = captured["calls"]
+        recipe_checks = kernel_checks(batch_inputs(calls, 0), captured["gmm"], device,
+                                      sm_clock_mhz=sm_clock_mhz,
+                                      k3_term_bound=True)
+        for name, c in recipe_checks.items():
+            _emit({"kernel_check": name, "path": "train-recipe (LDA stage)", **c,
+                   "calls_in_that_realignment": calls[name].calls})
+        del captured, calls
+        _emit({"train_reference": train_reference_phase(tmp / "tone", device)})
+        by_path = {"sat-2pass": reports["sat-2pass"]["launches"],
+                   "train-mono": mono["launches"], "train-recipe": recipe["launches"]}
+        _emit(kernels_line(checks["sat-2pass"], reports["sat-2pass"]["launches"],
+                           by_path, {**mono_checks, "train_recipe": recipe_checks}))
 
     _emit({"ok": True, "device": {
         "platform": "gpu",

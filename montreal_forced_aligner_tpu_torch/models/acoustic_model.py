@@ -10,6 +10,7 @@ work unchanged) and our own.
 from __future__ import annotations
 
 import json
+import logging
 import os
 import shutil
 import tempfile
@@ -90,7 +91,7 @@ class AcousticModel:
     # ``phone_lm.fst`` built by ``train_phone_lm``,
     # ``transcription/transcriber.py:737``; persisted here as ARPA —
     # ``phone_lm.arpa`` — consumed by ``--use_phone_model``)
-    phone_lm: Optional[object] = None  # not ported: always None here
+    phone_lm: Optional[object] = None  # language_modeling.ngram.ArpaModel
 
     @property
     def phone_names(self) -> Dict[int, str]:
@@ -203,11 +204,35 @@ class AcousticModel:
                 for phone, pdfs in raw.items()
             }
         phone_lm = None
-        if (root / "phone_lm.arpa").exists() or (root / "phone_lm.fst").exists():
-            raise NotImplementedError(
-                f"{root}: phone-LM archive members (phone_lm.arpa/.fst) are "
-                "ROADMAP.md Queue 1 item 16 (host extras)"
+        if (root / "phone_lm.arpa").exists():
+            from montreal_forced_aligner_tpu_torch.language_modeling.ngram import (
+                ArpaModel,
             )
+
+            phone_lm = ArpaModel.read(root / "phone_lm.arpa")
+        elif (root / "phone_lm.fst").exists():
+            # genuine MFA archives bundle the phone LM as a binary OpenGrm
+            # n-gram FST (reference models.py:367-379); labels follow the
+            # archive's phone symbol table
+            from montreal_forced_aligner_tpu_torch.io.openfst import read_fst
+            from montreal_forced_aligner_tpu_torch.language_modeling.fst_convert import (
+                ngram_fst_to_arpa,
+            )
+
+            import struct as _struct
+
+            try:
+                phone_lm = ngram_fst_to_arpa(
+                    read_fst(root / "phone_lm.fst"), phone_table
+                )
+            # a truncated/corrupt optional member must degrade with the
+            # warning, not make the whole archive unloadable
+            # (struct.error/IndexError come from the binary reader)
+            except (ValueError, _struct.error, IndexError, KeyError) as e:
+                logging.getLogger("mfa_tpu").warning(
+                    "could not parse phone_lm.fst (%s); --use_phone_model "
+                    "will retrain the phone LM from alignments", e,
+                )
         return cls(
             transition_model=tm,
             gmm=gmm,
@@ -251,10 +276,38 @@ class AcousticModel:
                         ensure_ascii=False,
                     )
             if self.phone_lm is not None:
-                raise NotImplementedError(
-                    "writing a phone LM into the archive is ROADMAP.md "
-                    "Queue 1 item 16 (host extras)"
+                self.phone_lm.write(root / "phone_lm.arpa")
+                # also the reference's member form (binary OpenFst n-gram
+                # acceptor, reference models.py:367-379) so trained
+                # archives are member-for-member drop-ins. Labels reuse
+                # the archive phone-table ids where the LM vocabulary
+                # matches (this framework's phone LM is over
+                # position-stripped base phones) and the table is embedded
+                # so the file is self-describing for OpenFst tooling.
+                from montreal_forced_aligner_tpu_torch.io.openfst import write_fst
+                from montreal_forced_aligner_tpu_torch.language_modeling.fst_convert import (
+                    arpa_to_ngram_fst,
                 )
+                from montreal_forced_aligner_tpu_torch.language_modeling.ngram import (
+                    BOS,
+                    EOS,
+                    UNK,
+                )
+
+                symbols = {"<eps>": 0}
+                next_id = max(self.phone_table.values(), default=0) + 1
+                for (word,) in self.phone_lm.ngrams[1]:
+                    if word in (BOS, EOS, UNK):
+                        continue
+                    pid = self.phone_table.get(word)
+                    if pid is None or pid in symbols.values():
+                        pid = next_id
+                        next_id += 1
+                    symbols[word] = pid
+                lm_fst = arpa_to_ngram_fst(self.phone_lm, symbols)
+                lm_fst.isymbols = symbols
+                lm_fst.osymbols = symbols
+                write_fst(lm_fst, root / "phone_lm.fst")
             if extra_files:
                 for name, src in extra_files.items():
                     shutil.copy(src, root / name)

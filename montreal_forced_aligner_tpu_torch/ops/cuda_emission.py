@@ -157,3 +157,17 @@ def state_loglikes(
     cuda_build.check(err, "state_loglikes")
     cuda_build.LAUNCHES["state_emission"] += 1
     return out
+
+
+def pack_rows_device(miv: torch.Tensor, iv: torch.Tensor,
+                     gconsts: torch.Tensor) -> torch.Tensor:
+    """:func:`pack_rows` on the tensors' own device, for a model that
+    changes every training iteration: the same (P, G, D2p) float32 rows, bit
+    for bit."""
+    P, G, D = miv.shape
+    d2p = ((2 * D + 2 + 7) // 8) * 8
+    out = torch.zeros((P, G, d2p), dtype=torch.float32, device=miv.device)
+    out[:, :, :D] = miv
+    out[:, :, D : 2 * D] = -0.5 * iv
+    out[:, :, 2 * D] = torch.clamp(gconsts, min=NEG_INF)
+    return out

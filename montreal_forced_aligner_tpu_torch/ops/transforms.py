@@ -1,21 +1,32 @@
-"""fMLLR (CMLLR) speaker adaptation: statistics on the device, the row-sweep
-solve on the host.
+"""Feature-space transform estimation: LDA, MLLT (STC) and fMLLR (CMLLR),
+statistics on the device, the small solves on the host.
 
-Counterpart of the fMLLR half of ``montreal_forced_aligner_tpu/ops/
-transforms.py`` (LDA and MLLT wait for training). Per speaker s:
+Counterpart of ``montreal_forced_aligner_tpu/ops/transforms.py``.
+
+LDA: per-class frame counts and sums, by the fixed-order segmented sums of
+``ops/stats.py``, and the total second moment as one product.
+
+MLLT: for each dimension d, G[d] = sum gamma * invvar[d] * (x - mu)(x - mu)^T
+over each frame's aligned pdf's Gaussians, and beta = sum gamma.
+
+fMLLR, per speaker s:
 
     K[s]    = sum gamma * invvar * mu x+^T          (S, D, D+1)
     G[s, d] = sum gamma * invvar[d] * x+ x+^T        (S, D, D+1, D+1)
     beta[s] = sum gamma
 
 with gamma each Gaussian's posterior within the frame's aligned pdf, times
-the frame's weight, and x+ = [x, 1]. The statistics gather each frame's pdf
-parameters (the reference selects them with a one-hot product over all
-pdfs, exact at ``Precision.HIGHEST``, so a gather gives the same numbers)
-in chunks of frames, and reduce per utterance with batched products and per
-speaker with ``index_add_``. The solver is the native row sweep of
+the frame's weight, and x+ = [x, 1].
+
+The statistics gather each frame's pdf parameters (the reference selects
+them with a one-hot product over all pdfs, exact at ``Precision.HIGHEST``,
+so a gather gives the same numbers) in chunks of frames, reduce per
+utterance with batched products and per speaker with a product by the
+(S, B) speaker indicator: every sum has a fixed order, so the statistics
+are the same from run to run. The fMLLR solver is the native row sweep of
 ``native/fmllr_solve.cc`` in float64; :func:`_solve_fmllr_batched_numpy` is
-its plain version.
+its plain version. LDA's eigenproblem and MLLT's row sweep are numpy, as in
+the reference.
 """
 
 from __future__ import annotations
@@ -28,6 +39,10 @@ import numpy as np
 import torch
 
 from montreal_forced_aligner_tpu_torch.ops import cuda_build
+from montreal_forced_aligner_tpu_torch.ops.stats import (
+    frame_layout,
+    segment_moments,
+)
 
 # bytes of one gathered (frames, G, D) float32 tensor per chunk; a chunk
 # keeps three alive at once
@@ -36,6 +51,123 @@ _GATHER_CHUNK_BYTES = 64 << 20
 _G_CHUNK_BYTES = 64 << 20
 
 
+# ---------------------------------------------------------------------------
+# LDA
+# ---------------------------------------------------------------------------
+def accumulate_lda_stats(
+    feats: torch.Tensor,  # (B, T, D) spliced features
+    frame_lengths: torch.Tensor,
+    frame_class: torch.Tensor,  # (B, T) class (pdf) per frame
+    num_classes: int,
+):
+    """Returns (class_counts (C,), class_sums (C, D), total_second (D, D))."""
+    B, T, D = feats.shape
+    N = B * T
+    mask = (torch.arange(T, device=feats.device)[None, :]
+            < frame_lengths[:, None]).reshape(-1)
+    x = torch.where(mask[:, None], feats.reshape(N, D), 0.0)
+    layout = frame_layout(frame_class, frame_lengths, num_classes)
+    counts, sums, _sumsq = segment_moments(x, layout)
+    second = x.T @ x
+    return counts, sums, second
+
+
+def estimate_lda(
+    class_counts: np.ndarray,  # (C,)
+    class_sums: np.ndarray,  # (C, D)
+    total_second: np.ndarray,  # (D, D)
+    target_dim: int = 40,
+    within_floor: float = 1e-6,
+) -> np.ndarray:
+    """LDA transform (target_dim, D): rows diagonalize between-class scatter
+    with unit within-class covariance (Kaldi ``est-lda`` semantics)."""
+    import scipy.linalg
+
+    counts = np.maximum(class_counts, 0.0)
+    total = counts.sum()
+    mean = class_sums.sum(axis=0) / total
+    with np.errstate(divide="ignore", invalid="ignore"):
+        class_means = class_sums / np.maximum(counts, 1e-10)[:, None]
+    between = (
+        np.einsum("c,cd,ce->de", counts, class_means, class_means) / total
+        - np.outer(mean, mean)
+    )
+    total_covar = total_second / total - np.outer(mean, mean)
+    within = total_covar - between
+    # symmetrize + floor
+    within = (within + within.T) / 2 + within_floor * np.eye(len(mean))
+    between = (between + between.T) / 2
+    eigvals, eigvecs = scipy.linalg.eigh(between, within)
+    order = np.argsort(eigvals)[::-1][:target_dim]
+    M = eigvecs[:, order].T  # rows: generalized eigvecs, v' W v = 1 already
+    return M.astype(np.float32)
+
+
+# ---------------------------------------------------------------------------
+# MLLT (semi-tied covariance)
+# ---------------------------------------------------------------------------
+def accumulate_mllt_stats(
+    feats: torch.Tensor,  # (B, T, D) current (LDA-space) features
+    frame_lengths: torch.Tensor,
+    frame_pdf: torch.Tensor,  # (B, T)
+    means: torch.Tensor,  # (P, G, D) gaussian means
+    inv_vars: torch.Tensor,  # (P, G, D)
+    gconsts: torch.Tensor,  # (P, G)
+    miv: torch.Tensor,  # (P, G, D) means*invvars (for posteriors)
+):
+    """MLLT stats: G[d] = sum_frames sum_g gamma * invvar[g, d] *
+    (x - mu_g)(x - mu_g)^T and beta = total posterior mass. Returns
+    ((D, D, D), scalar)."""
+    B, T, D = feats.shape
+    _P, NG, _ = means.shape
+    N = B * T
+    dev = feats.device
+    mask = (torch.arange(T, device=dev)[None, :] < frame_lengths[:, None]).reshape(-1)
+    pdf = torch.where(mask, frame_pdf.reshape(-1).long(), 0)
+    x = feats.reshape(N, D)
+    gc_all = torch.clamp(gconsts, min=-1.0e30)
+    G_mats = torch.zeros((D, D * D), dtype=torch.float32, device=dev)
+    beta = torch.zeros((), dtype=torch.float32, device=dev)
+    # the (frames*G, D*D) outer products dominate a chunk's memory
+    step = max(1, _GATHER_CHUNK_BYTES // (NG * D * D * 4))
+    for n0 in range(0, N, step):
+        sl = slice(n0, min(N, n0 + step))
+        p = pdf[sl]
+        xc = x[sl]
+        iv = inv_vars[p]  # (c, G, D)
+        quad = (
+            torch.bmm(miv[p], xc[:, :, None])[..., 0]
+            - 0.5 * torch.bmm(iv, (xc * xc)[:, :, None])[..., 0]
+            + gc_all[p]
+        )  # (c, G)
+        ll = torch.logsumexp(quad, dim=-1, keepdim=True)
+        post = torch.where(mask[sl, None], torch.exp(quad - ll), 0.0)
+        diff = (xc[:, None, :] - means[p]).reshape(-1, D)  # (c*G, D)
+        w = (post[:, :, None] * iv).reshape(-1, D)  # (c*G, D)
+        outer = (diff[:, :, None] * diff[:, None, :]).reshape(-1, D * D)
+        G_mats += w.T @ outer
+        beta += post.sum()
+    return G_mats.reshape(D, D, D), beta
+
+
+def solve_mllt(G_mats: np.ndarray, beta: float, num_iters: int = 10) -> np.ndarray:
+    """Row-wise MLLT update (Kaldi ``est-mllt``): maximize
+    beta * log|det M| - 0.5 * sum_d m_d G_d m_d^T."""
+    D = G_mats.shape[0]
+    M = np.eye(D)
+    for _ in range(num_iters):
+        for d in range(D):
+            inv_Gd = np.linalg.inv(G_mats[d] / beta + 1e-8 * np.eye(D))
+            cof = np.linalg.inv(M).T * np.linalg.det(M)
+            c = cof[d]
+            denom = c @ inv_Gd @ c
+            M[d] = c @ inv_Gd / np.sqrt(max(denom, 1e-20))
+    return M.astype(np.float32)
+
+
+# ---------------------------------------------------------------------------
+# fMLLR (CMLLR)
+# ---------------------------------------------------------------------------
 def accumulate_fmllr_stats(
     feats: torch.Tensor,  # (B, T, D)
     frame_lengths: torch.Tensor,  # (B,)
@@ -88,13 +220,15 @@ def accumulate_fmllr_stats(
         del iv, mu_iv
 
     # per-utterance reductions (each utterance has one speaker), then per
-    # speaker with index_add_
+    # speaker
     xp = torch.cat([feats, torch.ones((B, T, 1), dtype=feats.dtype, device=dev)], 2)
     w_mu_iv = w_mu_iv.reshape(B, T, D)
     w_iv = w_iv.reshape(B, T, D)
-    spk = speaker_idx.long()
-    beta = torch.zeros((num_speakers,), dtype=torch.float32, device=dev)
-    beta.index_add_(0, spk, gamma.reshape(B, T).sum(dim=1))
+    # (S, B) speaker indicator: the per-speaker sums are products with it,
+    # in a fixed order (index_add_ adds with atomics on the card)
+    onehot = (torch.arange(num_speakers, device=dev)[:, None]
+              == speaker_idx.long()[None, :]).to(torch.float32)
+    beta = onehot @ gamma.reshape(B, T).sum(dim=1)
     K_utt = torch.bmm(w_mu_iv.transpose(1, 2), xp)  # (B, D, E)
     G_utt = torch.zeros((B, D * E, E), dtype=torch.float32, device=dev)
     t_step = max(1, _G_CHUNK_BYTES // (B * D * E * 4))
@@ -102,10 +236,8 @@ def accumulate_fmllr_stats(
         ts = slice(t0, min(T, t0 + t_step))
         z = (w_iv[:, ts, :, None] * xp[:, ts, None, :]).reshape(B, -1, D * E)
         G_utt += torch.bmm(z.transpose(1, 2), xp[:, ts])
-    K = torch.zeros((num_speakers, D, E), dtype=torch.float32, device=dev)
-    K.index_add_(0, spk, K_utt)
-    G = torch.zeros((num_speakers, D, E, E), dtype=torch.float32, device=dev)
-    G.index_add_(0, spk, G_utt.reshape(B, D, E, E))
+    K = (onehot @ K_utt.reshape(B, -1)).reshape(num_speakers, D, E)
+    G = (onehot @ G_utt.reshape(B, -1)).reshape(num_speakers, D, E, E)
     return K, G, beta
 
 

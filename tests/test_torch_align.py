@@ -430,7 +430,14 @@ def test_port_names_no_jax_in_any_import():
     included."""
     names = {p.relative_to(REPO).as_posix() for p in _port_files()}
     for module in ("ops/transforms.py", "ops/long_viterbi.py",
-                   "online/alignment.py", "align/analysis.py"):
+                   "online/alignment.py", "align/analysis.py",
+                   "ops/stats.py", "ops/device_update.py",
+                   "io/openfst.py", "language_modeling/ngram.py",
+                   "language_modeling/fst_convert.py", "training/base.py",
+                   "training/em.py", "training/monophone.py",
+                   "training/tree_builder.py", "training/triphone.py",
+                   "training/lda.py", "training/sat.py",
+                   "training/pronunciation.py", "training/trainer.py"):
         assert f"montreal_forced_aligner_tpu_torch/{module}" in names
     for path in _port_files():
         tree = ast.parse(path.read_text(), filename=str(path))
@@ -458,6 +465,9 @@ def test_importing_the_port_loads_no_jax():
         "('jax', 'jaxlib', 'montreal_forced_aligner_tpu')]\n"
         "assert not bad, bad\n"
         "assert len(mods) > 25, mods\n"
+        "for m in ('training.trainer', 'training.sat', 'ops.stats', "
+        "'language_modeling.fst_convert', 'io.openfst'):\n"
+        "    assert p.__name__ + '.' + m in mods, m\n"
         "print('ok', len(mods))\n"
     )
     env = dict(os.environ, PYTHONPATH=str(REPO))

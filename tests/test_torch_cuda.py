@@ -369,3 +369,86 @@ def test_k1_from_a_checkpoint_with_zeroed_row(cuda_device, lb, ub, S):
     aT2, bp2 = CV.band_forward(sub, n(T - lo + 1), band, ck, lb, ub, 0.1)
     assert torch.equal(aT2, aT)
     assert torch.equal(bp2[1:], bp[lo:])
+
+
+# -- training ----------------------------------------------------------------
+
+
+def test_training_stats_on_card_match_cpu(cuda_device):
+    """The fixed-order statistics on the card: the same layout as the CPU's,
+    sums within rtol 1e-5 of each tensor's largest magnitude, and the same
+    bits from run to run."""
+    from montreal_forced_aligner_tpu_torch.ops import stats as ST
+    from montreal_forced_aligner_tpu_torch.training import base as TB
+
+    from torch_port_inputs import train_batch_inputs
+
+    a = train_batch_inputs(4, B=6, T=300, D=13, P=40, G=8)
+    keys = ("feats", "flens", "frame_pdf", "W", "gconsts")
+    cpu = [torch.from_numpy(a[k]) for k in keys]
+    card = [t.to(cuda_device) for t in cpu]
+    lay_cpu = ST.frame_layout(cpu[2], cpu[1], a["P"])
+    lay_card = ST.frame_layout(card[2], card[1], a["P"])
+    for x, y in zip(lay_cpu[:4], lay_card[:4]):
+        assert torch.equal(x, y.cpu())
+    want = TB._accumulate_batch(*cpu, a["P"])
+    got = TB._accumulate_batch(*card, a["P"])
+    again = TB._accumulate_batch(*card, a["P"])
+    for w, g, g2 in zip(want, got, again):
+        assert torch.equal(g, g2)
+        scale = w.abs().max().item()
+        assert (g.cpu() - w).abs().max().item() <= 1e-5 * scale
+    rows = CE.pack_rows_device(*(torch.from_numpy(a[k]).to(cuda_device)
+                                 for k in ("miv", "inv_vars", "gconsts")))
+    assert np.array_equal(rows.cpu().numpy(),
+                          CE.pack_rows(a["miv"], a["inv_vars"], a["gconsts"]))
+
+
+def test_lda_mllt_stats_on_card_match_cpu(cuda_device):
+    from torch_port_inputs import train_batch_inputs
+
+    a = train_batch_inputs(5, B=4, T=200, D=10, P=30, G=4)
+    means = (a["miv"] / a["inv_vars"]).astype(np.float32)
+    args = [torch.from_numpy(x) for x in (a["feats"], a["flens"], a["frame_pdf"],
+                                          means, a["inv_vars"], a["gconsts"],
+                                          a["miv"])]
+    for fn, call in ((TR.accumulate_lda_stats, args[:3] + [a["P"]]),
+                     (TR.accumulate_mllt_stats, args)):
+        want = fn(*call)
+        got = fn(*[x.to(cuda_device) if isinstance(x, torch.Tensor) else x
+                   for x in call])
+        for w, g in zip(want, got):
+            assert (g.cpu() - w).abs().max().item() <= 1e-5 * w.abs().max().item()
+
+
+def test_monophone_training_on_card_is_reproducible(cuda_device, tmp_path):
+    """The JAX training test's tone corpus and monophone stage on the card,
+    twice: the same bits; against the CPU, log-likelihoods within 1e-3."""
+    from montreal_forced_aligner_tpu_torch.training.base import TrainerConfig
+    from montreal_forced_aligner_tpu_torch.training.trainer import (
+        StageConfig,
+        TrainableAligner,
+    )
+
+    corpus_dir, _truths = chip_smoke.make_tone_corpus(tmp_path, n_utts=6)
+    dict_path = tmp_path / "tone.dict"
+    dict_path.write_text("".join(f"{w}\t{' '.join(p)}\n"
+                                 for w, p in chip_smoke.WORD_PHONES.items()))
+
+    def run(device):
+        ta = TrainableAligner(
+            corpus_dir, dict_path, recipe=[StageConfig("monophone", "mono", 6, 40)],
+            base_config=TrainerConfig(boost_silence=1.0), batch_size=4,
+            variable_length_topology=False, device=device,
+        )
+        model = ta.train()
+        lls = [e["loglike_per_frame"] for e in ta.trainers["monophone"].iteration_log]
+        return model, np.asarray(lls)
+
+    m1, l1 = run(cuda_device)
+    m2, l2 = run(cuda_device)
+    _m3, l3 = run(torch.device("cpu"))
+    assert np.array_equal(l1, l2)
+    for name in ("weights", "means_invvars", "inv_vars", "gconsts"):
+        assert np.array_equal(getattr(m1.gmm, name), getattr(m2.gmm, name))
+    assert np.all(np.abs(l1 - l3) <= 1e-3 * np.abs(l3))

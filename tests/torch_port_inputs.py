@@ -123,3 +123,71 @@ def gmm_arrays(seed, P, G, D, padded_pdfs=()):
     for p in padded_pdfs:  # a pdf keeps at least one real Gaussian
         gconsts[p, max(1, G // 2) :] = -np.inf
     return (means * inv_vars).astype(np.float32), inv_vars, gconsts
+
+
+def train_batch_inputs(seed, B=5, T=50, D=6, P=9, G=4):
+    """One training batch: features, frame lengths (row 1 zero-length, the
+    others random), per-frame pdfs (pdf P - 1 never aligned) and a model
+    whose pdf 2 has padded Gaussians; W (2D, P*G) in the likelihood layout
+    and the (P, G, D) tensors it is made of."""
+    rng = np.random.RandomState(seed)
+    miv, inv_vars, gconsts = gmm_arrays(seed, P, G, D, padded_pdfs=(2,))
+    W = np.concatenate(
+        [miv.reshape(P * G, D), -0.5 * inv_vars.reshape(P * G, D)], axis=1
+    ).T.astype(np.float32)
+    flens = rng.randint(T // 3, T + 1, size=B).astype(np.int32)
+    flens[0] = T
+    flens[1] = 0
+    feats = (rng.randn(B, T, D) * 2 + 0.5).astype(np.float32)
+    frame_pdf = rng.randint(0, P - 1, (B, T)).astype(np.int32)
+    return dict(feats=feats, flens=flens, frame_pdf=frame_pdf, W=W, miv=miv,
+                inv_vars=inv_vars, gconsts=gconsts, P=P, G=G, D=D)
+
+
+def segment_inputs(seed, n=3000, num_segments=7, F=5):
+    """Rows with segment ids: one segment holding most rows (over a hundred
+    tiles), one empty, some ids out of range (dropped)."""
+    rng = np.random.RandomState(seed)
+    seg = rng.randint(0, num_segments, size=n)
+    seg[rng.rand(n) < 0.6] = 0
+    seg[seg == 3] = 4
+    seg[rng.rand(n) < 0.05] = num_segments  # dropped
+    vals = (rng.randn(n, F) * 3).astype(np.float32)
+    return seg.astype(np.int64), vals
+
+
+def split_schedule_inputs(seed, P=6, G=4, D=5):
+    """A post-MLE model state for mixing-up: weights, counts (pdf 1 with one
+    Gaussian, pdf 4 full) and an occupancy that makes several pdfs split."""
+    rng = np.random.RandomState(seed)
+    num_gauss = np.array([2, 1, 3, 2, 4, 2][:P], np.int32)
+    w = rng.rand(P, G)
+    w[np.arange(G)[None, :] >= num_gauss[:, None]] = 0.0
+    w /= w.sum(axis=1, keepdims=True)
+    occ = rng.rand(P, G) * 200 * (np.arange(G)[None, :] < num_gauss[:, None])
+    return w, num_gauss, occ
+
+
+def tree_event_inputs(seed, num_phones=9, n_utts=40, dim=4):
+    """Triphone events (left, center, right, pdf-class) from random phone
+    strings, each with Gaussian statistics: (events {key: (count, sum,
+    sumsq)}, phone groups)."""
+    rng = np.random.RandomState(seed)
+    events = {}
+    for _ in range(n_utts):
+        seq = [1] + list(rng.randint(2, num_phones + 1, rng.randint(3, 9))) + [1]
+        for i, c in enumerate(seq):
+            left = seq[i - 1] if i else 0
+            right = seq[i + 1] if i + 1 < len(seq) else 0
+            for cls in range(3):
+                key = (int(left), int(c), int(right), cls)
+                n = float(rng.randint(2, 20))
+                m = rng.randn(dim) + 0.3 * c + cls
+                s, ss = m * n, (m * m + rng.rand(dim) + 0.5) * n
+                if key in events:
+                    a = events[key]
+                    events[key] = (a[0] + n, a[1] + s, a[2] + ss)
+                else:
+                    events[key] = (n, s, ss)
+    groups = [[p] for p in range(1, num_phones + 1)]
+    return events, groups
