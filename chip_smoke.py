@@ -72,10 +72,27 @@ What it does, in order; any failure exits non-zero with no result line:
     once more under ``torch.use_deterministic_algorithms``, and once on the
     CPU (mono log-likelihoods within 1e-3); both devices' models hold the
     JAX test's alignment bar;
-13. prints one ``{"kernels": [...]}`` line (sat-2pass's launches and
+13. main path **adapt**: ``MapAdapter.adapt`` (MAP with ``mapping_tau``
+    20 on the SAT-scale model: the fMLLR two-pass with K3, K1 and K2 in
+    both passes, then the means of the final and the speaker-independent
+    model) on the corpus, counted from 0: launches equal to batches times
+    passes, K1-K3 held to their plain versions on adapt's first batch; three
+    warm runs (the first bit-identical to the counted one), one synchronised
+    at each phase; the card against the CPU on the 8-utterance corpus (means
+    within rtol 1e-5 of each tensor's largest value); the adapted archive
+    aligns the corpus two-pass, every utterance;
+14. **graph compile**: train-mono's graphs from the native core
+    (``native/graph_assembly.cc``) bit-identical to the Python compiler's,
+    and sat-si's triphone graphs through a pool of 4 processes identical to
+    serial ones, each timed;
+15. **pitch**: one cold train-mono with ``use_pitch``, the corpus's pitch
+    features timed, and pitch on the card against the CPU on 4 utterances;
+16. **fine-tune**: sat-si's alignments refined at 1 ms, timed, and the
+    card against the CPU on 4 utterances (boundaries within 1 ms);
+17. prints one ``{"kernels": [...]}`` line (sat-2pass's launches and
     second-pass checks; each row's ``launches_by_path`` adds the training
-    paths' launches and ``train_recipe_check`` the LDA-stage check), then as
-    the last line
+    paths' and adapt's launches, ``train_recipe_check`` the LDA-stage check
+    and ``adapt_check`` adapt's), then as the last line
     ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": 1}}``.
 
 It imports nothing of JAX and nothing of the JAX package.
@@ -1149,14 +1166,15 @@ def _loglikes(trainer):
 
 
 def train_mono_phase(corpus_dir, dict_path, audio_s, device, warm_runs=3,
-                     batch_size=32, sm_clock_mhz=None):
+                     batch_size=32, sm_clock_mhz=None, keep=None):
     """``bench.py``'s train workload through ``TrainableAligner``: one
     counted cold run, ``warm_runs`` warm runs (throughput: audio seconds
     over their median wall), one synchronised run for the phase seconds and
     one profiled run for the busy share. K1 and K2 are recorded in the cold
     run and held against their plain versions on the equal alignment's
     first and last batch and on the first realignment's. Returns (report,
-    those checks by alignment)."""
+    those checks by alignment); a ``keep`` dict gets the cold run's trainer
+    and corpus."""
     import contextlib
 
     from montreal_forced_aligner_tpu_torch.align.aligner import (
@@ -1190,6 +1208,8 @@ def train_mono_phase(corpus_dir, dict_path, audio_s, device, warm_runs=3,
         cold = time.perf_counter() - t0
         launches = dict(cuda_build.LAUNCHES)
     trainer = ta.trainers["monophone"]
+    if keep is not None:
+        keep.update(trainer=trainer, corpus=ta.corpus)
     batches = ta.pipeline.batches
     banded = sum(fb.band_limits is not None for fb in batches)
     realigns = [i for i in trainer.realignment_iterations if i <= iterations]
@@ -1561,6 +1581,404 @@ def train_reference_phase(tmp: Path, device):
     }
 
 
+def _gmm_arrays(gmm):
+    return {k: getattr(gmm, k) for k in ("means_invvars", "inv_vars", "weights",
+                                         "gconsts", "num_gauss")}
+
+
+def _means_rel_err(got, want):
+    """Largest difference of two GMM sets' means over the larger of
+    ``want``'s means (finite entries)."""
+    a = got.get_means().astype(np.float64)
+    b = want.get_means().astype(np.float64)
+    fin = np.isfinite(b)
+    _check(np.array_equal(fin, np.isfinite(a)), "adapted means: padding differs")
+    return float(np.abs(a[fin] - b[fin]).max() / np.abs(b[fin]).max())
+
+
+def adapt_phase(model_path, dict_path, corpus_dir, subset_dir, out_dir, audio_s,
+                device, warm_runs=3, batch_size=32, sm_clock_mhz=None):
+    """Main path **adapt**: ``MapAdapter.adapt`` (the fMLLR two-pass with
+    K3, K1 and K2 in both passes, then MAP on the final and the
+    speaker-independent model) on the corpus, counted from 0, every kernel
+    call recorded; ``warm_runs`` more runs (the first held bit-identical to
+    the counted one), one synchronised at each phase; the card against the
+    CPU on ``subset_dir`` (the CPU run takes the card's fMLLR transforms, so
+    the means compare the MAP update under one alignment; the transforms are
+    compared beside it); the adapted archive saved, loaded and aligned
+    two-pass. Returns (report, the kernels held on adapt's first batch)."""
+    import contextlib
+
+    import torch
+
+    from montreal_forced_aligner_tpu_torch.align.aligner import (
+        AlignerConfig,
+        PretrainedAligner,
+        _emission_kernel_eligible,
+    )
+    from montreal_forced_aligner_tpu_torch.corpus.corpus import Corpus
+    from montreal_forced_aligner_tpu_torch.ops import cuda_build
+    from montreal_forced_aligner_tpu_torch.params import gmm_params_from_numpy
+    from montreal_forced_aligner_tpu_torch.training.adapt import MapAdapter
+
+    class Adapter(MapAdapter):
+        """Keeps its fMLLR transforms; with ``forced``, aligns pass 2 with
+        those instead."""
+
+        forced = None
+
+        def _estimate_fmllr(self, pipeline, gmm):
+            self.transforms = super()._estimate_fmllr(pipeline, gmm)
+            return self.transforms if self.forced is None else self.forced
+
+    def make(dev=device):
+        return Adapter(model_path, dict_path, 20.0,
+                       AlignerConfig(batch_size=batch_size), device=dev)
+
+    adapter = make()
+    model = adapter.aligner.model
+    _check(model.uses_fmllr and model.alignment_model is not None,
+           "adapt needs a SAT model")
+    recs = record_kernel_calls(device)
+    with contextlib.ExitStack() as stack:
+        for r in recs.values():
+            stack.enter_context(r)
+        _sync(device)
+        cuda_build.reset_launch_counts()
+        t0 = time.perf_counter()
+        first = adapter.adapt(corpus_dir)
+        _sync(device)
+        first_wall = time.perf_counter() - t0
+        launches = dict(cuda_build.LAUNCHES)
+    batches = adapter.pipeline.batches
+    banded = sum(fb.band_limits is not None for fb in batches)
+    si = model.alignment_model[1]
+    use_k = [_emission_kernel_eligible(g.num_pdfs, g.max_gauss)
+             for g in (si, model.gmm)]
+    on_card = device.type == "cuda"
+    want = {"band_forward": 2 * banded * on_card,
+            "band_backtrace": 2 * banded * on_card,
+            "state_emission": sum(use_k) * len(batches) * on_card}
+    _check(launches == want, f"adapt launches {launches}, expected {want}")
+    _check(recs["band_forward"].calls == 2 * banded,
+           f"adapt K1 wrapper calls {recs['band_forward'].calls}")
+    # adapt's own first batch: pass 1, the speaker-independent model
+    si_params = gmm_params_from_numpy(si.means_invvars, si.inv_vars,
+                                      si.gconsts).to(device)
+    checks = kernel_checks(batch_inputs(recs, 0), si_params, device,
+                           sm_clock_mhz=sm_clock_mhz)
+    del recs, si_params
+    first_arrays = [_gmm_arrays(first.gmm), _gmm_arrays(first.alignment_model[1])]
+    warm, identical = [], None
+    for i in range(warm_runs):
+        a = make()
+        t0 = time.perf_counter()
+        m = a.adapt(corpus_dir)
+        _sync(device)
+        warm.append(time.perf_counter() - t0)
+        if i == 0:
+            again = [_gmm_arrays(m.gmm), _gmm_arrays(m.alignment_model[1])]
+            identical = all(np.array_equal(x[k], y[k])
+                            for x, y in zip(first_arrays, again) for k in x)
+        del a, m
+    _check(identical, "two adapt runs on the card gave different models")
+    synced = make()
+    synced.sync_phases = True
+    t0 = time.perf_counter()
+    synced.adapt(corpus_dir)
+    synced_wall = time.perf_counter() - t0
+    phases = dict(synced.phase_seconds)
+    del synced
+    # the card against the CPU on the subset, under the card's transforms
+    card = make()
+    card_model = card.adapt(subset_dir)
+    cpu = make(torch.device("cpu"))
+    cpu.forced = card.transforms
+    t0 = time.perf_counter()
+    cpu_model = cpu.adapt(subset_dir)
+    cpu_s = time.perf_counter() - t0
+    paths_equal = all(
+        np.array_equal(a.host_state_path(), b.host_state_path())
+        for a, b in zip(card.pipeline.batches, cpu.pipeline.batches))
+    _check(paths_equal, "adapt: pass-2 paths on the card and the CPU differ")
+    rel = {"final": _means_rel_err(card_model.gmm, cpu_model.gmm),
+           "speaker_independent": _means_rel_err(card_model.alignment_model[1],
+                                                 cpu_model.alignment_model[1])}
+    _check(max(rel.values()) <= 1e-5, f"adapt: card against CPU means {rel}")
+    t_err = float(np.abs(card.transforms - cpu.transforms).max())
+    _check(t_err <= 1e-3, f"adapt: fMLLR transforms differ by {t_err}")
+    del card, cpu, card_model, cpu_model
+    # the adapted archive aligns two-pass
+    path = out_dir / "adapted.zip"
+    first.save(path)
+    aligner = PretrainedAligner(path, dict_path, AlignerConfig(batch_size=batch_size),
+                                device=device)
+    _check(aligner.two_pass, "the adapted archive does not align two-pass")
+    corpus = Corpus.load(corpus_dir)
+    t0 = time.perf_counter()
+    results = aligner.align_corpus(corpus)
+    _sync(device)
+    align_s = time.perf_counter() - t0
+    _check(len(results) == corpus.num_utterances,
+           f"adapted model aligned {len(results)} of {corpus.num_utterances}")
+    for key, aln in results.items():
+        _check(aln.words and aln.phones and np.isfinite(aln.log_likelihood)
+               and aln.log_likelihood > -1e29, f"utterance {key}: bad alignment")
+    median = statistics.median(warm)
+    return {
+        "path": "adapt",
+        "audio_s": audio_s,
+        "batches": len(batches),
+        "banded_batches": banded,
+        "emission_kernel_eligible": {"si": use_k[0], "final": use_k[1]},
+        "pdfs_x_gauss": [int(model.gmm.num_pdfs), int(model.gmm.max_gauss)],
+        "launches": launches,
+        "first_wall_s": first_wall,
+        "warm_walls_s": warm,
+        "warm_median_wall_s": median,
+        "warm_audio_s_per_s": audio_s / median,
+        "two_runs_identical": identical,
+        "synced_wall_s": synced_wall,
+        "phases_synced_s": phases,
+        "card_vs_cpu": {"utterances": Corpus.load(subset_dir).num_utterances,
+                        "means_rel_err": rel, "transforms_max_abs_diff": t_err,
+                        "pass2_paths_equal": paths_equal, "cpu_wall_s": cpu_s},
+        "adapted_align_two_pass_s": align_s,
+        "aligned_utterances": len(results),
+    }, checks
+
+
+_GRAPH_FIELDS = ("state_pdf", "state_phone", "state_word", "state_hmm_pos",
+                 "state_tstate", "state_instance", "in_src", "in_weight", "in_tid",
+                 "start", "final", "final_tid")
+
+
+def _graphs_identical(got, want) -> bool:
+    return len(got) == len(want) and all(
+        g.words == w.words and all(
+            getattr(g, k).dtype == getattr(w, k).dtype
+            and np.array_equal(getattr(g, k), getattr(w, k)) for k in _GRAPH_FIELDS)
+        for g, w in zip(got, want))
+
+
+def graph_compile_phase(mono_trainer, mono_corpus, model_path, dict_path, corpus_dir,
+                        device, workers=4):
+    """train-mono's graphs from the native core against the Python
+    compiler's (bit-identical; each timed on a fresh compiler, then again
+    with its caches warm), and sat-si's triphone graphs through a pool of
+    ``workers`` processes against serial compilation (identical; the pool's
+    start-up, first and second call timed, serial cold and warm)."""
+    from montreal_forced_aligner_tpu_torch.align.aligner import (
+        AlignerConfig,
+        PretrainedAligner,
+    )
+    from montreal_forced_aligner_tpu_torch.corpus.corpus import Corpus
+    from montreal_forced_aligner_tpu_torch.graph.native_compile import (
+        compile_batch_native,
+    )
+    from montreal_forced_aligner_tpu_torch.graph.parallel import (
+        ParallelGraphCompiler,
+    )
+
+    def timed(fn):
+        t0 = time.perf_counter()
+        out = fn()
+        return out, time.perf_counter() - t0
+
+    tokens = [u.normalized_tokens for u in mono_corpus.utterances]
+    comp = mono_trainer.make_compiler()
+    native, native_cold = timed(lambda: compile_batch_native(comp, tokens))
+    _n, native_warm = timed(lambda: compile_batch_native(comp, tokens))
+    comp = mono_trainer.make_compiler()
+    python, python_cold = timed(lambda: [comp.compile(t) for t in tokens])
+    _p, python_warm = timed(lambda: [comp.compile(t) for t in tokens])
+    _check(_graphs_identical(native, python),
+           "native monophone graphs differ from the Python compiler's")
+    mono = {"utterances": len(tokens), "identical": True,
+            "native_cold_s": native_cold, "native_warm_s": native_warm,
+            "python_cold_s": python_cold, "python_warm_s": python_warm}
+
+    aligner = PretrainedAligner(
+        model_path, dict_path,
+        AlignerConfig(batch_size=32, uses_speaker_adaptation=False), device=device)
+    _check(aligner.compiler.tree.N == 3, "sat-si's tree is not triphone")
+    corpus = Corpus.load(corpus_dir)
+    items = [(aligner.speaker_dictionary_map.get(u.speaker,
+                                                 aligner.default_dictionary_key),
+              aligner.tokenizer.tokenize(u.text)) for u in corpus.utterances]
+    pool, start_s = timed(lambda: ParallelGraphCompiler(aligner.compilers, workers))
+    try:
+        pooled, pool_first = timed(lambda: pool.compile_all(items))
+        _g, pool_second = timed(lambda: pool.compile_all(items))
+    finally:
+        pool.close(wait=True)
+    serial, serial_cold = timed(
+        lambda: [aligner.compilers[k].compile(t) for k, t in items])
+    _s, serial_warm = timed(
+        lambda: [aligner.compilers[k].compile(t) for k, t in items])
+    _check(_graphs_identical(pooled, serial), "pooled graphs differ from serial ones")
+    return {
+        "train_mono_native": mono,
+        "sat_si_pool": {"utterances": len(items), "workers": workers,
+                        "identical": True, "pool_start_s": start_s,
+                        "pool_first_s": pool_first, "pool_second_s": pool_second,
+                        "serial_cold_s": serial_cold, "serial_warm_s": serial_warm},
+    }
+
+
+def pitch_phase(corpus_dir, dict_path, small_dir, audio_s, device, batch_size=32):
+    """One cold train-mono with ``use_pitch`` (synchronised at each phase:
+    pitch is part of its features phase), the pitch features of the corpus
+    timed by batch, and pitch on the card against the CPU on ``small_dir``:
+    NCCF within atol 1e-4, lag paths, and the features within atol 1e-4 of
+    every utterance whose lag path agrees."""
+    import torch
+
+    from montreal_forced_aligner_tpu_torch.corpus.corpus import Corpus
+    from montreal_forced_aligner_tpu_torch.ops import pitch as PP
+    from montreal_forced_aligner_tpu_torch.training.trainer import (
+        StageConfig,
+        TrainableAligner,
+    )
+
+    ta = TrainableAligner(
+        corpus_dir, dict_path, recipe=[StageConfig("monophone", "mono", 4, 64)],
+        batch_size=batch_size, variable_length_topology=False, use_pitch=True,
+        device=device)
+    ta.sync_phases = True
+    _sync(device)
+    t0 = time.perf_counter()
+    ta.train()
+    _sync(device)
+    wall = time.perf_counter() - t0
+    trainer = ta.trainers["monophone"]
+    lls = _loglikes(trainer)
+    _check(all(np.isfinite(lls)) and lls[-1] > lls[0], f"pitch train-mono {lls}")
+    _check(trainer.feature_meta()["pitch"] and ta.pipeline.feature_dim == 48,
+           "train-mono with pitch: no pitch in its features")
+
+    def padded(waves):
+        lens = np.array([len(w) for w in waves], np.int32)
+        buf = np.zeros((len(waves), int(lens.max())), np.float32)
+        for r, w in enumerate(waves):
+            buf[r, : len(w)] = w
+        return buf, lens
+
+    waves = Corpus.load(corpus_dir).load_audio_parallel(16000)
+    order = np.argsort([len(w) for w in waves], kind="stable")
+    _sync(device)
+    t0 = time.perf_counter()
+    for i in range(0, len(order), batch_size):
+        buf, lens = padded([waves[j] for j in order[i : i + batch_size]])
+        PP.compute_pitch_batch(buf, lens, device=device)
+    corpus_pitch_s = time.perf_counter() - t0
+
+    cfg = PP.PitchConfig()
+    buf, lens = padded(Corpus.load(small_dir).load_audio_parallel(16000))
+    ds, ds_len = PP._resample_batch(buf, lens, cfg)
+    shift = int(cfg.resample_rate * cfg.frame_shift_ms / 1000)
+    window = int(cfg.resample_rate * cfg.frame_length_ms / 1000)
+    T = int(((ds_len - window) // shift + 1).max())
+    cpu = torch.device("cpu")
+    nccf = [PP._nccf(torch.from_numpy(ds).to(d), window, shift, T,
+                     int(cfg.lags.max()), cfg.nccf_ballast)
+            for d in (device, cpu)]
+    nccf_err = float((nccf[0].cpu() - nccf[1]).abs().max())
+    _check(nccf_err <= 1e-4, f"pitch: NCCF card against CPU {nccf_err}")
+    feats = {}
+    paths = {}
+    real = PP._viterbi_lags
+
+    def keep_path(*args):
+        out = real(*args)
+        paths[args[0].device.type] = out
+        return out
+
+    PP._viterbi_lags = keep_path
+    try:
+        for d in (device, cpu):
+            feats[d.type] = PP.compute_pitch_batch(buf, lens, cfg, device=d)
+    finally:
+        PP._viterbi_lags = real
+    (fg, ng), (fc, nc) = feats[device.type], feats["cpu"]
+    _check(np.array_equal(ng, nc), "pitch: frame counts differ")
+    pg, pc = paths[device.type], paths["cpu"]
+    mask = np.arange(pg.shape[1])[None, :] < ng[:, None]
+    agree = float((pg == pc)[mask].mean())
+    _check(agree >= 0.995, f"pitch: lag paths agree on {agree} of frames")
+    same_rows = [r for r in range(len(ng)) if np.array_equal(pg[r], pc[r])]
+    row_err = [float(np.abs(fg[r] - fc[r]).max()) for r in same_rows]
+    _check(max(row_err, default=0.0) <= 1e-4, f"pitch features differ {row_err}")
+    return {
+        "train_mono_pitch": {
+            "cold_wall_s": wall, "audio_s": audio_s,
+            "cold_audio_s_per_s": audio_s / wall,
+            "phases_synced_s": dict(ta.phase_seconds),
+            "loglike_per_frame": lls, "feature_dim": ta.pipeline.feature_dim,
+        },
+        "corpus_pitch_s": corpus_pitch_s,
+        "card_vs_cpu": {"utterances": len(ng), "nccf_max_abs_diff": nccf_err,
+                        "lag_path_agreement": agree,
+                        "rows_with_equal_paths": len(same_rows),
+                        "features_max_abs_diff_equal_paths": max(row_err, default=0.0),
+                        "features_max_abs_diff": float(np.abs(fg - fc).max())},
+    }
+
+
+def fine_tune_phase(model_path, dict_path, corpus_dir, small_dir, device,
+                    batch_size=32):
+    """sat-si with ``--fine_tune``: the corpus aligned single-pass and its
+    boundaries refined at 1 ms, timed; on ``small_dir`` the card against the
+    CPU: the same 10 ms alignment, then fine-tuned boundaries within 1 ms."""
+    import torch
+
+    from montreal_forced_aligner_tpu_torch.align.aligner import (
+        AlignerConfig,
+        PretrainedAligner,
+    )
+    from montreal_forced_aligner_tpu_torch.align.fine_tune import (
+        fine_tune_alignments,
+    )
+    from montreal_forced_aligner_tpu_torch.corpus.corpus import Corpus
+
+    def run(dev, corpus_path, bs):
+        aligner = PretrainedAligner(
+            model_path, dict_path,
+            AlignerConfig(batch_size=bs, uses_speaker_adaptation=False), device=dev)
+        corpus = Corpus.load(corpus_path)
+        results = aligner.align_corpus(corpus)
+        base = {k: [(p.label, p.begin) for p in a.phones] for k, a in results.items()}
+        _sync(dev)
+        t0 = time.perf_counter()
+        tuned = fine_tune_alignments(aligner, corpus, results)
+        _sync(dev)
+        return base, tuned, time.perf_counter() - t0
+
+    base, tuned, seconds = run(device, corpus_dir, batch_size)
+    boundaries = sum(len(v) - 1 for v in base.values())
+    moved = sum(int(round(p.begin * 1000)) % 10 != 0
+                for a in tuned.values() for p in a.phones)
+    for key, aln in tuned.items():
+        _check(aln.phones and all(np.isfinite(p.begin) and p.end > p.begin
+                                  for p in aln.phones),
+               f"utterance {key}: an empty or non-finite fine-tuned phone")
+    _check(moved > 0, "fine-tune moved no boundary off the 10 ms grid")
+    got = run(device, small_dir, 4)
+    want = run(torch.device("cpu"), small_dir, 4)
+    _check(got[0] == want[0], "fine-tune: the card's 10 ms alignment differs")
+    worst = 0.0
+    for key, aln in want[1].items():
+        g = [p.begin for p in got[1][key].phones]
+        w = [p.begin for p in aln.phones]
+        _check(len(g) == len(w), f"utterance {key}: fine-tuned phone counts differ")
+        worst = max(worst, float(np.abs(np.array(g) - np.array(w)).max()))
+    _check(worst <= 0.001 + 1e-9, f"fine-tune: boundaries differ by {worst} s")
+    return {"utterances": len(tuned), "boundaries": boundaries,
+            "moved_off_grid": moved, "fine_tune_s": seconds,
+            "card_vs_cpu": {"utterances": len(want[1]),
+                            "max_boundary_diff_s": worst}}
+
+
 KERNELS = [
     ("band_forward", "montreal_forced_aligner_tpu_torch/csrc/band_viterbi.cu",
      "montreal_forced_aligner_tpu/ops/pallas_viterbi.py:151"),
@@ -1681,8 +2099,9 @@ def main() -> int:
             aligners["sat-2pass"], long_dir, device)})
         del aligners
         audio_s = reports["sat-2pass"]["audio_s"]
+        kept = {}
         mono, mono_checks = train_mono_phase(corpus_dir, dict_path, audio_s, device,
-                                             sm_clock_mhz=sm_clock_mhz)
+                                             sm_clock_mhz=sm_clock_mhz, keep=kept)
         _emit({"main_path": mono})
         for label, cks in mono_checks.items():
             for name, c in cks.items():
@@ -1698,10 +2117,26 @@ def main() -> int:
                    "calls_in_that_realignment": calls[name].calls})
         del captured, calls
         _emit({"train_reference": train_reference_phase(tmp / "tone", device)})
+        adapt, adapt_checks = adapt_phase(model_path, dict_path, corpus_dir,
+                                          small2_dir, tmp, audio_s, device,
+                                          sm_clock_mhz=sm_clock_mhz)
+        _emit({"main_path": adapt})
+        for name, c in adapt_checks.items():
+            _emit({"kernel_check": name, "path": "adapt (pass 1, first batch)", **c})
+        _emit({"graph_compile": graph_compile_phase(
+            kept["trainer"], kept["corpus"], model_path, dict_path, corpus_dir,
+            device)})
+        del kept
+        _emit({"pitch": pitch_phase(corpus_dir, dict_path, small_dir, audio_s,
+                                    device)})
+        _emit({"fine_tune": fine_tune_phase(model_path, dict_path, corpus_dir,
+                                            small_dir, device)})
         by_path = {"sat-2pass": reports["sat-2pass"]["launches"],
-                   "train-mono": mono["launches"], "train-recipe": recipe["launches"]}
+                   "train-mono": mono["launches"], "train-recipe": recipe["launches"],
+                   "adapt": adapt["launches"]}
         _emit(kernels_line(checks["sat-2pass"], reports["sat-2pass"]["launches"],
-                           by_path, {**mono_checks, "train_recipe": recipe_checks}))
+                           by_path, {**mono_checks, "train_recipe": recipe_checks,
+                                     "adapt": adapt_checks}))
 
     _emit({"ok": True, "device": {
         "platform": "gpu",

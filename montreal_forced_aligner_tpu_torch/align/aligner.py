@@ -2,8 +2,10 @@
 
 Counterpart of ``montreal_forced_aligner_tpu/align/aligner.py``
 (``PretrainedAligner._align_corpus_impl``): corpus load → audio load →
-phase A, MFCC plus per-speaker CMVN sums (device) → host graph compile →
-graph ship → final features, CMVN then deltas or splice+LDA (device) →
+phase A, MFCC plus per-speaker CMVN sums, and pitch for pitch models
+(device) → host graph compile (native C++ for monophone trees, else Python,
+in a worker pool with ``num_graph_workers``) → graph ship → final
+features, CMVN then deltas or splice+LDA (device) →
 graph-state emissions and band Viterbi (device: kernels K3, K1, K2) → one
 fetch of every state path → CTM intervals → TextGrid export.
 
@@ -131,9 +133,13 @@ def _mfcc_and_spk_stats(
     return feats, spk_sum
 
 
-def _final_feats(feats, frame_lengths, mean_rows, lda=None):
-    """CMVN-subtract, then deltas (no LDA) or splice ±3 + LDA."""
+def _final_feats(feats, frame_lengths, mean_rows, lda=None, pitch=None):
+    """CMVN-subtract, optional pitch paste, then deltas (no LDA) or splice
+    ±3 + LDA (pitch is pasted after CMVN, reference
+    ``FinalFeatureFunction``, ``corpus/features.py:254``)."""
     x = feats - mean_rows[:, None, :]
+    if pitch is not None:
+        x = torch.cat([x, pitch], dim=-1)
     if lda is None:
         return compute_deltas(x, frame_lengths)
     return apply_transform(splice_frames(x, frame_lengths, 3, 3), lda)
@@ -227,25 +233,37 @@ class AlignerConfig:
     devices: Optional[tuple] = None
     distributed: Optional[bool] = None
     language: Optional[str] = None
-    transfer_mode: str = "waves"
+    # "auto" resolves to "waves" (see resolve_transfer_mode)
+    transfer_mode: str = "auto"
     num_loader_threads: int = 8
+    # graph-compile processes for context-dependent trees (0 = in-process);
+    # monophone graphs take the native core whatever the setting
     num_graph_workers: int = 0
 
     def unsupported(self) -> List[str]:
         """Settings that name work not ported yet, with its ROADMAP item."""
         out = []
-        if self.transfer_mode != "waves":
+        if self.transfer_mode not in ("auto", "waves"):
             out.append(f"transfer_mode={self.transfer_mode!r} (only 'waves' "
                        "exists on a local card)")
         if self.distributed or self.devices:
             out.append("distributed/devices: multi-GPU is ROADMAP.md Queue 1 "
                        "item 15")
-        if self.num_graph_workers > 0:
-            out.append("num_graph_workers > 0: ROADMAP.md Queue 1 item 16 "
-                       "(host extras)")
         if self.language is not None:
             out.append("language: ROADMAP.md Queue 1 item 16 (host extras)")
         return out
+
+
+def resolve_transfer_mode(requested: str = "auto") -> str:
+    """What phase A ships to the device. The reference package probes its
+    host-to-device link and ships float16 host-computed features below a
+    threshold rate; a local card over PCIe is far above it, as the CPU has no
+    link at all, so "auto" is "waves" here. "features" is not served."""
+    if requested in ("auto", "waves"):
+        return "waves"
+    raise NotImplementedError(
+        f"transfer_mode={requested!r}: only 'waves' exists on a local card"
+    )
 
 
 _SILENCE_INVENTORIES = {1: ["sil"], 2: ["sil", "spn"], 3: ["sil", "sp", "spn"]}
@@ -383,10 +401,10 @@ class PretrainedAligner:
             snip_edges=bool(feat_meta.get("snip_edges", defaults.snip_edges)),
             use_energy=bool(feat_meta.get("use_energy", False)),
         )
-        if feat_meta.get("pitch", feat_meta.get("use_pitch", False)):
-            raise NotImplementedError(
-                "pitch features: ROADMAP.md Queue 1 item 11 (alignment extras)"
-            )
+        # own archives write "pitch"; reference archives write "use_pitch"
+        self.use_pitch = bool(
+            feat_meta.get("pitch", feat_meta.get("use_pitch", False))
+        )
         self.frame_shift = self.mfcc_config.frame_shift_ms / 1000.0
         # A SAT model (final.mdl, final.alimdl, fMLLR) with speaker adaptation
         # runs two passes: its speaker-independent final.alimdl aligns
@@ -415,6 +433,8 @@ class PretrainedAligner:
             self.fmllr = fmllr_params_from_numpy(
                 gmm, silence_pdf_mask(self._silence_pdfs(), gmm.num_pdfs)
             ).to(self.device)
+        self._graph_pool_obj = None
+        self.last_transfer_mode: Optional[str] = None
         # statistics and transforms of the last two-pass run
         self.last_fmllr: Optional[FmllrEstimate] = None
         self.last_phase_seconds: Dict[str, float] = {}
@@ -470,6 +490,21 @@ class PretrainedAligner:
                     pdfs.add(pdf)
         return np.array(sorted(pdfs), dtype=np.int32)
 
+    def _graph_pool(self, num_items: int):
+        """Lazily created persistent graph-compile pool, or None when the
+        fan-out is off or the corpus is too small to pay for starting the
+        workers."""
+        n = self.config.num_graph_workers
+        if n <= 0 or num_items < 4 * n:
+            return None
+        if self._graph_pool_obj is None:
+            from montreal_forced_aligner_tpu_torch.graph.parallel import (
+                ParallelGraphCompiler,
+            )
+
+            self._graph_pool_obj = ParallelGraphCompiler(self.compilers, n)
+        return self._graph_pool_obj
+
     # -- pipeline ------------------------------------------------------------
     def _fmllr_second_pass_feats(self, prepared, num_speakers, mark):
         """Pass 1 with the speaker-independent model, per-speaker fMLLR
@@ -519,6 +554,7 @@ class PretrainedAligner:
 
         cfg = self.config
         dev = self.device
+        self.last_transfer_mode = resolve_transfer_mode(cfg.transfer_mode)
         phase = {}
         t_phase = time.perf_counter()
 
@@ -600,14 +636,34 @@ class PretrainedAligner:
             spk_total += bsum
             # frame counts accumulate on the host in float64
             np.add.at(spk_count, spk_idx, flens.astype(np.float64))
-            stashes.append((batch, feats_dev, flens, flens_dev, spk_dev))
+            pitch = None
+            if self.use_pitch:
+                from montreal_forced_aligner_tpu_torch.ops.pitch import (
+                    pitch_for_mfcc_frames,
+                )
+
+                wbuf = np.zeros(
+                    (len(wave_list), max(len(w) for w in wave_list)), np.float32
+                )
+                for r, w in enumerate(wave_list):
+                    wbuf[r, : len(w)] = w
+                pitch = pitch_for_mfcc_frames(
+                    wbuf,
+                    np.array([len(w) for w in wave_list], np.int32),
+                    flens,
+                    max_frames,
+                    device=dev,
+                )
+            stashes.append((batch, feats_dev, flens, pitch, flens_dev, spk_dev))
             for row, i in enumerate(batch):
                 corpus.utterances[i].num_frames = int(flens[row])
         mark("phase_a_dispatch")
 
-        # host graph compilation overlaps the device's phase A; long
-        # utterances compiled their own
-        graphs: List[Optional[CompiledGraph]] = [None] * len(corpus.utterances)
+        # host graph compilation overlaps the device's phase A (the native
+        # core for monophone trees, else the worker pool or this process);
+        # long utterances compiled their own
+        items = []
+        item_utts = []
         for i, utt in enumerate(corpus.utterances):
             if i in long_set:
                 continue
@@ -616,18 +672,36 @@ class PretrainedAligner:
             key = self.speaker_dictionary_map.get(
                 utt.speaker, self.default_dictionary_key
             )
-            graphs[i] = self.compilers[key].compile(tokens)
+            items.append((key, tokens))
+            item_utts.append(i)
+        from montreal_forced_aligner_tpu_torch.graph.native_compile import (
+            compile_items_native,
+        )
+
+        compiled = compile_items_native(self.compilers, items)
+        if compiled is None:
+            pool = self._graph_pool(len(items))
+            if pool is not None:
+                compiled = pool.compile_all(items)
+            else:
+                compiled = [self.compilers[k].compile(t) for k, t in items]
+        graphs: List[Optional[CompiledGraph]] = [None] * len(corpus.utterances)
+        for i, g in zip(item_utts, compiled):
+            graphs[i] = g
         mark("graph_compile")
 
         spk_mean = spk_total / torch.from_numpy(
             np.maximum(spk_count, 1.0).astype(np.float32)
         ).to(dev)[:, None]
         prepared = []
-        for batch, feats_dev, flens, flens_dev, spk_dev in stashes:
+        for batch, feats_dev, flens, pitch, flens_dev, spk_dev in stashes:
             garrs = batch_graphs([graphs[i] for i in batch])
             graph = ship_graph_to_device(garrs, dev)
             band_limits = band_limits_from_arcs(garrs)
-            ff = _final_feats(feats_dev, flens_dev, spk_mean[spk_dev], self.gmm.lda)
+            ff = _final_feats(
+                feats_dev, flens_dev, spk_mean[spk_dev], self.gmm.lda,
+                None if pitch is None else torch.from_numpy(pitch).to(dev),
+            )
             prepared.append(
                 _Batch(batch, flens, garrs, graph, ff, flens_dev, band_limits, spk_dev)
             )

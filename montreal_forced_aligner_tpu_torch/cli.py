@@ -1,21 +1,31 @@
 """Command-line interface of the PyTorch port.
 
     python -m montreal_forced_aligner_tpu_torch.cli align CORPUS DICT MODEL OUT_DIR \\
-        [--device cuda] [--single_speaker] ...
-    python -m montreal_forced_aligner_tpu_torch.cli align_one SOUND TEXT DICT MODEL OUT \\
-        [--device cuda]
+        [--device cuda] [--single_speaker] [--fine_tune] ...
+    python -m montreal_forced_aligner_tpu_torch.cli align_one SOUND TEXT DICT MODEL OUT
     python -m montreal_forced_aligner_tpu_torch.cli train CORPUS DICT OUTPUT_MODEL \\
         [--device cuda] [--config_path recipe.yaml] ...
+    python -m montreal_forced_aligner_tpu_torch.cli adapt CORPUS DICT MODEL OUTPUT_MODEL
+    python -m montreal_forced_aligner_tpu_torch.cli validate CORPUS DICT
+    python -m montreal_forced_aligner_tpu_torch.cli evaluate_alignments REF_DIR TEST_DIR
+    python -m montreal_forced_aligner_tpu_torch.cli train_lm SOURCE OUTPUT
+    python -m montreal_forced_aligner_tpu_torch.cli train_dictionary CORPUS DICT MODEL OUT
+    python -m montreal_forced_aligner_tpu_torch.cli model {inspect,add,save,add_words,list,download}
+    python -m montreal_forced_aligner_tpu_torch.cli {version,configure,history}
 
-Serves the options of the reference package's ``align``, ``align_one`` and
-``train`` commands that this port implements, plus ``--device``; options
-not ported yet raise, naming their ROADMAP item. Built on ``argparse`` so it needs
-nothing beyond the standard library, numpy and torch.
+Serves the reference package's commands that this port implements, with
+their options, plus ``--device`` on the commands that run on a device.
+Options whose work is not ported yet parse and then raise
+``NotImplementedError`` naming their ROADMAP item. Built on ``argparse`` so
+it needs nothing beyond the standard library, numpy, torch and yaml.
 """
 
 from __future__ import annotations
 
 import argparse
+import contextlib
+import json
+import logging
 import shutil
 import sys
 import tempfile
@@ -25,85 +35,110 @@ from typing import List, Optional
 
 _OUTPUT_FORMATS = ["long_textgrid", "short_textgrid", "json", "csv"]
 
+_logger = logging.getLogger("mfa_tpu")
 
-def _parser() -> argparse.ArgumentParser:
-    p = argparse.ArgumentParser(prog="mfa-tpu-torch")
-    p.add_argument("-v", "--verbose", action="store_true",
-                   help="INFO-level progress logs")
-    sub = p.add_subparsers(dest="command", required=True)
+
+def _flag(p, name: str, default, help: str = None, negative: str = None) -> None:
+    """``--name`` / ``--no_name`` (or ``negative``) setting one destination."""
+    p.add_argument(f"--{name}", dest=name, action="store_true", default=default,
+                   help=help)
+    p.add_argument(f"--{negative or 'no_' + name}", dest=name,
+                   action="store_false")
+
+
+def _num_jobs(p) -> None:
+    """The reference's ``-j/--num_jobs``: accepted and logged. Parallelism
+    here is batch- and device-driven, not worker processes."""
+    p.add_argument("-j", "--num_jobs", type=int, default=None,
+                   help="Accepted for reference-CLI compatibility; "
+                        "parallelism is batch/device-driven here")
+
+
+def _device(p) -> None:
+    p.add_argument("--device", default="cuda",
+                   help="torch device: cuda (default; raises without a card) "
+                        "or cpu")
+
+
+def _align_parser(sub) -> None:
     a = sub.add_parser("align", help="Align a corpus to word/phone TextGrids")
+    _num_jobs(a)
     a.add_argument("corpus_directory")
     a.add_argument("dictionary_path")
     a.add_argument("acoustic_model_path")
     a.add_argument("output_directory")
-    a.add_argument("--device", default="cuda",
-                   help="torch device: cuda (default; raises without a card) "
-                        "or cpu")
-    a.add_argument("--beam", type=int, default=10,
-                   help="kept for MFA CLI parity; the DP is exact")
-    a.add_argument("--retry_beam", type=int, default=40)
-    a.add_argument("--boost_silence", type=float, default=1.0)
-    a.add_argument("--batch_size", type=int, default=16)
-    a.add_argument("--single_speaker", action="store_true",
-                   help="Disable speaker adaptation (SAT models align "
-                        "single-pass with the speaker-independent model "
-                        "instead of the fMLLR two-pass)")
-    a.add_argument("--include_silence", dest="include_silence",
-                   action="store_true", default=False)
-    a.add_argument("--no_include_silence", dest="include_silence",
-                   action="store_false")
+    _device(a)
+    # None = not given: a --config_path value applies, else the default
+    a.add_argument("--beam", type=int, default=None,
+                   help="kept for MFA CLI parity; the DP is exact (default 10)")
+    a.add_argument("--retry_beam", type=int, default=None, help="default 40")
+    a.add_argument("--boost_silence", type=float, default=None, help="default 1.0")
+    a.add_argument("--batch_size", type=int, default=None, help="default 16")
+    a.add_argument("--graph_workers", type=int, default=None,
+                   help="Processes for host graph compilation of "
+                        "context-dependent trees (0 = in-process; default 0)")
+    _flag(a, "distributed", None,
+          "Multi-GPU alignment: not ported yet, raises")
+    _flag(a, "include_silence", None)
     a.add_argument("--textgrid_cleanup", dest="textgrid_cleanup",
                    action="store_true", default=None,
                    help="Strip silence intervals from exports "
                         "(= --no_include_silence)")
     a.add_argument("--no_textgrid_cleanup", dest="textgrid_cleanup",
                    action="store_false")
-    a.add_argument("--output_format", default="long_textgrid",
-                   choices=_OUTPUT_FORMATS)
+    _flag(a, "use_phone_model", None,
+          "Phone-transcript evaluation: not ported yet, raises")
+    _flag(a, "fine_tune", None, "Refine boundaries at 1 ms resolution")
+    a.add_argument("--transfer_mode", default="auto",
+                   choices=["auto", "waves", "features"],
+                   help="Host->device payload of phase A: auto resolves to "
+                        "waves on a local card; features raises")
+    a.add_argument("--single_speaker", action="store_true",
+                   help="Disable speaker adaptation (SAT models align "
+                        "single-pass with the speaker-independent model "
+                        "instead of the fMLLR two-pass)")
+    a.add_argument("--g2p_model_path", default=None,
+                   help="G2P model for OOV pronunciations: not ported yet, "
+                        "raises")
+    a.add_argument("--rules_path", default=None,
+                   help="Phonological rules: not ported yet, raises")
+    a.add_argument("--profile_dir", default=None,
+                   help="Write a torch.profiler trace of the alignment here")
+    a.add_argument("--config_path", default=None,
+                   help="Yaml parameter file (reference --config_path "
+                        "semantics: command line > config file > defaults)")
+    a.add_argument("--output_format", default=None, choices=_OUTPUT_FORMATS,
+                   help="default long_textgrid")
     a.add_argument("--include_original_text", action="store_true")
     a.add_argument("-s", "--speaker_characters", default="0",
                    help="Speaker from the first N filename characters (or "
                         "'prosodylab'); default uses directory names")
     a.add_argument("-a", "--audio_directory", default=None,
                    help="Additional root searched for sound files")
+    a.add_argument("--reference_directory", default=None,
+                   help="Gold-standard alignments to evaluate against")
+    a.add_argument("--custom_mapping_path", default=None,
+                   help="Yaml mapping phones across phone sets for evaluation")
     a.add_argument("--language", default=None,
                    help="Language-specific tokenizer: not ported yet, raises")
-    a.add_argument("--fine_tune", action="store_true",
-                   help="1 ms boundary refinement: not ported yet, raises")
-    a.add_argument("--use_phone_model", action="store_true",
-                   help="Phone-transcript evaluation: not ported yet, raises")
-    o = sub.add_parser("align_one", help="Align a single utterance")
-    o.add_argument("sound_file")
-    o.add_argument("text_file")
-    o.add_argument("dictionary_path")
-    o.add_argument("acoustic_model_path")
-    o.add_argument("output_path")
-    o.add_argument("--device", default="cuda",
-                   help="torch device: cuda (default; raises without a card) "
-                        "or cpu")
-    o.add_argument("--output_format", default="long_textgrid",
-                   choices=_OUTPUT_FORMATS)
-    _train_parser(sub)
-    return p
 
 
 def _train_parser(sub) -> None:
     t = sub.add_parser("train", help="Train an acoustic model mono -> tri -> "
                        "LDA+MLLT -> SAT")
+    _num_jobs(t)
     t.add_argument("corpus_directory")
     t.add_argument("dictionary_path")
     t.add_argument("output_model_path")
-    t.add_argument("--device", default="cuda",
-                   help="torch device: cuda (default; raises without a card) "
-                        "or cpu")
+    _device(t)
     t.add_argument("--output_directory", default=None,
                    help="Also align the corpus with the final model and "
                         "export TextGrids here")
     # None = not given: a --config_path value applies, else the default
     t.add_argument("--batch_size", type=int, default=None, help="default 16")
     t.add_argument("--graph_workers", type=int, default=None,
-                   help="graph-compile processes: not ported yet, raises "
-                        "above 0")
+                   help="Processes for host graph compilation of "
+                        "context-dependent trees (0 = in-process; default 0)")
     t.add_argument("--num_iterations_scale", type=float, default=1.0,
                    help="Scale factor on per-stage iteration counts")
     t.add_argument("--working_directory", default=None,
@@ -113,14 +148,11 @@ def _train_parser(sub) -> None:
     t.add_argument("--checkpoint_interval", type=float, default=60.0,
                    help="Minimum seconds between per-iteration checkpoints "
                         "(0 = every iteration)")
-    t.add_argument("--clean", action="store_true",
-                   help="Wipe --working_directory and start fresh")
-    t.add_argument("--position_dependent_phones", dest="position_dependent_phones",
-                   action="store_true", default=None)
-    t.add_argument("--no_position_dependent_phones",
-                   dest="position_dependent_phones", action="store_false")
-    t.add_argument("--features_on_host", action="store_true",
-                   help="Keep feature batches in pinned host memory")
+    _flag(t, "clean", False, "Wipe --working_directory and start fresh")
+    _flag(t, "position_dependent_phones", None)
+    _flag(t, "features_on_host", False,
+          "Keep feature batches in pinned host memory",
+          negative="features_on_device")
     t.add_argument("--phone_set_type", "--phone_set", default=None,
                    choices=["UNKNOWN", "AUTO", "ARPA", "IPA", "PINYIN"],
                    type=str.upper, help="default UNKNOWN")
@@ -142,13 +174,161 @@ def _train_parser(sub) -> None:
                    action="store_true", default=True)
     t.add_argument("--chain_topology", dest="variable_length_topology",
                    action="store_false")
-    t.add_argument("--distributed", action="store_true",
-                   help="Multi-GPU training: not ported yet, raises")
+    _flag(t, "distributed", None, "Multi-GPU training: not ported yet, raises")
     t.add_argument("--profile_dir", default=None,
                    help="Write a torch.profiler trace of the run here")
     t.add_argument("--train_g2p", action="store_true",
                    help="G2P-trained pronunciation stages: not ported yet, "
                         "raises")
+
+
+def _host_parsers(sub) -> None:
+    """The commands over host modules and the aligner: adapt, validate,
+    evaluate_alignments, train_lm, train_dictionary, model, version,
+    configure and history."""
+    d = sub.add_parser("adapt", help="MAP-adapt an acoustic model to a corpus")
+    _num_jobs(d)
+    d.add_argument("corpus_directory")
+    d.add_argument("dictionary_path")
+    d.add_argument("acoustic_model_path")
+    d.add_argument("output_model_path")
+    _device(d)
+    d.add_argument("--mapping_tau", type=float, default=20.0)
+    d.add_argument("--output_directory", default=None,
+                   help="Also align the corpus with the adapted model and "
+                        "export TextGrids here")
+    d.add_argument("--output_format", default="long_textgrid",
+                   choices=_OUTPUT_FORMATS)
+    d.add_argument("--include_original_text", action="store_true")
+    d.add_argument("-s", "--speaker_characters", default="0")
+    d.add_argument("-a", "--audio_directory", default=None)
+
+    v = sub.add_parser("validate", help="Validate a corpus + dictionary")
+    _num_jobs(v)
+    v.add_argument("corpus_directory")
+    v.add_argument("dictionary_path")
+    v.add_argument("--acoustic_model_path", default=None)
+    _flag(v, "test_transcriptions", None,
+          "Decode utterances against a corpus LM: not ported yet, raises")
+    v.add_argument("--ignore_acoustics", "--skip_acoustics",
+                   dest="ignore_acoustics", action="store_true", default=None)
+    v.add_argument("--no_ignore_acoustics", "--no_skip_acoustics",
+                   dest="ignore_acoustics", action="store_false")
+    v.add_argument("-s", "--speaker_characters", default=None,
+                   help="default 0")
+    v.add_argument("-a", "--audio_directory", default=None)
+    v.add_argument("--output_directory", "--output_path", default=None,
+                   help="Write oovs_found.txt / utterance_oovs.txt here")
+    v.add_argument("--rules_path", default=None,
+                   help="Phonological rules: not ported yet, raises")
+    v.add_argument("--config_path", default=None)
+
+    e = sub.add_parser("evaluate_alignments",
+                       help="Compare two directories of TextGrids")
+    e.add_argument("reference_directory")
+    e.add_argument("test_directory")
+    e.add_argument("--silence_phone", default="sil")
+    e.add_argument("--custom_mapping_path", default=None)
+
+    lm = sub.add_parser("train_lm", help="Train an n-gram language model")
+    _num_jobs(lm)
+    lm.add_argument("source_path")
+    lm.add_argument("output_model_path")
+    lm.add_argument("--order", type=int, default=3)
+    lm.add_argument("--dictionary_path", default=None)
+    lm.add_argument("--prune_thresh_small", type=float, default=0.0000003)
+    lm.add_argument("--prune_thresh_medium", type=float, default=0.0000001)
+
+    td = sub.add_parser("train_dictionary",
+                        help="Estimate pronunciation and silence probabilities")
+    _num_jobs(td)
+    td.add_argument("corpus_directory")
+    td.add_argument("dictionary_path")
+    td.add_argument("acoustic_model_path")
+    td.add_argument("output_dictionary_path")
+    _device(td)
+    td.add_argument("--batch_size", type=int, default=16)
+    _flag(td, "silence_probabilities", True)
+    td.add_argument("-s", "--speaker_characters", default="0")
+    td.add_argument("-a", "--audio_directory", default=None)
+
+    m = sub.add_parser("model", aliases=["models"], help="Model utilities")
+    msub = m.add_subparsers(dest="model_command", required=True)
+    mi = msub.add_parser("inspect")
+    mi.add_argument("model_path")
+    ma = msub.add_parser("add")
+    ma.add_argument("model_type")
+    ma.add_argument("path")
+    ma.add_argument("--name", default=None)
+    ms = msub.add_parser("save")
+    ms.add_argument("model_type")
+    ms.add_argument("path")
+    ms.add_argument("--name", default=None)
+    _flag(ms, "overwrite", False)
+    mw = msub.add_parser("add_words")
+    mw.add_argument("dictionary_path")
+    mw.add_argument("new_pronunciations_path")
+    ml = msub.add_parser("list")
+    ml.add_argument("model_type", nargs="?", default=None)
+    md = msub.add_parser("download")
+    md.add_argument("model_type")
+    md.add_argument("name")
+
+    sub.add_parser("version", help="Print the package version")
+    c = sub.add_parser("configure", help="Persist default options")
+    c.add_argument("--profile", default=None)
+    c.add_argument("--batch_size", type=int, default=None)
+    c.add_argument("--seed", type=int, default=None)
+    _flag(c, "clean", None)
+    _flag(c, "debug", None)
+    c.add_argument("--temporary_directory", default=None)
+    h = sub.add_parser("history", help="Show recent command history")
+    h.add_argument("--depth", type=int, default=10)
+
+
+def _parser() -> argparse.ArgumentParser:
+    p = argparse.ArgumentParser(prog="mfa-tpu-torch")
+    p.add_argument("-v", "--verbose", action="store_true",
+                   help="INFO-level progress logs")
+    p.add_argument("-q", "--quiet", action="store_true", help="Errors only")
+    p.add_argument("--debug", action="store_true",
+                   help="DEBUG-level logs incl. per-phase timings")
+    sub = p.add_subparsers(dest="command", required=True)
+    _align_parser(sub)
+    o = sub.add_parser("align_one", help="Align a single utterance")
+    _num_jobs(o)
+    o.add_argument("sound_file")
+    o.add_argument("text_file")
+    o.add_argument("dictionary_path")
+    o.add_argument("acoustic_model_path")
+    o.add_argument("output_path")
+    _device(o)
+    o.add_argument("--output_format", default="long_textgrid",
+                   choices=_OUTPUT_FORMATS)
+    _train_parser(sub)
+    _host_parsers(sub)
+    return p
+
+
+def _load_command_config(config_path) -> dict:
+    """Per-command yaml parameter file (reference ``--config_path``)."""
+    import yaml
+
+    with open(config_path, encoding="utf8") as f:
+        return yaml.safe_load(f) or {}
+
+
+def _settings(args, data: dict):
+    """``setting(name, default)``: the command line's value when given,
+    else the config file's, else ``default`` (the reference's precedence)."""
+
+    def setting(name, default):
+        value = getattr(args, name)
+        if value is not None:
+            return value
+        return data.get(name, default)
+
+    return setting
 
 
 _TRAIN_STAGE_KINDS = {
@@ -205,10 +385,31 @@ def _recipe_from_config(data):
     return stages
 
 
+def _profiled(profile_dir, device, name: str):
+    """A context that traces its body with ``torch.profiler`` and writes
+    ``<profile_dir>/<name>`` as a Chrome trace; a no-op without a dir."""
+    if not profile_dir:
+        return contextlib.nullcontext()
+
+    @contextlib.contextmanager
+    def trace():
+        from torch.profiler import ProfilerActivity, profile
+
+        activities = [ProfilerActivity.CPU]
+        if device.type == "cuda":
+            activities.append(ProfilerActivity.CUDA)
+        with profile(activities=activities) as prof:
+            yield
+        out = Path(profile_dir)
+        out.mkdir(parents=True, exist_ok=True)
+        prof.export_chrome_trace(str(out / name))
+
+    return trace()
+
+
 def _train(args) -> int:
     """Train through the staged recipe (reference ``mfa train``,
     ``command_line/train_acoustic_model.py``)."""
-    import contextlib
     from dataclasses import replace
 
     from montreal_forced_aligner_tpu_torch.training.base import TrainerConfig
@@ -218,19 +419,8 @@ def _train(args) -> int:
     )
 
     t0 = time.time()
-    data = {}
-    if args.config_path:
-        import yaml
-
-        with open(args.config_path, encoding="utf8") as f:
-            data = yaml.safe_load(f) or {}
-    # precedence: defaults < config file < command line
-    def setting(name, default):
-        value = getattr(args, name)
-        if value is not None:
-            return value
-        return data.get(name, default)
-
+    data = _load_command_config(args.config_path) if args.config_path else {}
+    setting = _settings(args, data)
     batch_size = int(setting("batch_size", 16))
     graph_workers = int(setting("graph_workers", 0))
     position_dependent = bool(setting("position_dependent_phones", True))
@@ -284,48 +474,42 @@ def _train(args) -> int:
         language=args.language,
         device=args.device,
     )
-    if args.profile_dir:
-        from torch.profiler import ProfilerActivity, profile
-
-        activities = [ProfilerActivity.CPU]
-        if ta.device.type == "cuda":
-            activities.append(ProfilerActivity.CUDA)
-        trace_cm = profile(activities=activities)
-    else:
-        trace_cm = contextlib.nullcontext()
-    with trace_cm as prof:
+    with _profiled(args.profile_dir, ta.device, "train_trace.json"):
         ta.train()
-    if args.profile_dir:
-        out = Path(args.profile_dir)
-        out.mkdir(parents=True, exist_ok=True)
-        prof.export_chrome_trace(str(out / "train_trace.json"))
     ta.export_model(args.output_model_path)
     print(f"Saved model to {args.output_model_path}")
     if args.output_directory is not None:
-        from montreal_forced_aligner_tpu_torch.align.aligner import (
-            AlignerConfig,
-            PretrainedAligner,
-        )
-        from montreal_forced_aligner_tpu_torch.corpus.corpus import Corpus
-
-        aligner = PretrainedAligner(
-            args.output_model_path, args.dictionary_path,
-            AlignerConfig(batch_size=batch_size), device=args.device,
-        )
-        corpus = Corpus.load(
-            args.corpus_directory,
-            speaker_characters=args.speaker_characters,
-            audio_directory=args.audio_directory,
-        )
-        results = aligner.align_corpus(corpus)
-        outs = aligner.export_textgrids(
-            corpus, results, args.output_directory,
-            output_format=args.output_format,
-            include_original_text=args.include_original_text,
-        )
-        print(f"Exported {len(outs)} TextGrids to {args.output_directory}")
+        _align_and_export(args, args.output_model_path, batch_size)
     print(f"Done! Everything took {time.time() - t0:.1f} seconds on {ta.device}")
     return 0
+
+
+def _align_and_export(args, model_path, batch_size: int = 16) -> None:
+    """Align ``args.corpus_directory`` with ``model_path`` and export to
+    ``args.output_directory`` (``train`` and ``adapt`` with
+    ``--output_directory``)."""
+    from montreal_forced_aligner_tpu_torch.align.aligner import (
+        AlignerConfig,
+        PretrainedAligner,
+    )
+    from montreal_forced_aligner_tpu_torch.corpus.corpus import Corpus
+
+    aligner = PretrainedAligner(
+        model_path, args.dictionary_path, AlignerConfig(batch_size=batch_size),
+        device=args.device,
+    )
+    corpus = Corpus.load(
+        args.corpus_directory,
+        speaker_characters=args.speaker_characters,
+        audio_directory=args.audio_directory,
+    )
+    results = aligner.align_corpus(corpus)
+    outs = aligner.export_textgrids(
+        corpus, results, args.output_directory,
+        output_format=args.output_format,
+        include_original_text=args.include_original_text,
+    )
+    print(f"Exported {len(outs)} TextGrids to {args.output_directory}")
 
 
 def _align(args) -> int:
@@ -335,24 +519,39 @@ def _align(args) -> int:
     )
     from montreal_forced_aligner_tpu_torch.corpus.corpus import Corpus
 
-    for flag in ("fine_tune", "use_phone_model"):
-        if getattr(args, flag):
-            raise NotImplementedError(
-                f"--{flag}: ROADMAP.md Queue 1 item 11 (alignment extras)")
-    include_silence = args.include_silence
+    data = _load_command_config(args.config_path) if args.config_path else {}
+    setting = _settings(args, data)
+    output_format = setting("output_format", "long_textgrid")
+    if output_format not in _OUTPUT_FORMATS:
+        raise ValueError(
+            f"config output_format must be one of {_OUTPUT_FORMATS}, got "
+            f"{output_format!r}"
+        )
+    fine_tune = bool(setting("fine_tune", False))
+    if args.distributed:
+        raise NotImplementedError(
+            "--distributed: multi-GPU is ROADMAP.md Queue 1 item 15")
+    if setting("use_phone_model", False):
+        raise NotImplementedError(
+            "--use_phone_model: ROADMAP.md Queue 1 item 13 (transcription)")
+    include_silence = bool(setting("include_silence", False))
+    # after the config: an explicit flag always wins
     if args.textgrid_cleanup is not None:
         include_silence = not args.textgrid_cleanup
     t0 = time.time()
     config = AlignerConfig(
-        beam=args.beam,
-        retry_beam=args.retry_beam,
-        boost_silence=args.boost_silence,
-        batch_size=args.batch_size,
+        beam=int(setting("beam", 10)),
+        retry_beam=int(setting("retry_beam", 40)),
+        boost_silence=float(setting("boost_silence", 1.0)),
+        batch_size=int(setting("batch_size", 16)),
+        num_graph_workers=int(setting("graph_workers", 0)),
         uses_speaker_adaptation=not args.single_speaker,
         language=args.language,
+        transfer_mode=args.transfer_mode,
     )
     aligner = PretrainedAligner(
         args.acoustic_model_path, args.dictionary_path, config,
+        g2p_model_path=args.g2p_model_path, rules_path=args.rules_path,
         device=args.device,
     )
     corpus = Corpus.load(
@@ -364,13 +563,21 @@ def _align(args) -> int:
         f"Loaded corpus: {corpus.num_utterances} utterances, "
         f"{len(corpus.speakers)} speakers"
     )
-    results = aligner.align_corpus(corpus)
+    with _profiled(args.profile_dir, aligner.device, "align_trace.json"):
+        results = aligner.align_corpus(corpus)
+    if fine_tune:
+        from montreal_forced_aligner_tpu_torch.align.fine_tune import (
+            fine_tune_alignments,
+        )
+
+        results = fine_tune_alignments(aligner, corpus, results)
+        print("Fine-tuned boundaries at 1 ms resolution")
     outs = aligner.export_textgrids(
         corpus,
         results,
         args.output_directory,
         include_silence=include_silence,
-        output_format=args.output_format,
+        output_format=output_format,
         include_original_text=args.include_original_text,
     )
     # alignment quality analysis: the reference always runs it after align
@@ -390,6 +597,18 @@ def _align(args) -> int:
         f"Aligned {len(results)} utterances -> {len(outs)} files in "
         f"{time.time() - t0:.1f}s on {aligner.device}"
     )
+    if args.reference_directory:
+        eval_dir = args.output_directory
+        if output_format in ("json", "csv"):
+            # the evaluator reads TextGrids; export a temporary copy
+            eval_dir = tempfile.mkdtemp(prefix="mfa_tpu_eval_")
+            aligner.export_textgrids(
+                corpus, results, eval_dir, include_silence=include_silence
+            )
+        _evaluate_alignment_dirs(
+            args.reference_directory, eval_dir, "sil",
+            custom_mapping=_load_custom_mapping(args.custom_mapping_path),
+        )
     return 0
 
 
@@ -419,19 +638,473 @@ def _align_one(args) -> int:
     return 0
 
 
-def main(argv: Optional[List[str]] = None) -> int:
-    args = _parser().parse_args(argv)
-    import logging
+def _adapt(args) -> int:
+    """MAP-adapt an acoustic model to a corpus (reference ``mfa adapt``,
+    ``alignment/adapting.py``)."""
+    from montreal_forced_aligner_tpu_torch.training.adapt import MapAdapter
 
-    logging.basicConfig(
-        level=logging.INFO if args.verbose else logging.WARNING,
-        format="%(levelname)s %(message)s",
+    adapter = MapAdapter(args.acoustic_model_path, args.dictionary_path,
+                         args.mapping_tau, device=args.device)
+    adapted = adapter.adapt(
+        args.corpus_directory,
+        speaker_characters=args.speaker_characters,
+        audio_directory=args.audio_directory,
     )
+    adapted.save(args.output_model_path)
+    print(f"Saved adapted model to {args.output_model_path}")
+    if args.output_directory is not None:
+        _align_and_export(args, args.output_model_path)
+    return 0
+
+
+def _validate(args) -> int:
+    """Validate a corpus + dictionary (reference ``mfa validate``,
+    ``validation/corpus_validator.py:77``): counts, OOVs, audio issues."""
+    from collections import Counter, defaultdict
+
+    from montreal_forced_aligner_tpu_torch.corpus.corpus import Corpus
+    from montreal_forced_aligner_tpu_torch.dictionary.lexicon import Lexicon
+    from montreal_forced_aligner_tpu_torch.dictionary.tokenizer import (
+        SimpleTokenizer,
+    )
+
+    data = _load_command_config(args.config_path) if args.config_path else {}
+    setting = _settings(args, data)
+    if setting("test_transcriptions", False):
+        raise NotImplementedError(
+            "--test_transcriptions: ROADMAP.md Queue 1 item 13 (transcription)")
+    if args.rules_path is not None:
+        raise NotImplementedError(
+            "--rules_path: ROADMAP.md Queue 1 item 16 (host extras)")
+    ignore_acoustics = bool(setting("ignore_acoustics", False))
+    speaker_characters = setting("speaker_characters", "0")
+    lex = Lexicon.load(args.dictionary_path)
+    corpus = Corpus.load(
+        args.corpus_directory,
+        speaker_characters=speaker_characters,
+        audio_directory=args.audio_directory,
+    )
+    tokenizer = SimpleTokenizer(word_set=set(lex.words))
+    oovs = Counter()
+    utterance_oovs = defaultdict(list)
+    total_words = 0
+    bad_audio = []
+    total_duration = 0.0
+    for utt in corpus.utterances:
+        _norm, utt_oovs = tokenizer(utt.text)
+        oovs.update(utt_oovs)
+        if utt_oovs:
+            utterance_oovs[f"{utt.file_name}-{utt.speaker}"].extend(utt_oovs)
+        total_words += len(utt.normalized_tokens or _norm.split())
+        if ignore_acoustics:
+            continue
+        try:
+            wav = corpus.load_audio(utt)
+            total_duration += len(wav.samples) / wav.sample_rate
+        except Exception as e:  # reported per file, as the reference does
+            bad_audio.append((utt.file_name, str(e)))
+    print(f"Speakers: {len(corpus.speakers)}")
+    print(f"Utterances: {corpus.num_utterances}")
+    print(f"Total duration: {total_duration:.1f}s")
+    print(f"Total words: {total_words}")
+    print(f"OOV types: {len(oovs)}  tokens: {sum(oovs.values())}")
+    for w, c in oovs.most_common(20):
+        print(f"  {w}\t{c}")
+    if bad_audio:
+        print(f"Sound file errors: {len(bad_audio)}")
+        for f, e in bad_audio[:10]:
+            print(f"  {f}: {e}")
+    # container-level triage: truncated/unreadable files, per-speaker
+    # sample-rate mixtures, segments past end-of-file (reference
+    # analyze_setup wav issues, validation/corpus_validator.py:77)
+    file_issues = corpus.audit_files()
+    if file_issues:
+        print(f"Sound file issues: {len(file_issues)}")
+        for issue in file_issues[:20]:
+            print(f"  [{issue['issue']}] {issue['file']}: {issue['detail']}")
+    if args.output_directory is not None:
+        out = Path(args.output_directory)
+        out.mkdir(parents=True, exist_ok=True)
+        with open(out / "oovs_found.txt", "w", encoding="utf-8") as f:
+            for w, c in oovs.most_common():
+                f.write(f"{w}\t{c}\n")
+        with open(out / "utterance_oovs.txt", "w", encoding="utf-8") as f:
+            for key, words in sorted(utterance_oovs.items()):
+                f.write(f"{key}\t{', '.join(words)}\n")
+        if file_issues:
+            with open(out / "sound_file_issues.txt", "w", encoding="utf-8") as f:
+                for issue in file_issues:
+                    f.write(
+                        f"{issue['issue']}\t{issue['file']}\t"
+                        f"{issue['detail']}\n"
+                    )
+        print(f"Wrote OOV reports to {out}")
+    print("Validation complete")
+    return 0
+
+
+def _load_custom_mapping(custom_mapping_path):
+    """Phone-mapping yaml for cross-phone-set evaluation (reference
+    ``--custom_mapping_path``; many-to-one entries allowed)."""
+    if not custom_mapping_path:
+        return None
+    raw = _load_command_config(custom_mapping_path)
+    mapping = {}
+    for k, v in raw.items():
+        if isinstance(v, list):
+            # many-to-one entries stay lists (compare_labels membership test)
+            mapping[str(k)] = [str(item) for item in v]
+        else:
+            mapping[str(k)] = str(v)
+    return mapping
+
+
+def _evaluate_alignment_dirs(
+    reference_directory, test_directory, silence_phone, custom_mapping=None
+) -> None:
+    """Compare two directories of TextGrids (reference
+    ``alignment/base.py:2536``); prints overlap error, phone error rate and
+    +-10 ms boundary agreement."""
+    import numpy as np
+
+    from montreal_forced_aligner_tpu_torch.data import CtmInterval
+    from montreal_forced_aligner_tpu_torch.evaluation import (
+        align_phones,
+        boundary_agreement,
+    )
+    from montreal_forced_aligner_tpu_torch.io.textgrid import TextGrid
+
+    def phones_of(path):
+        tg = TextGrid.read(path)
+        out = []
+        for name, ivs in tg.tiers.items():
+            if "phone" in name.lower():
+                out.extend(
+                    CtmInterval(iv.begin, iv.end, iv.label.strip())
+                    for iv in ivs
+                    if iv.label.strip()
+                )
+        return out
+
+    scores, pers, agrees, totals = [], [], [], []
+    for ref_tg in sorted(Path(reference_directory).rglob("*.TextGrid")):
+        test_tg = Path(test_directory) / ref_tg.name
+        if not test_tg.exists():
+            continue
+        ref = phones_of(ref_tg)
+        test = phones_of(test_tg)
+        if not ref or not test:
+            continue
+        sc, per, _err = align_phones(
+            ref, test, silence_phone, custom_mapping=custom_mapping
+        )
+        ag, nb = boundary_agreement(ref, test, silence_phone)
+        if sc is not None:
+            scores.append(sc)
+        pers.append(per)
+        agrees.append(ag * nb)
+        totals.append(nb)
+    if not totals:
+        print("No overlapping TextGrids found")
+        return
+    print(f"Files evaluated: {len(pers)}")
+    print(f"Mean overlap error: {np.mean(scores):.4f}s")
+    print(f"Mean phone error rate: {np.mean(pers):.4f}")
+    print(
+        f"Boundary agreement (+-10ms): {sum(agrees) / max(sum(totals), 1):.4f}"
+    )
+
+
+def _evaluate_alignments(args) -> int:
+    """Compare two directories of TextGrids (reference
+    ``alignment/base.py:2536`` evaluate_alignments)."""
+    _evaluate_alignment_dirs(
+        args.reference_directory, args.test_directory, args.silence_phone,
+        custom_mapping=_load_custom_mapping(args.custom_mapping_path),
+    )
+    return 0
+
+
+def _train_lm(args) -> int:
+    """Train an n-gram LM from a text file (one sentence per line) or a
+    corpus directory (reference ``mfa train_lm``,
+    ``language_modeling/trainer.py``). A ``.zip`` output writes the
+    reference's archive (large + entropy-pruned medium/small); other
+    extensions write a single ARPA file."""
+    from montreal_forced_aligner_tpu_torch.language_modeling.ngram import (
+        train_lm_from_texts,
+    )
+
+    src = Path(args.source_path)
+    if src.is_dir():
+        texts = []
+        for lab in sorted(src.rglob("*.lab")) + sorted(src.rglob("*.txt")):
+            t = lab.read_text(encoding="utf-8").strip().lower()
+            if t:
+                texts.append(t)
+    else:
+        texts = [
+            ln.strip().lower()
+            for ln in src.read_text(encoding="utf-8").splitlines()
+            if ln.strip()
+        ]
+    if args.dictionary_path is not None:
+        from montreal_forced_aligner_tpu_torch.dictionary.lexicon import Lexicon
+
+        vocab = set(Lexicon.load(args.dictionary_path).words)
+        texts = [
+            " ".join(t if t in vocab else "<unk>" for t in s.split())
+            for s in texts
+        ]
+    order = args.order
+    if str(args.output_model_path).lower().endswith(".zip"):
+        from montreal_forced_aligner_tpu_torch.language_modeling.archive import (
+            LanguageModelArchive,
+        )
+
+        archive = LanguageModelArchive.train(
+            texts, order=order,
+            prune_thresh_small=args.prune_thresh_small,
+            prune_thresh_medium=args.prune_thresh_medium,
+        )
+        archive.save(args.output_model_path)
+        sizes = {
+            k: sum(len(m.ngrams[n]) for n in range(1, m.order + 1))
+            for k, m in (
+                ("large", archive.large),
+                ("medium", archive.medium),
+                ("small", archive.small),
+            )
+        }
+        print(
+            f"Trained order-{order} LM archive on {len(texts)} sentences "
+            f"(ngrams: large {sizes['large']}, medium {sizes['medium']}, "
+            f"small {sizes['small']}) -> {args.output_model_path}"
+        )
+    else:
+        model, _counter = train_lm_from_texts(texts, order=order)
+        model.write(args.output_model_path)
+        print(
+            f"Trained order-{order} LM on {len(texts)} sentences "
+            f"({len(model.ngrams[1])} unigrams) -> {args.output_model_path}"
+        )
+    return 0
+
+
+def _train_dictionary(args) -> int:
+    """Align a corpus and export a dictionary with estimated pronunciation
+    and silence probabilities (reference ``mfa train_dictionary``,
+    ``pretrained.py:561`` DictionaryTrainer)."""
+    from montreal_forced_aligner_tpu_torch.align.aligner import (
+        AlignerConfig,
+        PretrainedAligner,
+    )
+    from montreal_forced_aligner_tpu_torch.corpus.corpus import Corpus
+    from montreal_forced_aligner_tpu_torch.training.pronunciation import (
+        PronunciationCounter,
+        apply_probabilities_to_lexicon,
+        compute_pronunciation_probabilities,
+    )
+
+    aligner = PretrainedAligner(
+        args.acoustic_model_path, args.dictionary_path,
+        AlignerConfig(batch_size=args.batch_size), device=args.device,
+    )
+    corpus = Corpus.load(
+        args.corpus_directory,
+        speaker_characters=args.speaker_characters,
+        audio_directory=args.audio_directory,
+    )
+    results = aligner.align_corpus(corpus)
+    counter = PronunciationCounter()
+    for aln in results.values():
+        counter.add_utterance(aln, aligner.lexicon.silence_phone)
+    probs = compute_pronunciation_probabilities(counter)
+    apply_probabilities_to_lexicon(aligner.lexicon, probs)
+    if not args.silence_probabilities:
+        # probability-only export (reference DictionaryTrainer
+        # silence_probabilities=False, pretrained.py:561)
+        for prons in aligner.lexicon.words.values():
+            for p in prons:
+                p.silence_after_probability = None
+                p.silence_before_correction = None
+                p.non_silence_before_correction = None
+    aligner.lexicon.write(args.output_dictionary_path)
+    print(
+        f"Exported dictionary with pronunciation probabilities to "
+        f"{args.output_dictionary_path}"
+    )
+    return 0
+
+
+def _model(args) -> int:
+    """Model utilities (reference ``command_line/model.py``)."""
+    from montreal_forced_aligner_tpu_torch.model_manager import ModelManager
+
+    cmd = args.model_command
+    if cmd == "inspect":
+        from montreal_forced_aligner_tpu_torch.models.acoustic_model import (
+            AcousticModel,
+        )
+
+        am = AcousticModel.load(args.model_path)
+        tm = am.transition_model
+        info = {
+            "meta": am.meta,
+            "num_phones": int(len(tm.topo.phones)),
+            "num_pdfs": am.gmm.num_pdfs,
+            "num_gaussians": am.gmm.total_gauss,
+            "feature_dim": am.gmm.dim,
+            "num_transition_states": tm.num_transition_states,
+            "num_transition_ids": tm.num_transition_ids,
+            "tree_context_width": am.tree.N,
+            "lda": am.lda_mat is not None,
+            "has_alignment_model": am.alignment_model is not None,
+        }
+        print(json.dumps(info, indent=2, default=str))
+    elif cmd == "add":
+        print(f"Registered {ModelManager().add(args.model_type, args.path, args.name)}")
+    elif cmd == "save":
+        mm = ModelManager()
+        resolved = args.name or Path(args.path).stem
+        try:
+            existing = mm.resolve(args.model_type, resolved)
+        except FileNotFoundError:
+            existing = None
+        if existing is not None and not args.overwrite:
+            print(
+                f"Error: {args.model_type} model {resolved!r} already saved at "
+                f"{existing}; pass --overwrite to replace it",
+                file=sys.stderr,
+            )
+            return 1
+        print(f"Saved {mm.add(args.model_type, args.path, resolved)}")
+    elif cmd == "add_words":
+        return _model_add_words(args)
+    elif cmd == "list":
+        for mt, names in ModelManager().list_models(args.model_type).items():
+            print(f"{mt}:")
+            for n in names:
+                print(f"  {n}")
+    elif cmd == "download":
+        try:
+            dst = ModelManager().download(args.model_type, args.name)
+        except RuntimeError as e:
+            print(f"Error: {e}", file=sys.stderr)
+            return 1
+        print(f"Downloaded to {dst}")
+    return 0
+
+
+def _model_add_words(args) -> int:
+    """Merge pronunciations from one dictionary into another, so long as
+    the new entries introduce no new phones (reference
+    ``mfa model add_words``, ``command_line/model.py:156-193``)."""
+    from montreal_forced_aligner_tpu_torch.dictionary.lexicon import Lexicon
+
+    base = Lexicon.load(args.dictionary_path)
+    new = Lexicon.load(args.new_pronunciations_path)
+
+    def phone_set(lex):
+        return {
+            p
+            for prons in lex.words.values()
+            for pron in prons
+            for p in pron.phones
+        }
+
+    new_phones = phone_set(new) - phone_set(base)
+    if new_phones:
+        print(
+            "Error: new pronunciations contain phones missing from the base "
+            f"dictionary: {sorted(new_phones)}",
+            file=sys.stderr,
+        )
+        return 1
+    added = 0
+    for word, prons in new.words.items():
+        for pron in prons:
+            before = len(base.words.get(word, ()))
+            base.add_pronunciation(word, pron)
+            added += len(base.words[word]) > before
+    base.write(args.dictionary_path)
+    print(
+        f"Added {added} pronunciations from {args.new_pronunciations_path} "
+        f"to {args.dictionary_path}"
+    )
+    return 0
+
+
+def _version(args) -> int:
+    from montreal_forced_aligner_tpu_torch import __version__
+
+    print(__version__)
+    return 0
+
+
+def _configure(args) -> int:
+    """Persist default options to the global profile store (reference
+    ``mfa configure``, ``config.py:167-280``)."""
+    from montreal_forced_aligner_tpu_torch.config import get_config
+
+    cfg = get_config()
+    if args.profile:
+        cfg.current_profile_name = args.profile
+    options = {k: getattr(args, k) for k in (
+        "batch_size", "seed", "clean", "debug", "temporary_directory")}
+    cfg.current_profile.update({k: v for k, v in options.items() if v is not None})
+    cfg.save()
+    print(f"Saved profile {cfg.current_profile_name!r}")
+    return 0
+
+
+def _history(args) -> int:
+    """Show recent command history (reference ``mfa history``)."""
+    from montreal_forced_aligner_tpu_torch.config import load_history
+
+    for entry in load_history()[-args.depth:]:
+        print(
+            f"{entry['time']}  (exit {entry['exit_code']})  "
+            + " ".join(entry["command"])
+        )
+    return 0
+
+
+_COMMANDS = {
+    "align": _align, "align_one": _align_one, "train": _train, "adapt": _adapt,
+    "validate": _validate, "evaluate_alignments": _evaluate_alignments,
+    "train_lm": _train_lm, "train_dictionary": _train_dictionary,
+    "model": _model, "models": _model, "version": _version,
+    "configure": _configure, "history": _history,
+}
+
+
+def main(argv: Optional[List[str]] = None) -> int:
+    """Run one command. Called with no ``argv`` (the command line itself),
+    the command is also recorded in the history store."""
+    args = _parser().parse_args(argv)
+    level = logging.WARNING
+    if args.debug:
+        level = logging.DEBUG
+    elif args.verbose:
+        level = logging.INFO
+    elif args.quiet:
+        level = logging.ERROR
+    logging.basicConfig(level=level, format="%(levelname)s %(message)s")
+    if getattr(args, "num_jobs", None) is not None:
+        _logger.info(
+            "--num_jobs %s accepted for compatibility; this port parallelizes "
+            "via device batches (--batch_size), not worker processes",
+            args.num_jobs,
+        )
+    if argv is None:
+        from montreal_forced_aligner_tpu_torch.config import record_history
+
+        record_history(sys.argv[1:])
     from montreal_forced_aligner_tpu_torch.exceptions import MFAError
 
     try:
-        run = {"align": _align, "align_one": _align_one, "train": _train}
-        return run[args.command](args)
+        return _COMMANDS[args.command](args)
     except MFAError as e:
         print(f"Error: {e}", file=sys.stderr)
         return 1

@@ -1,7 +1,7 @@
 """Build and load the hand-written native code, and count kernel launches.
 
 Each CUDA source in ``csrc/`` is compiled on first use with ``nvcc`` for
-``sm_90a``, and the host C++ source in ``native/`` with ``g++``, into a
+``sm_90a``, and the host C++ sources in ``native/`` with ``g++``, into a
 shared library with a plain C interface, which is loaded with ``ctypes``.
 Libraries go to ``_build/`` inside the package (listed in ``.gitignore``),
 named by a hash of the source and the flags, so an edited source is rebuilt
@@ -47,6 +47,8 @@ SOURCES: Dict[str, Source] = {
                            _NVCC_FLAGS + ["--fmad=false"]),
     "state_emission": Source(CSRC / "state_emission.cu", "nvcc", _NVCC_FLAGS),
     "fmllr_solve": Source(_PKG / "native" / "fmllr_solve.cc", "g++", _GXX_FLAGS),
+    "graph_assembly": Source(_PKG / "native" / "graph_assembly.cc", "g++",
+                             _GXX_FLAGS),
 }
 
 # kernel name -> launches since the last reset; each wrapper adds one where

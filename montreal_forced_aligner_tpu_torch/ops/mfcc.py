@@ -228,3 +228,25 @@ def pad_waves_for_mfcc(
         refl = min(right, n)
         out[b, PAD_LEFT + n : PAD_LEFT + n + refl] = src[n - refl :][::-1]
     return out, lengths
+
+
+def compute_mfcc_batch(
+    waves: "list[np.ndarray]",
+    cfg: MfccConfig = MfccConfig(),
+    max_frames: Optional[int] = None,
+    padded_len: Optional[int] = None,
+    device="cuda",
+) -> Tuple[torch.Tensor, np.ndarray]:
+    """MFCCs for a list of 1-D waveforms (the reference package's function
+    of the same name, for lists).
+
+    Returns (features (B, T_max, n_ceps) on ``device``, frame_lengths (B,)
+    on the host). Frames beyond each utterance's true frame count are
+    garbage and must be masked by the caller.
+    """
+    padded, lengths = pad_waves_for_mfcc(waves, cfg, padded_len)
+    frame_lengths = np.array([cfg.num_frames(int(n)) for n in lengths], dtype=np.int32)
+    if max_frames is None:
+        max_frames = int(frame_lengths.max())
+    feats = _mfcc_device(torch.from_numpy(padded).to(device), cfg, max_frames)
+    return feats, frame_lengths

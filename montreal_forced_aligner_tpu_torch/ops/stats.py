@@ -308,20 +308,26 @@ def mle_update(
     )
     if "m" not in update_flags:
         new_means = old_means
-    if "v" not in update_flags:
-        new_vars = old_vars
-    if "w" not in update_flags:
-        weights = gmm.weights.astype(np.float64)
     # keep padding weights at zero
     pad = np.arange(G)[None, :] >= gmm.num_gauss[:, None]
-    weights = np.where(pad, 0.0, weights)
-    wsum = weights.sum(axis=1, keepdims=True)
-    weights = weights / np.maximum(wsum, 1e-10)
-
-    inv_vars = (1.0 / new_vars).astype(np.float32)
+    if "w" in update_flags:
+        weights = np.where(pad, 0.0, weights)
+        wsum = weights.sum(axis=1, keepdims=True)
+        weights = (weights / np.maximum(wsum, 1e-10)).astype(np.float32)
+    else:
+        # not updated: the model's own weights, bit for bit
+        weights = gmm.weights.astype(np.float32)
+    if "v" in update_flags:
+        inv_vars = (1.0 / new_vars).astype(np.float32)
+        means_invvars = new_means * (1.0 / new_vars)
+    else:
+        # not updated: the model's own inverse variances, bit for bit (the
+        # round trip through 1 / (1 / x) in float32 moves some by an ulp)
+        inv_vars = gmm.inv_vars.astype(np.float32)
+        means_invvars = new_means * inv_vars
     out = DiagGmmSet(
-        weights=weights.astype(np.float32),
-        means_invvars=(new_means * (1.0 / new_vars)).astype(np.float32),
+        weights=weights,
+        means_invvars=means_invvars.astype(np.float32),
         inv_vars=inv_vars,
         gconsts=gmm.gconsts.copy(),
         num_gauss=gmm.num_gauss.copy(),

@@ -281,13 +281,8 @@ class TrainingPipeline:
         device="cuda",
     ):
         bad = []
-        if use_pitch:
-            bad.append("use_pitch: ROADMAP.md Queue 1 item 11 (alignment extras)")
         if mesh is not None:
             bad.append("mesh: multi-GPU is ROADMAP.md Queue 1 item 15")
-        if num_graph_workers > 0:
-            bad.append("num_graph_workers > 0: ROADMAP.md Queue 1 item 16 "
-                       "(host extras)")
         if language is not None:
             bad.append("language: ROADMAP.md Queue 1 item 16 (host extras)")
         if bad:
@@ -299,10 +294,16 @@ class TrainingPipeline:
         self.batch_size = batch_size
         self.uses_deltas = uses_deltas
         self.lda_mat = lda_mat
-        self.use_pitch = False  # read by the stages' feature metadata
+        self.use_pitch = use_pitch
         # big-corpus mode: keep feature batches in (pinned) host memory
         # instead of the card's; each use moves them to the card
         self.features_on_host = features_on_host
+        # fan host graph compilation of context-dependent trees out over a
+        # spawn pool (0 = in-process); the pool persists across training
+        # stages (made at first use)
+        self.num_graph_workers = num_graph_workers
+        self._graph_pool = None
+        self.last_transfer_mode: Optional[str] = None
         self.tokenizer = SimpleTokenizer(word_set=set(lexicon.words))
         self.batches: List[FeatureBatch] = []
         self.graphs: List[CompiledGraph] = []
@@ -327,6 +328,8 @@ class TrainingPipeline:
     @property
     def feature_dim(self) -> int:
         base = self.mfcc_config.num_coefficients
+        if self.use_pitch:
+            base += 3
         if self.lda_mat is not None:
             return self.lda_mat.shape[0]
         return base * 3 if self.uses_deltas else base
@@ -352,6 +355,11 @@ class TrainingPipeline:
         spk_count = np.zeros(num_speakers)
         self.spk_offset = 0
         self.num_speakers_global = num_speakers
+        from montreal_forced_aligner_tpu_torch.align.aligner import (
+            resolve_transfer_mode,
+        )
+
+        self.last_transfer_mode = resolve_transfer_mode()
         stash = []
         for batch in batch_lists:
             wave_list = [waves[i] for i in batch]
@@ -388,6 +396,21 @@ class TrainingPipeline:
             ]
             mean_rows = self._spk_mean[spk_idx]
             raw = _normalize_raw(self.put_b(feats_dev), self.put_b(mean_rows))
+            if self.use_pitch:
+                from montreal_forced_aligner_tpu_torch.ops.pitch import (
+                    pitch_for_mfcc_frames,
+                )
+
+                wave_list = [waves[i] for i in batch]
+                L = max(len(w) for w in wave_list)
+                wbuf = np.zeros((len(flens), L), np.float32)
+                wlens = np.zeros(len(flens), np.int32)
+                for r, w in enumerate(wave_list):
+                    wbuf[r, : len(w)] = w
+                    wlens[r] = len(w)
+                pitch = pitch_for_mfcc_frames(wbuf, wlens, flens, int(raw.shape[1]),
+                                              device=self.device)
+                raw = torch.cat([raw, self.put_b(pitch)], dim=-1)
             final = _finalize_features(
                 raw,
                 self.put_b(flens),
@@ -466,14 +489,21 @@ class TrainingPipeline:
     def compile_graphs(
         self, compiler: AlignmentGraphCompiler, num_workers: Optional[int] = None
     ) -> None:
-        if num_workers:
-            raise NotImplementedError(
-                "num_graph_workers > 0: ROADMAP.md Queue 1 item 16 (host extras)"
-            )
         with self.clock("graph_compile"):
-            self._compile_graphs(compiler)
+            self._compile_graphs(compiler, num_workers)
 
-    def _compile_graphs(self, compiler: AlignmentGraphCompiler) -> None:
+    def _compile_graphs(
+        self, compiler: AlignmentGraphCompiler, num_workers: Optional[int] = None
+    ) -> None:
+        """Every utterance's graph: the native core for a monophone tree,
+        else the persistent worker pool when it is on and the corpus has at
+        least four utterances per worker, else the Python compiler here."""
+        from montreal_forced_aligner_tpu_torch.graph.native_compile import (
+            compile_batch_native,
+        )
+
+        if num_workers is None:
+            num_workers = self.num_graph_workers
         corpus = self.corpus
         self.graphs = [None] * corpus.num_utterances
         flat_indices = [i for fb in self.batches for i in fb.utt_indices]
@@ -481,7 +511,25 @@ class TrainingPipeline:
             utt = corpus.utterances[i]
             if utt.normalized_tokens is None:
                 utt.normalized_tokens = self.tokenizer.tokenize(utt.text)
-            self.graphs[i] = compiler.compile(utt.normalized_tokens)
+        tokens = [corpus.utterances[i].normalized_tokens for i in flat_indices]
+        compiled = compile_batch_native(compiler, tokens)
+        if compiled is None and num_workers > 0 and len(flat_indices) >= 4 * num_workers:
+            if self._graph_pool is None:
+                from montreal_forced_aligner_tpu_torch.graph.parallel import (
+                    SharedGraphCompilerPool,
+                )
+
+                # persistent across stages: each stage rebuilds the compiler
+                # (new tree/model), so the table ships per call instead of
+                # respawning workers per stage
+                self._graph_pool = SharedGraphCompilerPool(num_workers)
+            compiled = self._graph_pool.compile_all(
+                [("", t) for t in tokens], {"": compiler}
+            )
+        elif compiled is None:
+            compiled = [compiler.compile(t) for t in tokens]
+        for i, g in zip(flat_indices, compiled):
+            self.graphs[i] = g
         for fb in self.batches:
             graphs = [self.graphs[i] for i in fb.utt_indices]
             fb.garrs = batch_graphs(graphs)

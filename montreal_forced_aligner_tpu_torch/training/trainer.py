@@ -2,8 +2,8 @@
 
 Counterpart of ``montreal_forced_aligner_tpu/training/trainer.py`` on one
 device (``device="cuda"`` by default; it raises without a card). Options
-that reach the reference package only through a mesh, several processes or
-host extras raise ``NotImplementedError`` naming their ROADMAP.md item.
+that reach the reference package only through a mesh or host extras raise
+``NotImplementedError`` naming their ROADMAP.md item.
 
 Behavioral spec: reference ``acoustic_modeling/trainer.py`` — the default
 recipe chains monophone → triphone → LDA+MLLT → SAT (→ SAT) with growing
@@ -106,15 +106,10 @@ class TrainableAligner:
         bad = []
         if distributed or mesh is not None:
             bad.append("distributed/mesh: multi-GPU is ROADMAP.md Queue 1 item 15")
-        if use_pitch:
-            bad.append("use_pitch: ROADMAP.md Queue 1 item 11 (alignment extras)")
         if rules_path is not None:
             bad.append("rules_path: ROADMAP.md Queue 1 item 16 (host extras)")
         if language is not None:
             bad.append("language: ROADMAP.md Queue 1 item 16 (host extras)")
-        if num_graph_workers > 0:
-            bad.append("num_graph_workers > 0: ROADMAP.md Queue 1 item 16 "
-                       "(host extras)")
         if any(st.train_g2p for st in recipe):
             bad.append("train_g2p stages: ROADMAP.md Queue 1 item 16 (host "
                        "extras)")

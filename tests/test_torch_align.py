@@ -261,7 +261,6 @@ def test_emission_rule():
     "kwargs",
     [
         {"transfer_mode": "features"},
-        {"num_graph_workers": 2},
         {"distributed": True},
         {"language": "english"},
     ],
@@ -279,9 +278,13 @@ def test_g2p_and_rules_raise(mono):
     for kw in ({"g2p_model_path": "g2p.zip"}, {"rules_path": "rules.yaml"}):
         with pytest.raises(NotImplementedError):
             PA.PretrainedAligner(model_path, dict_path, device="cpu", **kw)
-    for extra in (["--language", "english"], ["--fine_tune"],
-                  ["--use_phone_model"]):
-        with pytest.raises(NotImplementedError):
+    for extra, item in ((["--language", "english"], "item 16"),
+                        (["--use_phone_model"], "item 13"),
+                        (["--distributed"], "item 15"),
+                        (["--g2p_model_path", "g2p.zip"], "item 16"),
+                        (["--rules_path", "rules.yaml"], "item 16"),
+                        (["--transfer_mode", "features"], "waves")):
+        with pytest.raises(NotImplementedError, match=item):
             cli_main(["align", "c", str(dict_path), str(model_path), "o",
                       "--device", "cpu", *extra])
 
@@ -437,7 +440,11 @@ def test_port_names_no_jax_in_any_import():
                    "training/em.py", "training/monophone.py",
                    "training/tree_builder.py", "training/triphone.py",
                    "training/lda.py", "training/sat.py",
-                   "training/pronunciation.py", "training/trainer.py"):
+                   "training/pronunciation.py", "training/trainer.py",
+                   "training/adapt.py", "graph/native_compile.py",
+                   "graph/parallel.py", "evaluation.py",
+                   "language_modeling/archive.py", "model_manager.py",
+                   "config.py", "ops/pitch.py", "align/fine_tune.py"):
         assert f"montreal_forced_aligner_tpu_torch/{module}" in names
     for path in _port_files():
         tree = ast.parse(path.read_text(), filename=str(path))
@@ -466,7 +473,10 @@ def test_importing_the_port_loads_no_jax():
         "assert not bad, bad\n"
         "assert len(mods) > 25, mods\n"
         "for m in ('training.trainer', 'training.sat', 'ops.stats', "
-        "'language_modeling.fst_convert', 'io.openfst'):\n"
+        "'language_modeling.fst_convert', 'io.openfst', 'training.adapt', "
+        "'graph.native_compile', 'graph.parallel', 'evaluation', "
+        "'language_modeling.archive', 'model_manager', 'config', 'ops.pitch', "
+        "'align.fine_tune'):\n"
         "    assert p.__name__ + '.' + m in mods, m\n"
         "print('ok', len(mods))\n"
     )

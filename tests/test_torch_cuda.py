@@ -15,7 +15,10 @@ parity bar, speaker-independent and two-pass; the fMLLR statistics within
 rtol 1e-4 of each tensor's largest magnitude (float32 sums in another
 order); the native solve within atol 2e-4 of its numpy sweep; the chunked
 long-utterance Viterbi's state path identical to one whole-utterance run,
-its score within 1e-3.
+its score within 1e-3; MAP adaptation bit-identical across card runs and
+within rtol 1e-5 of the CPU's means under the same transforms; native
+monophone graphs identical to the Python compiler's; graph-pool workers
+without a CUDA context; pitch features within atol 1e-4 of the CPU's.
 """
 
 import sys
@@ -452,3 +455,118 @@ def test_monophone_training_on_card_is_reproducible(cuda_device, tmp_path):
     for name in ("weights", "means_invvars", "inv_vars", "gconsts"):
         assert np.array_equal(getattr(m1.gmm, name), getattr(m2.gmm, name))
     assert np.all(np.abs(l1 - l3) <= 1e-3 * np.abs(l3))
+
+
+def test_adapt_on_card_is_reproducible_and_matches_cpu(cuda_device, tmp_path,
+                                                       monkeypatch):
+    """MAP adaptation of a reduced SAT model with K3 forced on: two card runs
+    bit-identical; against the CPU under the card's fMLLR transforms, the
+    same pass-2 paths and means within rtol 1e-5 of each tensor's largest
+    value, the transforms within atol 1e-3."""
+    import montreal_forced_aligner_tpu_torch.align.aligner as PA
+    import montreal_forced_aligner_tpu_torch.training.base as PB
+    from montreal_forced_aligner_tpu_torch.training.adapt import MapAdapter
+
+    for mod in (PA, PB):
+        monkeypatch.setattr(mod, "_emission_kernel_eligible", lambda P, G: True)
+    model_path, dict_path, words = chip_smoke.build_sat_scale_model(
+        tmp_path, num_phones=6, gauss_per_pdf=4, num_words=20
+    )
+    corpus_dir, _ = chip_smoke.build_corpus(tmp_path, words, 6, 2.5, 5.0,
+                                            num_speakers=2)
+
+    class Adapter(MapAdapter):
+        forced = None
+
+        def _estimate_fmllr(self, pipeline, gmm):
+            self.transforms = super()._estimate_fmllr(pipeline, gmm)
+            return self.transforms if self.forced is None else self.forced
+
+    runs = []
+    for device in (cuda_device, cuda_device, torch.device("cpu")):
+        a = Adapter(model_path, dict_path, 20.0, PA.AlignerConfig(batch_size=4),
+                    device=device)
+        if runs:
+            a.forced = runs[0][0].transforms
+        before = dict(cuda_build.LAUNCHES)
+        runs.append((a, a.adapt(corpus_dir)))
+        if device.type == "cuda":
+            assert cuda_build.LAUNCHES["state_emission"] > before["state_emission"]
+            assert cuda_build.LAUNCHES["band_forward"] > before["band_forward"]
+    (a1, m1), (_a2, m2), (a3, m3) = runs
+    for g1, g2 in ((m1.gmm, m2.gmm), (m1.alignment_model[1], m2.alignment_model[1])):
+        for k in ("means_invvars", "inv_vars", "weights", "gconsts"):
+            assert np.array_equal(getattr(g1, k), getattr(g2, k)), k
+    for b1, b3 in zip(a1.pipeline.batches, a3.pipeline.batches):
+        assert np.array_equal(b1.host_state_path(), b3.host_state_path())
+    for g1, g3 in ((m1.gmm, m3.gmm), (m1.alignment_model[1], m3.alignment_model[1])):
+        assert chip_smoke._means_rel_err(g1, g3) <= 1e-5
+    assert np.abs(a1.transforms - a3.transforms).max() <= 1e-3
+
+
+def test_native_graphs_on_card_machine_match_python(cuda_device, tmp_path):
+    """The native core built here: a monophone stage's graphs bit-identical
+    to its Python compiler's."""
+    from montreal_forced_aligner_tpu_torch.graph.native_compile import (
+        compile_batch_native,
+    )
+    from montreal_forced_aligner_tpu_torch.training.trainer import (
+        StageConfig,
+        TrainableAligner,
+    )
+
+    corpus_dir, _truths = chip_smoke.make_tone_corpus(tmp_path, n_utts=6)
+    dict_path = tmp_path / "tone.dict"
+    dict_path.write_text("".join(f"{w}\t{' '.join(p)}\n"
+                                 for w, p in chip_smoke.WORD_PHONES.items()))
+    ta = TrainableAligner(corpus_dir, dict_path,
+                          recipe=[StageConfig("monophone", "mono", 2, 20)],
+                          batch_size=4, device=cuda_device)
+    ta.train()
+    comp = ta.trainers["monophone"].make_compiler()
+    tokens = [u.normalized_tokens for u in ta.corpus.utterances]
+    native = compile_batch_native(comp, tokens)
+    python = [ta.trainers["monophone"].make_compiler().compile(t) for t in tokens]
+    assert chip_smoke._graphs_identical(native, python)
+
+
+def test_pitch_on_card_matches_cpu(cuda_device):
+    """Pitch of seeded tones and noise: NCCF within atol 1e-4, frame counts
+    equal, the tones' features within atol 1e-4."""
+    from montreal_forced_aligner_tpu_torch.ops import pitch as PP
+
+    rng = np.random.RandomState(5)
+    t = np.arange(16000) / 16000
+    waves = np.stack([8000 * np.sin(2 * np.pi * f0 * t) for f0 in (100, 200, 320)]
+                     + [rng.randn(16000) * 900]).astype(np.float32)
+    lens = np.full(4, 16000, np.int32)
+    cfg = PP.PitchConfig()
+    ds, ds_len = PP._resample_batch(waves, lens, cfg)
+    shift = int(cfg.resample_rate * cfg.frame_shift_ms / 1000)
+    window = int(cfg.resample_rate * cfg.frame_length_ms / 1000)
+    T = int((ds_len[0] - window) // shift + 1)
+    nccf = [PP._nccf(torch.from_numpy(ds).to(d), window, shift, T,
+                     int(cfg.lags.max()), cfg.nccf_ballast)
+            for d in (cuda_device, torch.device("cpu"))]
+    assert (nccf[0].cpu() - nccf[1]).abs().max().item() <= 1e-4
+    got, got_n = PP.compute_pitch_batch(waves, lens, cfg, device=cuda_device)
+    want, want_n = PP.compute_pitch_batch(waves, lens, cfg, device="cpu")
+    np.testing.assert_array_equal(got_n, want_n)
+    np.testing.assert_allclose(got[:3], want[:3], atol=1e-4, rtol=0)
+
+
+def test_graph_pool_workers_open_no_cuda_context(cuda_device):
+    """With a CUDA context in this process, the spawned graph-compile
+    workers import the port, see no card and never initialise CUDA."""
+    from montreal_forced_aligner_tpu_torch.graph.parallel import (
+        ParallelGraphCompiler,
+    )
+
+    torch.zeros(1, device=cuda_device)
+    assert torch.cuda.is_initialized()
+    pool = ParallelGraphCompiler({}, 2)
+    try:
+        assert pool._pool.submit(torch.cuda.device_count).result(timeout=300) == 0
+        assert pool._pool.submit(torch.cuda.is_initialized).result(timeout=300) is False
+    finally:
+        pool.close(wait=True)

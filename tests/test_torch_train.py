@@ -437,16 +437,13 @@ def test_cli_train_writes_a_loadable_archive(tmp_path, capsys):
 @pytest.mark.parametrize("args,item", [
     (["--language", "thai"], "item 16"),
     (["--rules_path", "rules.yaml"], "item 16"),
-    (["--graph_workers", "2"], "item 16"),
     (["--train_g2p"], "item 16"),
     (["--distributed"], "item 15"),
-    (["--config_path", "pitch.yaml"], "item 11"),
 ])
 def test_cli_train_unported_options_raise(tmp_path, monkeypatch, args, item):
     make_training_corpus(tmp_path, n_utts=2)
     dict_path = write_dict(tmp_path / "train.dict")
     (tmp_path / "rules.yaml").write_text("rules: []\n")
-    (tmp_path / "pitch.yaml").write_text("features:\n  use_pitch: true\n")
     monkeypatch.chdir(tmp_path)
     with pytest.raises(NotImplementedError, match=item):
         cli_main(["train", str(tmp_path / "train_corpus"), str(dict_path),
