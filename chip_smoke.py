@@ -89,10 +89,39 @@ What it does, in order; any failure exits non-zero with no result line:
     features timed, and pitch on the card against the CPU on 4 utterances;
 16. **fine-tune**: sat-si's alignments refined at 1 ms, timed, and the
     card against the CPU on 4 utterances (boundaries within 1 ms);
-17. prints one ``{"kernels": [...]}`` line (sat-2pass's launches and
-    second-pass checks; each row's ``launches_by_path`` adds the training
-    paths' and adapt's launches, ``train_recipe_check`` the LDA-stage check
-    and ``adapt_check`` adapt's), then as the last line
+17. main path **transcribe-dense**: ``Transcriber.transcribe_corpus`` on
+    the corpus against a bigram over 30 of the dictionary's words, the SAT
+    two-pass decode, batch 16, counted from 0: K3 launched exactly twice a
+    batch (the dense max-plus Viterbi is plain PyTorch), every utterance
+    decoded; K3 held to its plain version on the decode's first batch of
+    pass 2 (rtol 1e-5 / atol 1e-3); the graph's S and K, one cold and two
+    warm walls (the first synchronised at each phase, the second under the
+    profiler for the card's busy share), peak card memory;
+18. **transcribe-nbest**: the same LM on the 8-utterance corpus at N-best
+    8, rescored with a trigram over the same words (K3 twice a batch),
+    synchronised at each phase;
+19. main path **transcribe-lvcsr**: an LM trained on the corpus's own
+    transcripts (200 words), so the cross-word LVCSR decoder runs (no
+    fallback, no kernel: plain PyTorch, each checkpoint chunk replayed as
+    a CUDA graph), two-pass; cold and warm walls, phases, peak memory;
+20. **transcribe-lvcsr-20k**: ``bench.py``'s LVCSR recipe (20,000 junk
+    words over the model's phones, a bigram over 6-word texts) on the 16
+    shortest utterances: the graph build (host Python, run in a spawned
+    worker on the CPU while steps 17-19 run on the card), its S and
+    fallback flag, a cold and a warm run, peak memory;
+21. **phone-transcribe**: ``align --use_phone_model`` through the CLI on
+    the corpus and ``transcribe --output_type alignment`` on the 8-utterance
+    corpus, each counted from 0 (K1, K2 and K3 all launched);
+22. **card against CPU** on the 4-utterance corpus for dense 1-best, dense
+    N-best (4 ranks, a bigram over 12 words) and LVCSR (the corpus LM of
+    step 19): identical words and ranked lists, >= 99.9% of frames on the
+    same state, scores within 5 nats (the CPU halves run in a second worker
+    beside steps 17-21);
+23. prints one ``{"kernels": [...]}`` line (sat-2pass's launches and
+    second-pass checks; each row's ``launches_by_path`` adds the training,
+    adapt and transcription paths' launches, ``train_recipe_check`` the
+    LDA-stage check, ``adapt_check`` adapt's and ``transcribe_dense_check``
+    K3's on the dense decode), then as the last line
     ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": 1}}``.
 
 It imports nothing of JAX and nothing of the JAX package.
@@ -102,6 +131,7 @@ from __future__ import annotations
 
 import json
 import os
+import pickle
 import statistics
 import subprocess
 import sys
@@ -128,7 +158,14 @@ def _check(cond, msg: str) -> None:
         raise RuntimeError(msg)
 
 
-def _emit(obj) -> None:
+# perf_counter at the start of main(): each result line but the kernels
+# line and the last carries "t_s", the seconds since then
+_T_START = None
+
+
+def _emit(obj, stamp=True) -> None:
+    if stamp and _T_START is not None:
+        obj = {**obj, "t_s": time.perf_counter() - _T_START}
     print(json.dumps(obj), flush=True)
 
 
@@ -1979,6 +2016,514 @@ def fine_tune_phase(model_path, dict_path, corpus_dir, small_dir, device,
                             "max_boundary_diff_s": worst}}
 
 
+# -- work on the host's CPU beside the card's phases --------------------------
+
+
+def _cpu_task(root, name, args, out_path, threads):
+    """Entry of a spawned worker: ``name``, a function of this script, run
+    with ``args`` on ``threads`` CPU threads, its result pickled to
+    ``out_path``."""
+    sys.path.insert(0, root)
+    import torch
+
+    torch.set_num_threads(threads)
+    out = globals()[name](*args)
+    with open(out_path, "wb") as f:
+        pickle.dump(out, f, protocol=pickle.HIGHEST_PROTOCOL)
+
+
+class CpuTask:
+    """A function of this script run in a spawned process while the card's
+    phases go on (host work that the card would otherwise wait for);
+    :meth:`result` joins it and fails if it failed."""
+
+    def __init__(self, name, args, out_path, threads=4):
+        import multiprocessing
+
+        self.name, self.out_path = name, Path(out_path)
+        root = str(Path(__file__).resolve().parent)
+        self.proc = multiprocessing.get_context("spawn").Process(
+            target=_cpu_task, args=(root, name, args, str(out_path), threads),
+            daemon=True)
+        self.t0 = time.perf_counter()
+        self.proc.start()
+
+    def result(self, timeout=900.0):
+        self.proc.join(timeout)
+        if self.proc.is_alive():
+            self.proc.kill()
+            self.proc.join()
+        _check(self.proc.exitcode == 0,
+               f"CPU task {self.name} exited {self.proc.exitcode}")
+        with open(self.out_path, "rb") as f:
+            out = pickle.load(f)
+        self.out_path.unlink()
+        return out
+
+
+# -- transcription phases ----------------------------------------------------
+
+TRANSCRIBE_WORDS = 30
+
+
+def transcription_lms(words, n_words=TRANSCRIBE_WORDS):
+    """The dense decode's LMs: a bigram and, for N-best rescoring, a trigram
+    over the dictionary's first ``n_words`` words, trained on 200 sentences
+    of 8 words drawn from seed 0."""
+    from montreal_forced_aligner_tpu_torch.language_modeling.ngram import (
+        train_lm_from_texts,
+    )
+
+    rng = np.random.RandomState(0)
+    vocab = sorted(words)[:n_words]
+    texts = [" ".join(rng.choice(vocab, 8)) for _ in range(200)]
+    return (train_lm_from_texts(texts, order=2)[0],
+            train_lm_from_texts(texts, order=3)[0])
+
+
+def corpus_lm(model_path, dict_path, corpus_dir, order=3):
+    """The LM ``Transcriber.train_lm_from_corpus`` trains on the corpus's
+    own transcripts (the LVCSR phases' LM), on the host."""
+    from montreal_forced_aligner_tpu_torch.corpus.corpus import Corpus
+    from montreal_forced_aligner_tpu_torch.transcription.transcriber import (
+        Transcriber,
+    )
+
+    tr = Transcriber(model_path, dict_path, lm_order=order, device="cpu")
+    return tr.train_lm_from_corpus(Corpus.load(corpus_dir))
+
+
+def _transcripts_ok(results, corpus):
+    """Every utterance decoded to a finite score; some to words."""
+    _check(len(results) == corpus.num_utterances,
+           f"{len(results)} of {corpus.num_utterances} utterances transcribed")
+    for key, r in results.items():
+        _check(np.isfinite(r.log_likelihood) and r.log_likelihood > -1e29,
+               f"utterance {key}: score {r.log_likelihood}")
+    _check(any(r.text for r in results.values()), "every transcript is empty")
+
+
+def _peak_gib(device):
+    import torch
+
+    return (torch.cuda.max_memory_allocated(device) / 2**30
+            if device.type == "cuda" else None)
+
+
+def _reset_peak(device):
+    import torch
+
+    _sync(device)
+    if device.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(device)
+
+
+def _counted_transcribe(tr, corpus_dir, device, record=False, **kw):
+    """One ``transcribe_corpus`` with every launch count set to 0 just
+    before (and, with ``record``, every kernel wrapper call recorded):
+    (results, wall, launches, peak GiB, recorders or None)."""
+    import contextlib
+
+    from montreal_forced_aligner_tpu_torch.corpus.corpus import Corpus
+    from montreal_forced_aligner_tpu_torch.ops import cuda_build
+
+    corpus = Corpus.load(corpus_dir)
+    recs = record_kernel_calls(device) if record else {}
+    with contextlib.ExitStack() as stack:
+        for r in recs.values():
+            stack.enter_context(r)
+        _reset_peak(device)
+        cuda_build.reset_launch_counts()
+        t0 = time.perf_counter()
+        results = tr.transcribe_corpus(corpus, **kw)
+        _sync(device)
+        wall = time.perf_counter() - t0
+        launches = dict(cuda_build.LAUNCHES)
+    _transcripts_ok(results, corpus)
+    return results, wall, launches, _peak_gib(device), (recs or None)
+
+
+def _warm_runs(tr, corpus_dir, device, runs, **kw):
+    """``runs`` warm transcriptions, the first with the card synchronised
+    at each phase: (walls, its synchronised phases)."""
+    from montreal_forced_aligner_tpu_torch.corpus.corpus import Corpus
+
+    walls, phases = [], None
+    for i in range(runs):
+        tr.sync_phases = i == 0
+        t0 = time.perf_counter()
+        tr.transcribe_corpus(Corpus.load(corpus_dir), **kw)
+        _sync(device)
+        walls.append(time.perf_counter() - t0)
+        if i == 0:
+            phases = dict(tr.last_phase_seconds)
+    tr.sync_phases = False
+    return walls, phases
+
+
+def transcribe_dense_phase(model_path, dict_path, corpus_dir, audio_s, lm, device,
+                           batch_size=16, warm_runs=2, reps=5):
+    """Main path **transcribe-dense**: ``Transcriber.transcribe_corpus`` on
+    the corpus with a bigram over 30 words, the SAT two-pass (K3 in both
+    passes, the dense Viterbi), counted from 0: K3 launches equal to 2 x
+    batches, every utterance transcribed; one cold and ``warm_runs`` warm
+    walls (the first synchronised at each phase, the last, on the card,
+    under the profiler for the busy share), peak card memory. Returns
+    (report, K3 held on the decode's first batch, pass 2)."""
+    from montreal_forced_aligner_tpu_torch.transcription.transcriber import (
+        Transcriber,
+    )
+
+    t0 = time.perf_counter()
+    tr = Transcriber(model_path, dict_path, lm=lm, batch_size=batch_size,
+                     device=device)
+    setup_s = time.perf_counter() - t0
+    _check(tr.aligner.two_pass, "transcribe-dense needs a SAT model")
+    results, wall, launches, peak, recs = _counted_transcribe(
+        tr, corpus_dir, device, record=True)
+    _check(tr._graph is not None and tr._lvcsr is None,
+           "transcribe-dense did not take the dense graph")
+    n_batches = -(-len(results) // batch_size)
+    on_card = device.type == "cuda"
+    want = {"band_forward": 0, "band_backtrace": 0,
+            "state_emission": 2 * n_batches * on_card}
+    _check(tr.aligner.use_emission_kernel and tr.aligner.si_use_emission_kernel,
+           "transcribe-dense: the SAT-scale model should take K3")
+    _check(launches == want, f"transcribe-dense launches {launches}, not {want}")
+    _check(recs["state_emission"].calls == 2 * n_batches, "K3 wrapper calls")
+    # the decode's first batch of pass 2 (adapted features, final model)
+    checks = {"state_emission": k3_check(
+        recs["state_emission"].all_args[n_batches], tr.aligner.gmm, device,
+        reps=reps)}
+    del recs
+    cold_phases = dict(tr.last_phase_seconds)
+    # the last warm run is the profiled one on the card
+    walls, synced = _warm_runs(tr, corpus_dir, device, warm_runs - on_card)
+    report = {
+        "path": "transcribe-dense",
+        "utterances": len(results),
+        "audio_s": audio_s,
+        "batches": n_batches,
+        "graph": {"S": int(tr._graph.num_states), "K": int(tr._graph.max_in_arcs),
+                  "words": len(tr._vocab)},
+        "setup_s": setup_s,
+        "launches": launches,
+        "cold_wall_s": wall,
+        "cold_phases_dispatch_s": cold_phases,
+        "warm_walls_s": walls,
+        "warm_audio_s_per_s": audio_s / statistics.median(walls),
+        "phases_synced_s": synced,
+        "peak_card_gib": peak,
+        "texts": [results[i].text for i in sorted(results)[:3]],
+    }
+    if on_card:
+        from montreal_forced_aligner_tpu_torch.corpus.corpus import Corpus
+
+        run = profiled_run(lambda: tr.transcribe_corpus(Corpus.load(corpus_dir)),
+                           device)
+        report["profiled_warm_run"] = run
+        report["warm_walls_s"].append(run["wall_s"])
+    return report, checks
+
+
+def transcribe_nbest_phase(model_path, dict_path, corpus_dir, lms, device,
+                           nbest=8, batch_size=16):
+    """**transcribe-nbest**: the dense decode with ``nbest`` ranks on a small
+    corpus, rescored with the trigram at ``rescore_weight`` 1.0, counted from
+    0 (K3: 2 x batches), the card synchronised at each phase."""
+    from montreal_forced_aligner_tpu_torch.transcription.transcriber import (
+        Transcriber,
+    )
+
+    bigram, trigram = lms
+    tr = Transcriber(model_path, dict_path, lm=bigram, batch_size=batch_size,
+                     device=device)
+    tr.sync_phases = True
+    kw = dict(nbest=nbest, rescore_lm=trigram, rescore_weight=1.0)
+    results, wall, launches, peak, _ = _counted_transcribe(tr, corpus_dir,
+                                                            device, **kw)
+    n_batches = -(-len(results) // batch_size)
+    want = 2 * n_batches * (device.type == "cuda")
+    _check(launches["state_emission"] == want,
+           f"transcribe-nbest K3 launches {launches}, not {want}")
+    alts = [len(r.alternatives or []) for r in results.values()]
+    _check(max(alts) >= 2, "transcribe-nbest gave no alternatives")
+    for r in results.values():
+        scores = [s for _t, s in (r.alternatives or [])]
+        _check(scores == sorted(scores, reverse=True), "N-best not ranked")
+    return {"path": "transcribe-nbest", "utterances": len(results),
+            "nbest": nbest, "launches": launches, "cold_wall_s": wall,
+            "phases_synced_s": dict(tr.last_phase_seconds),
+            "peak_card_gib": peak, "alternatives_per_utterance": alts}
+
+
+def transcribe_lvcsr_phase(model_path, dict_path, corpus_dir, audio_s, device,
+                           batch_size=16, warm_runs=1):
+    """**transcribe-lvcsr**: an LM trained on the corpus's own transcripts
+    (all 200 words: above the dense decoder's 150), so the cross-word LVCSR
+    decoder runs, two-pass; counted from 0 (no kernel launches: the LVCSR
+    path is plain PyTorch); cold and warm walls, phases, peak memory.
+    Returns (report, the transcriber, whose LM the card-against-CPU check
+    compares with its own)."""
+    from montreal_forced_aligner_tpu_torch.transcription import lvcsr as LV
+    from montreal_forced_aligner_tpu_torch.transcription.transcriber import (
+        Transcriber,
+    )
+
+    tr = Transcriber(model_path, dict_path, batch_size=batch_size, device=device)
+    results, wall, launches, peak, _ = _counted_transcribe(tr, corpus_dir, device)
+    _check(isinstance(tr._lvcsr, LV.LvcsrXwGraph) and not tr.cross_word_fallback,
+           f"transcribe-lvcsr took {type(tr._lvcsr).__name__}, "
+           f"fallback {tr.cross_word_fallback}")
+    _check(sum(launches.values()) == 0, f"LVCSR launched kernels: {launches}")
+    cold_phases = dict(tr.last_phase_seconds)
+    walls, synced = _warm_runs(tr, corpus_dir, device, warm_runs)
+    g = tr._lvcsr
+    report = {
+        "path": "transcribe-lvcsr", "utterances": len(results),
+        "audio_s": audio_s, "words": len(g.words),
+        "graph": {"S": int(g.num_states), "band": [g.lb, g.ub],
+                  "entry_slots": int(len(g.entry_state)),
+                  "cells": int(g.cell_exit_idx.shape[0])},
+        "cross_word_fallback": tr.cross_word_fallback,
+        "launches": launches, "cold_wall_s": wall,
+        "cold_phases_dispatch_s": cold_phases, "warm_walls_s": walls,
+        "warm_audio_s_per_s": audio_s / statistics.median(walls),
+        "phases_synced_s": synced, "peak_card_gib": peak,
+    }
+    return report, tr
+
+
+def lvcsr_20k_fixture(dict_path, corpus_dir, out_dir, num_words=20000, shortest=16):
+    """``bench.py``'s LVCSR recipe: the dictionary plus ``num_words`` junk
+    words over its phones (``RandomState(11)``, 4-9 phones each), a bigram
+    over 6-word texts of the junk words, and a corpus of the ``shortest``
+    shortest utterances. Returns (dict path, LM, corpus dir, audio s)."""
+    import shutil
+
+    from montreal_forced_aligner_tpu_torch.corpus.corpus import Corpus
+    from montreal_forced_aligner_tpu_torch.language_modeling.ngram import (
+        train_lm_from_texts,
+    )
+
+    rng = np.random.RandomState(11)
+    text = Path(dict_path).read_text(encoding="utf-8")
+    phones = sorted({p for line in text.splitlines() for p in line.split()[1:]})
+    lv_dict = out_dir / "lvcsr_dict.txt"
+    junk = []
+    with open(lv_dict, "w", encoding="utf-8") as f:
+        f.write(text)
+        for j in range(num_words):
+            junk.append(f"junk{j}")
+            f.write(f"junk{j}\t{' '.join(rng.choice(phones, rng.randint(4, 10)))}\n")
+    lm, _ = train_lm_from_texts(
+        [" ".join(junk[i : i + 6]) for i in range(0, num_words, 6)], order=2)
+    corpus = Corpus.load(corpus_dir)
+    waves = corpus.load_audio_parallel(16000)
+    order = np.argsort([len(w) for w in waves], kind="stable")[:shortest]
+    sub = out_dir / "lvcsr_short"
+    for i in order:
+        u = corpus.utterances[int(i)]
+        d = sub / u.speaker
+        d.mkdir(parents=True, exist_ok=True)
+        shutil.copy(u.file_path, d / u.file_path.name)
+        shutil.copy(u.file_path.with_suffix(".lab"), d / f"{u.file_path.stem}.lab")
+    return lv_dict, lm, sub, float(sum(len(waves[int(i)]) for i in order) / 16000)
+
+
+def lvcsr_20k_graph(model_path, dict_path, corpus_dir, out_dir, num_words=20000):
+    """The host half of transcribe-lvcsr-20k, on the CPU: the fixture
+    (:func:`lvcsr_20k_fixture`) and its LVCSR decoding graph, built by
+    ``Transcriber._ensure_graph`` for the corpus's longest utterance, timed."""
+    from montreal_forced_aligner_tpu_torch.corpus.corpus import Corpus
+    from montreal_forced_aligner_tpu_torch.transcription.transcriber import (
+        Transcriber,
+    )
+
+    lv_dict, lm, sub, audio_s = lvcsr_20k_fixture(dict_path, corpus_dir, out_dir,
+                                                  num_words)
+    tr = Transcriber(model_path, lv_dict, lm=lm, device="cpu")
+    waves = Corpus.load(sub).load_audio_parallel(16000)
+    frames = tr.aligner.mfcc_config.num_frames(max(len(w) for w in waves))
+    t0 = time.perf_counter()
+    tr._ensure_graph(nominal_frames=frames)
+    return {"dict": lv_dict, "lm": lm, "corpus": sub, "audio_s": audio_s,
+            "frames": frames, "graph": tr._lvcsr,
+            "graph_build_s": time.perf_counter() - t0}
+
+
+def transcribe_lvcsr_20k_phase(built, model_path, device, batch_size=16):
+    """**transcribe-lvcsr-20k**: ``bench.py``'s LVCSR recipe on the SAT-scale
+    model, batch 16, on the graph ``built`` by :func:`lvcsr_20k_graph` (in a
+    worker beside the earlier phases): one cold and one warm run, counted
+    from 0."""
+    from montreal_forced_aligner_tpu_torch.corpus.corpus import Corpus
+    from montreal_forced_aligner_tpu_torch.transcription.transcriber import (
+        Transcriber,
+    )
+
+    g, sub = built["graph"], built["corpus"]
+    _check(g is not None, "transcribe-lvcsr-20k did not route to LVCSR")
+    tr = Transcriber(model_path, built["dict"], lm=built["lm"],
+                     batch_size=batch_size, device=device)
+    tr._lvcsr, tr._vocab, tr._gate_frames = g, g.words, built["frames"]
+    results, wall, launches, peak, _ = _counted_transcribe(tr, sub, device)
+    _check(tr._lvcsr is g, "the 20k graph was rebuilt")
+    cold_phases = dict(tr.last_phase_seconds)
+    t0 = time.perf_counter()
+    tr.transcribe_corpus(Corpus.load(sub))
+    _sync(device)
+    warm = time.perf_counter() - t0
+    return {"path": "transcribe-lvcsr-20k", "utterances": len(results),
+            "audio_s": built["audio_s"], "words": len(g.words),
+            "S": int(g.num_states), "graph_type": type(g).__name__,
+            "cross_word_fallback": tr.cross_word_fallback,
+            "graph_build_s": built["graph_build_s"], "launches": launches,
+            "cold_wall_s": wall, "cold_phases_dispatch_s": cold_phases,
+            "warm_wall_s": warm, "warm_phases_dispatch_s": dict(tr.last_phase_seconds),
+            "peak_card_gib": peak}
+
+
+def _cli(argv):
+    """The port's CLI in this process, its printed lines captured."""
+    import contextlib
+    import io
+
+    from montreal_forced_aligner_tpu_torch.cli import main as cli_main
+
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = cli_main([str(a) for a in argv])
+    _check(rc == 0, f"cli {argv[0]} exited {rc}: {buf.getvalue()[-2000:]}")
+    return buf.getvalue().splitlines()
+
+
+def phone_transcribe_phase(model_path, dict_path, corpus_dir, small_dir, out_dir,
+                           device, batch_size=16):
+    """**phone-transcribe**: ``align --use_phone_model`` through the CLI on
+    the corpus (the two-pass alignment, then the free phone decode against
+    a phone LM from the alignments, and its evaluation), and ``transcribe
+    --output_type alignment`` of the small corpus; each counted from 0."""
+    from montreal_forced_aligner_tpu_torch.ops import cuda_build
+
+    out = {}
+    dev = ["--device", device.type]
+    for name, argv, check in (
+        ("align --use_phone_model",
+         ["align", corpus_dir, dict_path, model_path, out_dir / "phone_align",
+          "--use_phone_model", "--batch_size", batch_size] + dev,
+         "Phone-transcript evaluation"),
+        ("transcribe --output_type alignment",
+         ["transcribe", small_dir, dict_path, model_path, out_dir / "tr_align",
+          "--output_type", "alignment", "--evaluate"] + dev, "WER:"),
+    ):
+        _reset_peak(device)
+        cuda_build.reset_launch_counts()
+        t0 = time.perf_counter()
+        lines = _cli(argv)
+        _sync(device)
+        wall = time.perf_counter() - t0
+        line = next((l for l in lines if l.startswith(check)), None)
+        _check(line is not None, f"{name}: no {check!r} line")
+        out[name] = {"wall_s": wall, "launches": dict(cuda_build.LAUNCHES),
+                     "report": line, "peak_card_gib": _peak_gib(device)}
+    csv = out_dir / "phone_align" / "phone_transcript_evaluation.csv"
+    rows = csv.read_text().strip().splitlines()
+    _check(len(rows) > 1, "phone_transcript_evaluation.csv is empty")
+    out["align --use_phone_model"]["evaluated_utterances"] = len(rows) - 1
+    tgs = list((out_dir / "tr_align").glob("**/*.TextGrid"))
+    _check(tgs and all("phones" in p.read_text() for p in tgs),
+           "transcribe --output_type alignment wrote no phone tiers")
+    if device.type == "cuda":
+        a = out["align --use_phone_model"]["launches"]
+        _check(min(a.values()) > 0, f"--use_phone_model launches {a}")
+        t = out["transcribe --output_type alignment"]["launches"]
+        _check(min(t.values()) > 0, f"--output_type alignment launches {t}")
+    return out
+
+
+def _path_agreement(got, want):
+    frames = same = 0
+    for key, w in want.items():
+        g = got[key]
+        _check(len(g) == len(w), f"utterance {key}: path lengths differ")
+        frames += len(w)
+        same += int((np.asarray(g) == np.asarray(w)).sum())
+    return same / max(frames, 1), frames
+
+
+def _small_decode(model_path, dict_path, small_dir, lm, dev, kw):
+    """One transcription of the small corpus on ``dev``: (results, 1-best
+    state paths, wall, LVCSR graph or None)."""
+    from montreal_forced_aligner_tpu_torch.corpus.corpus import Corpus
+    from montreal_forced_aligner_tpu_torch.transcription.transcriber import (
+        Transcriber,
+    )
+
+    tr = Transcriber(model_path, dict_path, lm=lm, batch_size=4, device=dev)
+    t0 = time.perf_counter()
+    res = tr.transcribe_corpus(Corpus.load(small_dir), **kw)
+    _sync(dev)
+    return res, dict(tr.last_state_paths), time.perf_counter() - t0, tr._lvcsr
+
+
+def card_vs_cpu_decodes(nbest=4):
+    """The three decodes of the card-against-CPU check: (name, kwargs)."""
+    return (("dense", {}), ("nbest", {"nbest": nbest}), ("lvcsr", {}))
+
+
+def transcribe_cpu_references(model_path, dict_path, small_dir, lms, nbest=4):
+    """The CPU half of :func:`transcribe_card_vs_cpu` (plain versions): the
+    three decodes of the small corpus, by name, with ``lms`` the dense, the
+    N-best and the LVCSR LM."""
+    import torch
+
+    return {name: _small_decode(model_path, dict_path, small_dir, lm,
+                                torch.device("cpu"), kw)[:3]
+            for (name, kw), lm in zip(card_vs_cpu_decodes(nbest), lms)}
+
+
+def transcribe_card_vs_cpu(model_path, dict_path, small_dir, lms, device, nbest=4,
+                           cpu_runs=None):
+    """The card against the CPU (the plain versions) on a small corpus, for
+    dense 1-best, dense N-best and cross-word LVCSR, two-pass each, with
+    ``lms`` the three decodes' LMs (the N-best one over 12 words: the plain
+    K-best Viterbi costs minutes on the CPU at 30): identical words (ranked
+    lists for N-best), >= 99.9% of frames on the same state, scores within
+    5 nats. ``cpu_runs``, from :func:`transcribe_cpu_references` (run in a
+    worker), or made here."""
+    if cpu_runs is None:
+        cpu_runs = transcribe_cpu_references(model_path, dict_path, small_dir,
+                                             lms, nbest)
+    out = {}
+    for (name, kw), lm in zip(card_vs_cpu_decodes(nbest), lms):
+        got, gp, g_s, g_lv = _small_decode(model_path, dict_path, small_dir, lm,
+                                           device, kw)
+        want, wp, w_s = cpu_runs[name]
+        if name == "lvcsr":
+            _check(g_lv is not None, "card-vs-CPU LVCSR took the dense graph")
+        row = {"card_s": g_s, "cpu_s": w_s, "utterances": len(want)}
+        worst = 0.0
+        for key, w in want.items():
+            g = got[key]
+            _check(g.text == w.text, f"{name} utterance {key}: {g.text!r} on the "
+                   f"card, {w.text!r} on the CPU")
+            if name == "nbest":
+                ga = [t for t, _s in (g.alternatives or [])]
+                wa = [t for t, _s in (w.alternatives or [])]
+                _check(ga == wa, f"nbest utterance {key}: ranked lists differ")
+                for (_t, gs), (_u, ws) in zip(g.alternatives or [], w.alternatives or []):
+                    worst = max(worst, abs(gs - ws))
+            worst = max(worst, abs(g.log_likelihood - w.log_likelihood))
+        _check(worst < 5.0, f"{name}: scores differ by {worst}")
+        row["max_score_diff"] = worst
+        if name != "nbest":
+            agree, frames = _path_agreement(gp, wp)
+            _check(agree >= 0.999, f"{name}: state paths agree on {agree:.5f}")
+            row.update(frames=frames, state_path_agreement=agree)
+        out[name] = row
+    return out
+
 KERNELS = [
     ("band_forward", "montreal_forced_aligner_tpu_torch/csrc/band_viterbi.cu",
      "montreal_forced_aligner_tpu/ops/pallas_viterbi.py:151"),
@@ -2017,6 +2562,8 @@ def kernels_line(checks, launches, by_path=None, extra_checks=None):
 
 
 def main() -> int:
+    global _T_START
+    _T_START = time.perf_counter()
     root = Path(__file__).resolve().parent
     if not (root / PKG / "__init__.py").is_file():
         print(f"chip_smoke: the {PKG} package is not beside this script",
@@ -2131,14 +2678,54 @@ def main() -> int:
                                     device)})
         _emit({"fine_tune": fine_tune_phase(model_path, dict_path, corpus_dir,
                                             small_dir, device)})
+        lms = transcription_lms(words)
+        nbest_lm = transcription_lms(words, n_words=12)[0]
+        # host work beside the card's transcription phases: the 20k graph
+        # build and the CPU references of the card-against-CPU check
+        graph_20k = CpuTask("lvcsr_20k_graph",
+                            (model_path, dict_path, corpus_dir, tmp), tmp / "g20k.pkl")
+        lvcsr_lm = corpus_lm(model_path, dict_path, corpus_dir)
+        cpu_refs = CpuTask("transcribe_cpu_references",
+                           (model_path, dict_path, small_dir,
+                            (lms[0], nbest_lm, lvcsr_lm)), tmp / "refs.pkl")
+        dense, dense_checks = transcribe_dense_phase(model_path, dict_path,
+                                                     corpus_dir, audio_s, lms[0],
+                                                     device)
+        _emit({"main_path": dense})
+        _emit({"kernel_check": "state_emission",
+               "path": "transcribe-dense (pass 2, first batch)",
+               **dense_checks["state_emission"]})
+        nbest = transcribe_nbest_phase(model_path, dict_path, small2_dir, lms, device)
+        _emit({"main_path": nbest})
+        lvcsr, lvcsr_tr = transcribe_lvcsr_phase(model_path, dict_path, corpus_dir,
+                                                 audio_s, device)
+        _emit({"main_path": lvcsr})
+        _check(lvcsr_tr.lm.ngrams == lvcsr_lm.ngrams,
+               "the corpus LM differs between two trainings")
+        del lvcsr_tr
+        _emit({"main_path": transcribe_lvcsr_20k_phase(graph_20k.result(),
+                                                       model_path, device)})
+        phone = phone_transcribe_phase(model_path, dict_path, corpus_dir, small2_dir,
+                                       tmp, device)
+        _emit({"phone_transcribe": phone})
+        _emit({"transcribe_card_vs_cpu": transcribe_card_vs_cpu(
+            model_path, dict_path, small_dir, (lms[0], nbest_lm, lvcsr_lm),
+            device, cpu_runs=cpu_refs.result())})
         by_path = {"sat-2pass": reports["sat-2pass"]["launches"],
                    "train-mono": mono["launches"], "train-recipe": recipe["launches"],
-                   "adapt": adapt["launches"]}
-        _emit(kernels_line(checks["sat-2pass"], reports["sat-2pass"]["launches"],
-                           by_path, {**mono_checks, "train_recipe": recipe_checks,
-                                     "adapt": adapt_checks}))
+                   "adapt": adapt["launches"],
+                   "transcribe-dense": dense["launches"],
+                   "transcribe-nbest": nbest["launches"],
+                   "transcribe-lvcsr": lvcsr["launches"],
+                   "phone-transcribe": phone["align --use_phone_model"]["launches"],
+                   "transcribe-alignment":
+                       phone["transcribe --output_type alignment"]["launches"]}
+        extra = {**mono_checks, "train_recipe": recipe_checks,
+                 "adapt": adapt_checks, "transcribe_dense": dense_checks}
+        _emit(stamp=False, obj=kernels_line(
+            checks["sat-2pass"], reports["sat-2pass"]["launches"], by_path, extra))
 
-    _emit({"ok": True, "device": {
+    _emit(stamp=False, obj={"ok": True, "device": {
         "platform": "gpu",
         "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count(),

@@ -6,6 +6,8 @@
     python -m montreal_forced_aligner_tpu_torch.cli train CORPUS DICT OUTPUT_MODEL \\
         [--device cuda] [--config_path recipe.yaml] ...
     python -m montreal_forced_aligner_tpu_torch.cli adapt CORPUS DICT MODEL OUTPUT_MODEL
+    python -m montreal_forced_aligner_tpu_torch.cli transcribe CORPUS DICT MODEL OUT_DIR \\
+        [--language_model_path lm.arpa] [--nbest 8] [--evaluate] ...
     python -m montreal_forced_aligner_tpu_torch.cli validate CORPUS DICT
     python -m montreal_forced_aligner_tpu_torch.cli evaluate_alignments REF_DIR TEST_DIR
     python -m montreal_forced_aligner_tpu_torch.cli train_lm SOURCE OUTPUT
@@ -87,7 +89,9 @@ def _align_parser(sub) -> None:
     a.add_argument("--no_textgrid_cleanup", dest="textgrid_cleanup",
                    action="store_false")
     _flag(a, "use_phone_model", None,
-          "Phone-transcript evaluation: not ported yet, raises")
+          "After alignment, decode a free phone transcription with a phone "
+          "LM trained from the alignments and evaluate it against the "
+          "forced alignment (supersedes --fine_tune)")
     _flag(a, "fine_tune", None, "Refine boundaries at 1 ms resolution")
     a.add_argument("--transfer_mode", default="auto",
                    choices=["auto", "waves", "features"],
@@ -209,7 +213,9 @@ def _host_parsers(sub) -> None:
     v.add_argument("dictionary_path")
     v.add_argument("--acoustic_model_path", default=None)
     _flag(v, "test_transcriptions", None,
-          "Decode utterances against a corpus LM: not ported yet, raises")
+          "Decode utterances against per-speaker LMs and report WER "
+          "(flags likely transcript errors; needs --acoustic_model_path)")
+    _device(v)
     v.add_argument("--ignore_acoustics", "--skip_acoustics",
                    dest="ignore_acoustics", action="store_true", default=None)
     v.add_argument("--no_ignore_acoustics", "--no_skip_acoustics",
@@ -286,6 +292,47 @@ def _host_parsers(sub) -> None:
     h.add_argument("--depth", type=int, default=10)
 
 
+def _transcribe_parser(sub) -> None:
+    t = sub.add_parser("transcribe", help="Transcribe a corpus against an LM")
+    _num_jobs(t)
+    t.add_argument("corpus_directory")
+    t.add_argument("dictionary_path")
+    t.add_argument("acoustic_model_path")
+    t.add_argument("output_directory")
+    _device(t)
+    t.add_argument("--language_model_path", default=None,
+                   help="ARPA LM or LanguageModel zip; trained from the "
+                        "corpus transcripts if omitted")
+    _flag(t, "evaluate", None, "Print WER and CER against the transcripts")
+    t.add_argument("--batch_size", type=int, default=None, help="default 16")
+    t.add_argument("--nbest", type=int, default=None,
+                   help="Decode N-best hypotheses (determinized K-best "
+                        "Viterbi; default 1)")
+    t.add_argument("--rescore_lm_path", default=None,
+                   help="Larger ARPA LM for N-best rescoring")
+    t.add_argument("--rescore_weight", type=float, default=None,
+                   help="LM weight during N-best rescoring (default "
+                        "--language_model_weight)")
+    t.add_argument("--language_model_weight", type=float, default=None,
+                   help="LM scale during decoding (default 1.0)")
+    t.add_argument("--word_insertion_penalty", type=float, default=None,
+                   help="Per-word entry cost (default 0.0)")
+    t.add_argument("--config_path", default=None,
+                   help="Yaml parameter file (reference --config_path "
+                        "semantics)")
+    t.add_argument("--profile_dir", default=None,
+                   help="Write a torch.profiler trace of the decode here")
+    t.add_argument("--output_type", default="transcription",
+                   choices=["transcription", "alignment"],
+                   help="transcription: utterance-text tiers; alignment: "
+                        "word/phone tiers of the decoded best path")
+    t.add_argument("--output_format", default="long_textgrid",
+                   choices=_OUTPUT_FORMATS)
+    t.add_argument("--include_original_text", action="store_true")
+    t.add_argument("-s", "--speaker_characters", default="0")
+    t.add_argument("-a", "--audio_directory", default=None)
+
+
 def _parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(prog="mfa-tpu-torch")
     p.add_argument("-v", "--verbose", action="store_true",
@@ -306,6 +353,7 @@ def _parser() -> argparse.ArgumentParser:
     o.add_argument("--output_format", default="long_textgrid",
                    choices=_OUTPUT_FORMATS)
     _train_parser(sub)
+    _transcribe_parser(sub)
     _host_parsers(sub)
     return p
 
@@ -531,9 +579,7 @@ def _align(args) -> int:
     if args.distributed:
         raise NotImplementedError(
             "--distributed: multi-GPU is ROADMAP.md Queue 1 item 15")
-    if setting("use_phone_model", False):
-        raise NotImplementedError(
-            "--use_phone_model: ROADMAP.md Queue 1 item 13 (transcription)")
+    use_phone_model = bool(setting("use_phone_model", False))
     include_silence = bool(setting("include_silence", False))
     # after the config: an explicit flag always wins
     if args.textgrid_cleanup is not None:
@@ -565,6 +611,24 @@ def _align(args) -> int:
     )
     with _profiled(args.profile_dir, aligner.device, "align_trace.json"):
         results = aligner.align_corpus(corpus)
+    phone_transcripts = None
+    if use_phone_model:
+        # the reference's precedence (``alignment/base.py:543``): the phone
+        # transcription replaces fine-tuning
+        from montreal_forced_aligner_tpu_torch.transcription.phone_transcriber import (
+            transcribe_phones,
+        )
+
+        if fine_tune:
+            print("--use_phone_model supersedes --fine_tune (reference "
+                  "behavior); skipping fine-tuning")
+            fine_tune = False
+        phone_transcripts = transcribe_phones(
+            args.acoustic_model_path, corpus, results,
+            batch_size=config.batch_size, phone_lm=aligner.model.phone_lm,
+            device=aligner.device,
+        )
+        print(f"Phone-transcribed {len(phone_transcripts)} utterances")
     if fine_tune:
         from montreal_forced_aligner_tpu_torch.align.fine_tune import (
             fine_tune_alignments,
@@ -597,6 +661,20 @@ def _align(args) -> int:
         f"Aligned {len(results)} utterances -> {len(outs)} files in "
         f"{time.time() - t0:.1f}s on {aligner.device}"
     )
+    if phone_transcripts is not None:
+        from montreal_forced_aligner_tpu_torch.transcription.phone_transcriber import (
+            evaluate_against_alignments,
+        )
+
+        overlap, per = evaluate_against_alignments(
+            results, phone_transcripts, corpus,
+            output_path=Path(args.output_directory)
+            / "phone_transcript_evaluation.csv",
+            silence_phone=aligner.lexicon.silence_phone,
+        )
+        print("Phone-transcript evaluation: overlap error "
+              f"{'n/a' if overlap is None else f'{overlap:.4f}'}, "
+              f"PER {per:.4f} (phone_transcript_evaluation.csv)")
     if args.reference_directory:
         eval_dir = args.output_directory
         if output_format in ("json", "csv"):
@@ -670,9 +748,11 @@ def _validate(args) -> int:
 
     data = _load_command_config(args.config_path) if args.config_path else {}
     setting = _settings(args, data)
-    if setting("test_transcriptions", False):
-        raise NotImplementedError(
-            "--test_transcriptions: ROADMAP.md Queue 1 item 13 (transcription)")
+    test_transcriptions = bool(setting("test_transcriptions", False))
+    if test_transcriptions and args.acoustic_model_path is None:
+        print("Error: --test_transcriptions requires --acoustic_model_path",
+              file=sys.stderr)
+        return 1
     if args.rules_path is not None:
         raise NotImplementedError(
             "--rules_path: ROADMAP.md Queue 1 item 16 (host extras)")
@@ -739,8 +819,187 @@ def _validate(args) -> int:
                         f"{issue['detail']}\n"
                     )
         print(f"Wrote OOV reports to {out}")
+    if test_transcriptions:
+        _test_transcriptions(args, corpus)
     print("Validation complete")
     return 0
+
+
+def _test_transcriptions(args, corpus) -> None:
+    """``validate --test_transcriptions``: decode every speaker's
+    utterances against an LM of that speaker's own transcripts (reference
+    ``PerSpeakerDecodeFunction``), print the WER and the utterances whose
+    WER exceeds 0.45."""
+    from montreal_forced_aligner_tpu_torch.evaluation import score_wer
+    from montreal_forced_aligner_tpu_torch.transcription.transcriber import (
+        Transcriber,
+    )
+
+    tr = Transcriber(args.acoustic_model_path, args.dictionary_path,
+                     device=args.device)
+    results = tr.transcribe_corpus_per_speaker(corpus)
+    metrics = tr.evaluate(corpus, results)
+    print(f"Transcription check: WER {metrics['wer']:.4f} over "
+          f"{metrics['num_utterances']} utterances")
+    flagged = []
+    for utt in corpus.utterances:
+        if utt.id not in results:
+            continue
+        ref = tr.aligner.tokenizer.tokenize(utt.text)
+        wer = score_wer(ref, results[utt.id].text.split())
+        if wer > 0.45:
+            flagged.append((utt.file_name, wer))
+    if flagged:
+        print(f"Utterances with suspicious transcripts: {len(flagged)}")
+        for f, w in flagged[:20]:
+            print(f"  {f}: WER {w:.2f}")
+
+
+def _transcribe(args) -> int:
+    """Transcribe a corpus (reference ``mfa transcribe``): one ``.lab`` per
+    file under ``<speaker>/``, and utterance-text tiers (or, with
+    ``--output_type alignment``, the word and phone tiers of the decoded
+    best path, force-aligned)."""
+    from montreal_forced_aligner_tpu_torch.corpus.corpus import Corpus
+    from montreal_forced_aligner_tpu_torch.language_modeling.ngram import ArpaModel
+    from montreal_forced_aligner_tpu_torch.transcription.transcriber import (
+        Transcriber,
+    )
+
+    data = _load_command_config(args.config_path) if args.config_path else {}
+    setting = _settings(args, data)
+    batch_size = int(setting("batch_size", 16))
+    nbest = int(setting("nbest", 1))
+    rescore_weight = setting("rescore_weight", None)
+    evaluate = bool(setting("evaluate", False))
+    lm_weight = float(setting("language_model_weight", 1.0))
+    wip = float(setting("word_insertion_penalty", 0.0))
+    lm = None
+    archive_rescore = None
+    if args.language_model_path:
+        if str(args.language_model_path).lower().endswith(".zip"):
+            # a LanguageModel archive decodes with its small model and
+            # rescores N-best with its large one (reference decode_arpa_path
+            # / carpa_path)
+            from montreal_forced_aligner_tpu_torch.language_modeling.archive import (
+                LanguageModelArchive,
+            )
+
+            la = LanguageModelArchive.load(args.language_model_path)
+            lm = la.decode_model
+            if la.rescore_model is not la.decode_model:
+                archive_rescore = la.rescore_model
+        else:
+            lm = ArpaModel.read(args.language_model_path)
+    tr = Transcriber(args.acoustic_model_path, args.dictionary_path, lm=lm,
+                     batch_size=batch_size, lm_scale=lm_weight,
+                     word_insertion_penalty=wip, device=args.device)
+    corpus = Corpus.load(args.corpus_directory,
+                         speaker_characters=args.speaker_characters,
+                         audio_directory=args.audio_directory,
+                         require_transcripts=False)
+    rescore_lm = ArpaModel.read(args.rescore_lm_path) if args.rescore_lm_path else None
+    if rescore_lm is None and archive_rescore is not None:
+        # rescoring needs alternatives to re-rank: N-best even when 1-best
+        # was asked for
+        rescore_lm = archive_rescore
+        if nbest <= 1:
+            nbest = 10
+        print("Rescoring N-best with the archive's large LM")
+    if rescore_weight is None:
+        rescore_weight = lm_weight
+    with _profiled(args.profile_dir, tr.device, "transcribe_trace.json"):
+        results = tr.transcribe_corpus(corpus, nbest=nbest, rescore_lm=rescore_lm,
+                                       rescore_weight=float(rescore_weight))
+    _export_transcripts(corpus, {i: r.text for i, r in results.items()},
+                        args.output_directory)
+    if args.output_type == "alignment":
+        # word/phone tiers of the decoded best path: align the hypotheses
+        decoded = Corpus.load(args.corpus_directory,
+                              speaker_characters=args.speaker_characters,
+                              audio_directory=args.audio_directory,
+                              require_transcripts=False)
+        for utt in decoded.utterances:
+            if utt.id in results:
+                utt.text = results[utt.id].text
+        aligned = tr.aligner.align_corpus(decoded)
+        tr.aligner.export_textgrids(
+            decoded, aligned, args.output_directory,
+            output_format=args.output_format,
+            include_original_text=args.include_original_text,
+        )
+    else:
+        _export_transcription_textgrids(
+            corpus, results, args.output_directory, args.output_format,
+            include_original_text=args.include_original_text,
+        )
+    print(f"Transcribed {len(results)} utterances to {args.output_directory}")
+    if evaluate:
+        metrics = tr.evaluate(corpus, results)
+        print(f"WER: {metrics['wer']:.4f}  CER: {metrics['cer']:.4f} "
+              f"({metrics['num_utterances']} utterances)")
+    return 0
+
+
+def _export_transcription_textgrids(corpus, results, output_directory,
+                                    output_format, include_original_text=False):
+    """Per file a TextGrid (or json/csv) with one utterance-text tier per
+    speaker (reference ``mfa transcribe --output_type transcription``)."""
+    from montreal_forced_aligner_tpu_torch.io.textgrid import Interval, TextGrid
+    from montreal_forced_aligner_tpu_torch.io.wav import read_wave
+
+    extensions = {"long_textgrid": ".TextGrid", "short_textgrid": ".TextGrid",
+                  "json": ".json", "csv": ".csv"}
+    output_directory = Path(output_directory)
+    output_directory.mkdir(parents=True, exist_ok=True)
+    by_file = {}
+    for utt in corpus.utterances:
+        by_file.setdefault(utt.file_name, []).append(utt)
+    out_paths = []
+    for file_name, utts in by_file.items():
+        tg = TextGrid()
+        tg.xmax = read_wave(corpus.files[file_name]).duration
+        speakers = sorted({u.speaker for u in utts})
+        for spk in speakers:
+            tier = []
+            texts = []
+            for utt in utts:
+                if utt.speaker != spk or utt.id not in results:
+                    continue
+                tier.append(Interval(utt.begin, utt.end or tg.xmax,
+                                     results[utt.id].text))
+                if include_original_text:
+                    texts.append(Interval(utt.begin, utt.end or tg.xmax, utt.text))
+            name = spk if len(speakers) > 1 else "utterances"
+            tg.tiers[name] = tier
+            if include_original_text:
+                tg.tiers[f"{name} - original"] = texts
+        out = output_directory / f"{file_name}{extensions[output_format]}"
+        if output_format == "json":
+            tg.write_json(out)
+        elif output_format == "csv":
+            tg.write_csv(out, default_speaker=speakers[0] if speakers else "speaker")
+        else:
+            tg.write(out, output_format=output_format)
+        out_paths.append(out)
+    return out_paths
+
+
+def _export_transcripts(corpus, texts, output_directory) -> None:
+    """One ``<speaker>/<file>.lab`` per corpus file; the utterances of a
+    multi-utterance file are written in order, one a line."""
+    from collections import OrderedDict
+
+    out = Path(output_directory)
+    by_file = OrderedDict()
+    for utt in corpus.utterances:
+        if utt.id not in texts:
+            continue
+        by_file.setdefault((utt.speaker, utt.file_name), []).append(texts[utt.id])
+    for (speaker, file_name), lines in by_file.items():
+        d = out / speaker
+        d.mkdir(parents=True, exist_ok=True)
+        (d / f"{file_name}.lab").write_text("\n".join(lines) + "\n")
 
 
 def _load_custom_mapping(custom_mapping_path):
@@ -1072,7 +1331,8 @@ def _history(args) -> int:
 
 _COMMANDS = {
     "align": _align, "align_one": _align_one, "train": _train, "adapt": _adapt,
-    "validate": _validate, "evaluate_alignments": _evaluate_alignments,
+    "validate": _validate, "transcribe": _transcribe,
+    "evaluate_alignments": _evaluate_alignments,
     "train_lm": _train_lm, "train_dictionary": _train_dictionary,
     "model": _model, "models": _model, "version": _version,
     "configure": _configure, "history": _history,

@@ -279,7 +279,6 @@ def test_g2p_and_rules_raise(mono):
         with pytest.raises(NotImplementedError):
             PA.PretrainedAligner(model_path, dict_path, device="cpu", **kw)
     for extra, item in ((["--language", "english"], "item 16"),
-                        (["--use_phone_model"], "item 13"),
                         (["--distributed"], "item 15"),
                         (["--g2p_model_path", "g2p.zip"], "item 16"),
                         (["--rules_path", "rules.yaml"], "item 16"),
@@ -444,7 +443,11 @@ def test_port_names_no_jax_in_any_import():
                    "training/adapt.py", "graph/native_compile.py",
                    "graph/parallel.py", "evaluation.py",
                    "language_modeling/archive.py", "model_manager.py",
-                   "config.py", "ops/pitch.py", "align/fine_tune.py"):
+                   "config.py", "ops/pitch.py", "align/fine_tune.py",
+                   "transcription/transcriber.py", "transcription/lvcsr.py",
+                   "transcription/lvcsr_pm.py",
+                   "transcription/phone_transcriber.py",
+                   "online/transcription.py"):
         assert f"montreal_forced_aligner_tpu_torch/{module}" in names
     for path in _port_files():
         tree = ast.parse(path.read_text(), filename=str(path))
@@ -476,7 +479,9 @@ def test_importing_the_port_loads_no_jax():
         "'language_modeling.fst_convert', 'io.openfst', 'training.adapt', "
         "'graph.native_compile', 'graph.parallel', 'evaluation', "
         "'language_modeling.archive', 'model_manager', 'config', 'ops.pitch', "
-        "'align.fine_tune'):\n"
+        "'align.fine_tune', 'transcription.transcriber', 'transcription.lvcsr', "
+        "'transcription.lvcsr_pm', 'transcription.phone_transcriber', "
+        "'online.transcription'):\n"
         "    assert p.__name__ + '.' + m in mods, m\n"
         "print('ok', len(mods))\n"
     )

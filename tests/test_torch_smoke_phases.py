@@ -1,7 +1,8 @@
-"""``chip_smoke.py``'s adapt, graph-compile, pitch and fine-tune phases at a
-tiny size on the CPU, where every kernel wrapper takes its plain version
-(so no launches are counted): their reports, checks and the kernels line
-with adapt's launches and checks."""
+"""``chip_smoke.py``'s adapt, graph-compile, pitch, fine-tune and
+transcription phases at a tiny size on the CPU, where every kernel wrapper
+takes its plain version (so no launches are counted): their reports, checks
+and the kernels line with adapt's and the dense decode's launches and
+checks."""
 
 import sys
 from pathlib import Path
@@ -83,3 +84,73 @@ def test_graph_pitch_and_fine_tune_phases_run_on_cpu(fixture):
                                        cpu, batch_size=4)
     assert tuned["utterances"] == 6 and tuned["moved_off_grid"] > 0
     assert tuned["card_vs_cpu"]["max_boundary_diff_s"] == 0.0
+
+
+@pytest.fixture
+def one_torch_thread():
+    """One intra-op thread for the decoders' small per-frame ops (see
+    ``tests/test_torch_transcription.py``)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
+def test_transcription_phases_run_on_cpu(fixture, monkeypatch, one_torch_thread):
+    """transcribe-dense, -nbest, -lvcsr, -lvcsr-20k (at 200 junk words),
+    phone-transcribe and the card-against-CPU check at a tiny size; the
+    LVCSR threshold is lowered so the tiny corpus's vocabulary routes there."""
+    import montreal_forced_aligner_tpu_torch.transcription.transcriber as PT
+
+    tmp, model_path, dict_path, corpus_dir, audio_s, small_dir, *_ = fixture
+    monkeypatch.setattr(PA, "_emission_kernel_eligible", lambda P, G: True)
+    cpu = torch.device("cpu")
+    words = [l.split()[0] for l in Path(dict_path).read_text().splitlines()]
+    lms = chip_smoke.transcription_lms(words, n_words=8)
+    dense, checks = chip_smoke.transcribe_dense_phase(
+        model_path, dict_path, corpus_dir, audio_s, lms[0], cpu, batch_size=4,
+        warm_runs=1, reps=1)
+    assert dense["launches"] == {"band_forward": 0, "band_backtrace": 0,
+                                 "state_emission": 0}
+    assert dense["batches"] == 2 and dense["graph"]["words"] == 8
+    assert {"fmllr_pass1", "decode_dispatch"} <= set(dense["phases_synced_s"])
+    assert checks["state_emission"]["max_abs_err"] == 0.0
+    # the batched graph pads S to a multiple of 64
+    assert 0 <= checks["state_emission"]["shape"]["S"] - dense["graph"]["S"] < 64
+    nbest = chip_smoke.transcribe_nbest_phase(model_path, dict_path, small_dir,
+                                              lms, cpu, nbest=3, batch_size=4)
+    assert max(nbest["alternatives_per_utterance"]) >= 2
+    monkeypatch.setattr(PT.Transcriber, "LVCSR_WORD_THRESHOLD", 4)
+    lvcsr, tr = chip_smoke.transcribe_lvcsr_phase(
+        model_path, dict_path, corpus_dir, audio_s, cpu, batch_size=4)
+    assert lvcsr["cross_word_fallback"] is False
+    assert lvcsr["graph"]["S"] > 0 and len(lvcsr["warm_walls_s"]) == 1
+    # the 20k recipe at 200 junk words, its graph built by a spawned worker
+    task = chip_smoke.CpuTask("lvcsr_20k_graph",
+                              (model_path, dict_path, corpus_dir, tmp, 200),
+                              tmp / "g20k.pkl", threads=1)
+    k20 = chip_smoke.transcribe_lvcsr_20k_phase(task.result(), model_path, cpu)
+    assert not task.proc.is_alive() and not (tmp / "g20k.pkl").exists()
+    assert k20["words"] == 200 and k20["graph_type"] == "LvcsrXwGraph"
+    assert k20["graph_build_s"] > 0
+    phone = chip_smoke.phone_transcribe_phase(model_path, dict_path, corpus_dir,
+                                              small_dir, tmp, cpu, batch_size=4)
+    assert phone["align --use_phone_model"]["evaluated_utterances"] == 6
+    assert phone["align --use_phone_model"]["report"].startswith(
+        "Phone-transcript evaluation")
+    assert tr.lm.ngrams == chip_smoke.corpus_lm(model_path, dict_path,
+                                                corpus_dir).ngrams
+    cmp = chip_smoke.transcribe_card_vs_cpu(model_path, dict_path, small_dir,
+                                            (lms[0], lms[0], tr.lm), cpu, nbest=3)
+    for name in ("dense", "nbest", "lvcsr"):
+        assert cmp[name]["max_score_diff"] == 0.0
+    assert cmp["dense"]["state_path_agreement"] == 1.0
+    assert cmp["lvcsr"]["state_path_agreement"] == 1.0
+    # the same check stands in for sat-2pass's three
+    base = {k: checks["state_emission"] for k in dense["launches"]}
+    line = chip_smoke.kernels_line(base, dense["launches"],
+                                   {"transcribe-dense": dense["launches"]},
+                                   {"transcribe_dense": checks})
+    row = {r["name"]: r for r in line["kernels"]}["state_emission"]
+    assert row["launches_by_path"] == {"transcribe-dense": 0}
+    assert row["transcribe_dense_check"]["max_abs_err"] == 0.0
