@@ -97,7 +97,7 @@ What it does, in order; any failure exits non-zero with no result line:
     pass 2 (rtol 1e-5 / atol 1e-3); the graph's S and K, one cold and two
     warm walls (the first synchronised at each phase, the second under the
     profiler for the card's busy share), peak card memory;
-18. **transcribe-nbest**: the same LM on the 8-utterance corpus at N-best
+18. **transcribe-nbest**: the same LM on the 4-utterance corpus at N-best
     8, rescored with a trigram over the same words (K3 twice a batch),
     synchronised at each phase;
 19. main path **transcribe-lvcsr**: an LM trained on the corpus's own
@@ -108,7 +108,7 @@ What it does, in order; any failure exits non-zero with no result line:
     words over the model's phones, a bigram over 6-word texts) on the 16
     shortest utterances: the graph build (host Python, run in a spawned
     worker on the CPU while steps 17-19 run on the card), its S and
-    fallback flag, a cold and a warm run, peak memory;
+    fallback flag, a cold run, peak memory;
 21. **phone-transcribe**: ``align --use_phone_model`` through the CLI on
     the corpus and ``transcribe --output_type alignment`` on the 8-utterance
     corpus, each counted from 0 (K1, K2 and K3 all launched);
@@ -117,11 +117,42 @@ What it does, in order; any failure exits non-zero with no result line:
     step 19): identical words and ranked lists, >= 99.9% of frames on the
     same state, scores within 5 nats (the CPU halves run in a second worker
     beside steps 17-21);
-23. prints one ``{"kernels": [...]}`` line (sat-2pass's launches and
+23. main path **train-ivector**: ``cli train_ivector`` at the command's
+    defaults (256 Gaussians, 192 dimensions, 10 iterations, batch 16,
+    PLDA) on a corpus of 8 tone speakers x 48 utterances of 4-14 s
+    (``tests/test_ivector.py``'s recipe, formant shift 1 + 0.06 a
+    speaker), counted from 0 (no kernel launches): the cold wall, one warm
+    run synchronised at each phase (features, ubm, stats, em, plda, save)
+    whose model is bit-identical to the command's, its peak card memory,
+    and one profiled run for the card's busy share;
+24. **diarize**: ``cli diarize_speakers`` with that model three times
+    (agglomerative cosine with ``--evaluate``, PLDA k-means, ``--classify``),
+    each counted from 0: wall, purity and adjusted Rand index;
+25. **vad**: ``cli create_segments_vad`` on 8 files of 120 s (tone bursts
+    of 0.5-8 s between pauses of 0.1-2.0 s of low noise) in
+    ``long_textgrid`` and ``csv``, counted from 0: walls, the median
+    boundary error against the true pauses, the share of true pauses of
+    at least 0.5 s found;
+26. main path **create-segments**: ``cli create_segments`` with the
+    SAT-scale model on the 10.5-minute utterance, counted from 0: launches
+    exactly as the chunked long path's formula gives, the segments' words
+    joined equal to the transcript; K3, K1 and K2 held to their plain
+    versions on the final pass's last chunk;
+27. **card against CPU** for the slice (the CPU half in a worker beside
+    steps 23-26): ``train_ivector_model`` at the default width on 32
+    utterances (the UBM's Gaussian count equal, its arrays and T within
+    1e-3 of each array's largest magnitude, i-vector cosines >= 0.999,
+    cluster and classify labels identical), the VAD set (voiced frames
+    identical but those within 1e-4 of the threshold, segment lists
+    identical) and ``create_segments`` of a 43-s file (the 8-utterance
+    corpus joined with 0.5 s pauses: the same texts, boundaries within one
+    frame);
+28. prints one ``{"kernels": [...]}`` line (sat-2pass's launches and
     second-pass checks; each row's ``launches_by_path`` adds the training,
-    adapt and transcription paths' launches, ``train_recipe_check`` the
-    LDA-stage check, ``adapt_check`` adapt's and ``transcribe_dense_check``
-    K3's on the dense decode), then as the last line
+    adapt, transcription and segmentation paths' launches,
+    ``train_recipe_check`` the LDA-stage check, ``adapt_check`` adapt's and
+    ``transcribe_dense_check`` K3's on the dense decode), then as the last
+    line
     ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": 1}}``.
 
 It imports nothing of JAX and nothing of the JAX package.
@@ -1000,8 +1031,6 @@ def long_utterance_phase(aligner, corpus_dir, device, reps=3):
     from montreal_forced_aligner_tpu_torch.align.aligner import _emit_and_align
     from montreal_forced_aligner_tpu_torch.corpus.corpus import Corpus
     from montreal_forced_aligner_tpu_torch.ops import cuda_build
-    from montreal_forced_aligner_tpu_torch.ops import cuda_emission as CE
-    from montreal_forced_aligner_tpu_torch.ops import cuda_viterbi as CV
     from montreal_forced_aligner_tpu_torch.ops import long_viterbi as LV
 
     corpus = Corpus.load(corpus_dir)
@@ -1086,7 +1115,27 @@ def long_utterance_phase(aligner, corpus_dir, device, reps=3):
     _check(launches == want_launches,
            f"long utterance: launches {launches}, expected {want_launches}")
 
-    # K3, K1 and K2 on the last chunk against their plain versions
+    out["last_chunk"] = last_chunk_checks(feats, lg, gmm, scale, chunk, use_k,
+                                          checkpoints, best, path, reps, device)
+    return out
+
+
+def last_chunk_checks(feats, lg, gmm, scale, chunk, use_k, checkpoints, best, path,
+                      reps, device):
+    """K3, K1 and K2 on the last chunk of a long utterance's final pass
+    (frames from the one before it, emission row 0 zeroed, started from its
+    checkpoint) against their plain versions: K3 rtol 1e-5 / atol 1e-3, K1
+    and K2 bit-identical, K2's walk equal to the sweep's ``path``; each
+    timed, with its bound."""
+    import torch
+
+    from montreal_forced_aligner_tpu_torch.ops import cuda_emission as CE
+    from montreal_forced_aligner_tpu_torch.ops import cuda_viterbi as CV
+    from montreal_forced_aligner_tpu_torch.ops import long_viterbi as LV
+
+    T = feats.shape[0]
+    lb, ub = lg.band_limits
+    S = int(lg.graph.state_pdf.shape[1])
     c = len(checkpoints) - 1
     lo = c * chunk
     emit = LV.chunk_emissions(feats, lo, T, lg.graph.state_pdf, gmm, use_k,
@@ -1117,7 +1166,7 @@ def long_utterance_phase(aligner, corpus_dir, device, reps=3):
                   TF32_FLOP_PER_S)
     k1 = k1_bound(n, 1, S, lb + ub + 1)
     k2 = k2_bound(n, int(n[0]), 1)[:2]
-    out["last_chunk"] = {
+    return {
         "frames": int(emit.shape[1]), "S": S,
         "state_emission_bound_ms": k3[0], "state_emission_bound_by": k3[1],
         "band_forward_bound_ms": k1[0], "band_forward_bound_by": k1[1],
@@ -1139,7 +1188,6 @@ def long_utterance_phase(aligner, corpus_dir, device, reps=3):
         "band_forward_max_abs_err": k1_err,
         "band_backtrace_max_abs_err": k2_err,
     }
-    return out
 
 
 def device_busy_ms(fn):
@@ -2355,9 +2403,8 @@ def lvcsr_20k_graph(model_path, dict_path, corpus_dir, out_dir, num_words=20000)
 def transcribe_lvcsr_20k_phase(built, model_path, device, batch_size=16):
     """**transcribe-lvcsr-20k**: ``bench.py``'s LVCSR recipe on the SAT-scale
     model, batch 16, on the graph ``built`` by :func:`lvcsr_20k_graph` (in a
-    worker beside the earlier phases): one cold and one warm run, counted
-    from 0."""
-    from montreal_forced_aligner_tpu_torch.corpus.corpus import Corpus
+    worker beside the earlier phases): one cold run, counted from 0 (the
+    warm run is cut, for the script's time budget)."""
     from montreal_forced_aligner_tpu_torch.transcription.transcriber import (
         Transcriber,
     )
@@ -2369,18 +2416,12 @@ def transcribe_lvcsr_20k_phase(built, model_path, device, batch_size=16):
     tr._lvcsr, tr._vocab, tr._gate_frames = g, g.words, built["frames"]
     results, wall, launches, peak, _ = _counted_transcribe(tr, sub, device)
     _check(tr._lvcsr is g, "the 20k graph was rebuilt")
-    cold_phases = dict(tr.last_phase_seconds)
-    t0 = time.perf_counter()
-    tr.transcribe_corpus(Corpus.load(sub))
-    _sync(device)
-    warm = time.perf_counter() - t0
     return {"path": "transcribe-lvcsr-20k", "utterances": len(results),
             "audio_s": built["audio_s"], "words": len(g.words),
             "S": int(g.num_states), "graph_type": type(g).__name__,
             "cross_word_fallback": tr.cross_word_fallback,
             "graph_build_s": built["graph_build_s"], "launches": launches,
-            "cold_wall_s": wall, "cold_phases_dispatch_s": cold_phases,
-            "warm_wall_s": warm, "warm_phases_dispatch_s": dict(tr.last_phase_seconds),
+            "cold_wall_s": wall, "cold_phases_dispatch_s": dict(tr.last_phase_seconds),
             "peak_card_gib": peak}
 
 
@@ -2523,6 +2564,473 @@ def transcribe_card_vs_cpu(model_path, dict_path, small_dir, lms, device, nbest=
             row.update(frames=frames, state_path_agreement=agree)
         out[name] = row
     return out
+
+# -- i-vectors, diarization and segmentation ----------------------------------
+
+# tests/test_ivector.py's inventory of "phones": tone chords
+CHORDS = [[300, 2200], [550, 1700], [850, 2700], [400, 1200], [700, 3200]]
+
+
+def make_speaker_wave(rng, spk: int, dur: float, shift_step=0.06, sr=16000):
+    """``tests/test_ivector.py``'s tone speaker: chords of the shared
+    inventory in random order, non-stationary like speech, plus noise, with
+    the speaker's formant shift ``1 + shift_step * spk`` (at 0.06 the
+    highest chord of speaker 7 stays under 4.6 kHz)."""
+    shift = 1.0 + shift_step * spk
+    pieces = []
+    t_total = 0.0
+    while t_total < dur:
+        seg = 0.15 + 0.15 * rng.rand()
+        t = np.arange(int(seg * sr)) / sr
+        chord = CHORDS[rng.randint(len(CHORDS))]
+        pieces.append(sum(
+            3000 * np.sin(2 * np.pi * f * shift * (1 + 0.003 * rng.randn()) * t)
+            for f in chord))
+        t_total += seg
+    wave = np.concatenate(pieces)
+    return (wave + rng.randn(len(wave)) * 200).astype(np.float32)
+
+
+def build_speaker_corpus(tmp: Path, num_speakers=8, per_speaker=48, min_s=4.0,
+                         max_s=14.0, seed=21, name="speakers", sr=16000):
+    """``num_speakers`` tone speakers of ``per_speaker`` utterances of
+    min_s-max_s seconds each, in one directory a speaker (the speaker
+    labels that PLDA, ``--classify`` and ``--evaluate`` read). Returns
+    (dir, seconds)."""
+    from montreal_forced_aligner_tpu_torch.io.wav import write_wave
+
+    rng = np.random.RandomState(seed)
+    corp = tmp / name
+    total = 0.0
+    for spk in range(num_speakers):
+        d = corp / f"spk{spk}"
+        d.mkdir(parents=True, exist_ok=True)
+        for u in range(per_speaker):
+            wave = make_speaker_wave(rng, spk, float(rng.uniform(min_s, max_s)), sr=sr)
+            write_wave(d / f"u{u}.wav", wave, sr)
+            (d / f"u{u}.lab").write_text("speech")
+            total += len(wave) / sr
+    return corp, total
+
+
+def subset_corpus(src: Path, dst: Path, per_speaker: int) -> Path:
+    """The first ``per_speaker`` utterances of each speaker of ``src``,
+    linked into ``dst``."""
+    for spk_dir in sorted(p for p in src.iterdir() if p.is_dir()):
+        (dst / spk_dir.name).mkdir(parents=True, exist_ok=True)
+        for u in range(per_speaker):
+            for ext in (".wav", ".lab"):
+                os.symlink(spk_dir / f"u{u}{ext}", dst / spk_dir.name / f"u{u}{ext}")
+    return dst
+
+
+def build_vad_set(tmp: Path, num_files=8, seconds=120.0, seed=31, name="vad",
+                  sr=16000):
+    """Files of about ``seconds`` s: pauses of 0.1-2.0 s of low noise
+    (randn * 20) between speech bursts of 0.5-8 s from the tone speakers.
+    Returns (dir, {file stem: [(pause begin, pause end), ...]}, seconds)."""
+    from montreal_forced_aligner_tpu_torch.io.wav import write_wave
+
+    rng = np.random.RandomState(seed)
+    d = tmp / name
+    d.mkdir(parents=True, exist_ok=True)
+    pauses, total = {}, 0.0
+    for i in range(num_files):
+        pieces, spans, n = [], [], 0
+        while n < seconds * sr:
+            pause = rng.randn(int(rng.uniform(0.1, 2.0) * sr)) * 20
+            spans.append((n / sr, (n + len(pause)) / sr))
+            burst = make_speaker_wave(rng, rng.randint(8), rng.uniform(0.5, 8.0), sr=sr)
+            pieces += [pause, burst]
+            n += len(pause) + len(burst)
+        pause = rng.randn(int(rng.uniform(0.1, 2.0) * sr)) * 20
+        spans.append((n / sr, (n + len(pause)) / sr))
+        pieces.append(pause)
+        wave = np.concatenate(pieces).astype(np.float32)
+        write_wave(d / f"file{i}.wav", wave, sr)
+        pauses[f"file{i}"] = spans
+        total += len(wave) / sr
+    return d, pauses, total
+
+
+def build_joined_utterance(corpus_dir: Path, tmp: Path, name="joined", sr=16000,
+                           seed=41):
+    """One file of ``corpus_dir``'s utterances in corpus order with 0.5 s of
+    low noise between them, its transcript their texts joined. Returns
+    (dir, seconds)."""
+    from montreal_forced_aligner_tpu_torch.corpus.corpus import Corpus
+    from montreal_forced_aligner_tpu_torch.io.wav import write_wave
+
+    rng = np.random.RandomState(seed)
+    corpus = Corpus.load(corpus_dir)
+    pieces, texts = [], []
+    for utt in corpus.utterances:
+        pieces += [rng.randn(sr // 2) * 20, corpus.load_audio(utt).samples]
+        texts.append(utt.text)
+    pieces.append(rng.randn(sr // 2) * 20)
+    wave = np.concatenate(pieces).astype(np.float32)
+    d = tmp / name / "spk0"
+    d.mkdir(parents=True, exist_ok=True)
+    write_wave(d / "joined.wav", wave, sr)
+    (d / "joined.lab").write_text(" ".join(texts))
+    return tmp / name, len(wave) / sr
+
+
+def _extractor_arrays(ex):
+    return {"weights": ex.ubm.weights, "means": ex.ubm.means,
+            "variances": ex.ubm.variances, "T": ex.T, "plda_mean": ex.plda.mean,
+            "plda_transform": ex.plda.transform, "plda_psi": ex.plda.psi}
+
+
+def _counted(device, fn):
+    """``fn()`` with every launch count set to 0 just before: (its result,
+    its wall seconds, the launches read just after)."""
+    from montreal_forced_aligner_tpu_torch.ops import cuda_build
+
+    _sync(device)
+    cuda_build.reset_launch_counts()
+    t0 = time.perf_counter()
+    out = fn()
+    _sync(device)
+    return out, time.perf_counter() - t0, dict(cuda_build.LAUNCHES)
+
+
+def _no_launches(path, launches):
+    _check(not any(launches.values()), f"{path}: kernel launches {launches}")
+
+
+def train_ivector_phase(corpus_dir, out_dir, audio_s, device, num_gauss=256,
+                        ivector_dim=192, num_iterations=10):
+    """Main path **train-ivector**: ``cli train_ivector`` at the command's
+    defaults (UBM, T-matrix, PLDA), counted from 0 (no kernel launches);
+    then one warm run synchronised at each phase (its peak card memory,
+    and a model bit-identical to the command's) and one profiled."""
+    from montreal_forced_aligner_tpu_torch.corpus.corpus import Corpus
+    from montreal_forced_aligner_tpu_torch.ivector.extractor import IvectorExtractor
+    from montreal_forced_aligner_tpu_torch.ivector.pipeline import train_ivector_model
+    from montreal_forced_aligner_tpu_torch.training.base import PhaseClock
+
+    model = Path(out_dir) / "ivector.npz"
+    widths = ["--num_gauss", num_gauss, "--ivector_dim", ivector_dim,
+              "--num_iterations", num_iterations]
+    lines, cold, launches = _counted(device, lambda: _cli(
+        ["train_ivector", corpus_dir, model, "--device", device.type] + widths))
+    _no_launches("train-ivector", launches)
+    _check(any(l.startswith("Trained PLDA over") for l in lines),
+           f"train-ivector: no PLDA in {lines}")
+    corpus = Corpus.load(corpus_dir, require_transcripts=False)
+
+    def train(clock=None):
+        return train_ivector_model(corpus, num_gauss=num_gauss,
+                                   ivector_dim=ivector_dim,
+                                   num_iterations=num_iterations, device=device,
+                                   clock=clock)
+
+    clock = PhaseClock(device, sync=True)
+    _reset_peak(device)
+    t0 = time.perf_counter()
+    ex = train(clock)
+    with clock("save"):
+        ex.save(Path(out_dir) / "ivector_warm.npz")
+    warm = time.perf_counter() - t0
+    peak = _peak_gib(device)
+    first = _extractor_arrays(IvectorExtractor.load(model))
+    second = _extractor_arrays(IvectorExtractor.load(Path(out_dir) / "ivector_warm.npz"))
+    identical = all(np.array_equal(first[k], second[k]) for k in first)
+    _check(identical, "train-ivector: two card runs differ")
+    report = {
+        "path": "train-ivector", "utterances": corpus.num_utterances,
+        "speakers": len(corpus.speakers), "audio_s": audio_s,
+        "num_gauss": int(ex.ubm.num_gauss), "ivector_dim": ivector_dim,
+        "num_iterations": num_iterations, "launches": launches, "cold_wall_s": cold,
+        "warm_synced_wall_s": warm, "phases_synced_s": dict(clock.seconds),
+        "peak_gib": peak, "two_runs_identical": identical,
+    }
+    if device.type == "cuda":
+        report["profiled_warm_run"] = profiled_run(train, device)
+    return report, model
+
+
+def _purity_ari(out_dir):
+    from montreal_forced_aligner_tpu_torch.diarization.clustering import (
+        adjusted_rand_index,
+        cluster_purity,
+    )
+
+    rows = [l.split("\t") for l in
+            (Path(out_dir) / "utt2spk.tsv").read_text().splitlines()]
+    truth = [r[0].split("/")[0] for r in rows]
+    labels = [r[3] for r in rows]
+    return len(rows), cluster_purity(truth, labels), adjusted_rand_index(truth, labels)
+
+
+DIARIZE_RUNS = {
+    "cluster-cosine": ["--expected_num_speakers", 8, "--evaluate"],
+    "cluster-plda-kmeans": ["--metric", "plda", "--cluster_type", "kmeans",
+                            "--expected_num_speakers", 8],
+    "classify": ["--classify"],
+}
+
+
+def diarize_phase(corpus_dir, model, out_dir, device, runs=DIARIZE_RUNS):
+    """**diarize**: ``cli diarize_speakers`` with ``model``, once per run,
+    each counted from 0 (no kernel launches): wall, purity and adjusted
+    Rand index against the corpus's speakers."""
+    report = {"path": "diarize", "runs": {}}
+    total = {}
+    for name, args in runs.items():
+        out = Path(out_dir) / name
+        lines, wall, launches = _counted(device, lambda: _cli(
+            ["diarize_speakers", corpus_dir, model, out, "--device", device.type]
+            + args))
+        _no_launches(f"diarize {name}", launches)
+        n, purity, ari = _purity_ari(out)
+        report["runs"][name] = {"wall_s": wall, "utterances": n, "purity": purity,
+                                "ari": ari, "output": lines[-1]}
+        total = {k: total.get(k, 0) + v for k, v in launches.items()}
+    report["launches"] = total
+    return report
+
+
+def _segments_of(textgrid_path):
+    from montreal_forced_aligner_tpu_torch.io.textgrid import TextGrid
+
+    return [(i.begin, i.end) for i in TextGrid.read(textgrid_path).tiers["segments"]
+            if i.label]
+
+
+def vad_scores(segments, pauses, duration, min_pause=0.5):
+    """Segment boundaries against the true pauses: each boundary's distance
+    to the nearest true pause edge (median), and the share of true pauses
+    of at least ``min_pause`` s that some gap between detected segments
+    overlaps."""
+    edges = np.array(sorted({e for p in pauses for e in p}))
+    bounds = [b for s in segments for b in s if 0.0 < b < duration]
+    errors = [float(np.abs(edges - b).min()) for b in bounds]
+    gaps = [(0.0, duration)]
+    if segments:
+        gaps = ([(0.0, segments[0][0])]
+                + [(a[1], b[0]) for a, b in zip(segments[:-1], segments[1:])]
+                + [(segments[-1][1], duration)])
+    long = [p for p in pauses if p[1] - p[0] >= min_pause]
+    found = [p for p in long
+             if any(min(p[1], g[1]) > max(p[0], g[0]) for g in gaps)]
+    return errors, len(found), len(long)
+
+
+def vad_phase(vad_dir, pauses, out_dir, audio_s, device,
+              formats=("long_textgrid", "csv")):
+    """**vad**: ``cli create_segments_vad`` on the VAD set at its defaults,
+    once per format, counted from 0 (no kernel launches): wall, segments,
+    and against the true pauses the median boundary error and the share of
+    pauses of at least 0.5 s found."""
+    from montreal_forced_aligner_tpu_torch.io.wav import read_wave
+
+    report = {"path": "vad", "files": len(pauses), "audio_s": audio_s, "walls_s": {}}
+    total = {}
+    for fmt in formats:
+        out = Path(out_dir) / fmt
+        _lines, wall, launches = _counted(device, lambda: _cli(
+            ["create_segments_vad", vad_dir, out, "--output_format", fmt,
+             "--device", device.type]))
+        _no_launches(f"vad {fmt}", launches)
+        ext = ".TextGrid" if fmt.endswith("textgrid") else f".{fmt}"
+        _check(sorted(p.name for p in out.iterdir())
+               == sorted(f"{stem}{ext}" for stem in pauses), f"vad {fmt}: outputs")
+        report["walls_s"][fmt] = wall
+        total = {k: total.get(k, 0) + v for k, v in launches.items()}
+    errors, found, long = [], 0, 0
+    segments = 0
+    for stem, spans in pauses.items():
+        segs = _segments_of(Path(out_dir) / "long_textgrid" / f"{stem}.TextGrid")
+        duration = read_wave(Path(vad_dir) / f"{stem}.wav").duration
+        e, f, n = vad_scores(segs, spans, duration)
+        errors += e
+        found, long, segments = found + f, long + n, segments + len(segs)
+    report.update(launches=total, segments=segments,
+                  median_boundary_error_s=float(np.median(errors)),
+                  pauses_found=found, pauses_over_0_5_s=long,
+                  pauses_found_share=found / max(long, 1))
+    return report
+
+
+def _long_path_launches(recorder, device):
+    """Launches the chunked long path makes for the recorded
+    ``viterbi_align_long`` calls: per call of T frames in chunks of
+    ``chunk``, ceil(T / chunk) chunks through K1 in both sweeps, K2 in the
+    backward one, and K3 in both where the model takes it (none on the
+    CPU)."""
+    from montreal_forced_aligner_tpu_torch.ops import long_viterbi as LV
+
+    want = {"band_forward": 0, "band_backtrace": 0, "state_emission": 0}
+    if device.type != "cuda":
+        return want
+    for (feats, *_rest), kw in recorder.all_args:
+        chunks = -(-feats.shape[0] // (kw.get("chunk") or LV.CHUNK_FRAMES))
+        want["band_forward"] += 2 * chunks
+        want["band_backtrace"] += chunks
+        want["state_emission"] += 2 * chunks if kw["use_emission_kernel"] else 0
+    return want
+
+
+def create_segments_phase(model_path, dict_path, long_dir, out_dir, device, reps=3):
+    """Main path **create-segments**: ``cli create_segments`` with the
+    SAT-scale model on the long utterance (the single-utterance two-pass
+    through the chunked path), counted from 0: launches exactly as the long
+    path's formula gives, the segments' words joined equal to the
+    transcript; then K3, K1 and K2 on the final pass's last chunk against
+    their plain versions."""
+    import montreal_forced_aligner_tpu_torch.online.alignment as online_mod
+    from montreal_forced_aligner_tpu_torch.ops import long_viterbi as LV
+
+    out = Path(out_dir)
+    rec = CallRecorder(online_mod, "viterbi_align_long", device)
+    with rec:
+        lines, wall, launches = _counted(device, lambda: _cli(
+            ["create_segments", long_dir, dict_path, model_path, out, "--device",
+             device.type]))
+    want = _long_path_launches(rec, device)
+    _check(launches == want,
+           f"create-segments: launches {launches}, expected {want}")
+    _check(rec.calls == 2, f"create-segments: {rec.calls} chunked decodes")
+    (lab,) = sorted(Path(long_dir).rglob("*.lab"))
+    (tg,) = sorted(out.rglob("*.TextGrid"))
+    from montreal_forced_aligner_tpu_torch.io.textgrid import TextGrid
+
+    segs = [i for i in TextGrid.read(tg).tiers["segments"] if i.label]
+    _check(" ".join(i.label for i in segs) == " ".join(lab.read_text().split()),
+           "create-segments: the segments' words differ from the transcript")
+    lengths = [i.end - i.begin for i in segs]
+    (feats, garrs, gmm), kw = rec.last_args
+    scale, use_k = kw["acoustic_scale"], kw["use_emission_kernel"]
+    chunk = kw.get("chunk") or LV.CHUNK_FRAMES
+    lg = LV.prepare_long_graph(garrs, feats.device)
+    _check(lg.band_limits is not None, "create-segments: graph outside the band buckets")
+    checkpoints, best, _score = LV.long_forward_sweep(feats, lg, gmm, scale, chunk,
+                                                      use_k)
+    path = LV.long_backward_sweep(feats, lg, gmm, scale, chunk, use_k, checkpoints,
+                                  best)
+    return {
+        "path": "create-segments", "wall_s": wall, "launches": launches,
+        "segments": len(segs), "words": sum(len(i.label.split()) for i in segs),
+        "segment_s_min_max": [min(lengths), max(lengths)], "T": int(feats.shape[0]),
+        "chunks": len(checkpoints), "output": lines[-1],
+        "last_chunk": last_chunk_checks(feats, lg, gmm, scale, chunk, use_k,
+                                        checkpoints, best, path, reps, device),
+    }
+
+
+def segmentation_references(subset_dir, vad_dir, joined_dir, model_path, dict_path,
+                            device_name, num_gauss=256, ivector_dim=192):
+    """The segmentation slice on one device, for the card-against-CPU
+    check: ``train_ivector_model`` at the given width on ``subset_dir``, its
+    i-vectors, cluster labels (agglomerative, 8 speakers) and classify
+    labels; each VAD file's log energies, voiced frames and segments; and
+    ``segment_transcribed_file`` of ``joined_dir``'s one file."""
+    import torch
+
+    from montreal_forced_aligner_tpu_torch.align.aligner import (
+        AlignerConfig,
+        PretrainedAligner,
+    )
+    from montreal_forced_aligner_tpu_torch.corpus.corpus import Corpus
+    from montreal_forced_aligner_tpu_torch.diarization.speaker_diarizer import (
+        SpeakerDiarizer,
+    )
+    from montreal_forced_aligner_tpu_torch.io.wav import read_wave
+    from montreal_forced_aligner_tpu_torch.ivector.pipeline import (
+        corpus_feature_batches,
+        train_ivector_model,
+    )
+    from montreal_forced_aligner_tpu_torch.vad import segmenter as V
+    from montreal_forced_aligner_tpu_torch.vad.transcript_segmenter import (
+        segment_transcribed_file,
+    )
+
+    dev = torch.device(device_name)
+    corpus = Corpus.load(subset_dir, require_transcripts=False)
+    ex = train_ivector_model(corpus, num_gauss=num_gauss, ivector_dim=ivector_dim,
+                             device=dev)
+    batches, order = corpus_feature_batches(corpus, device=dev)
+    diarizer = SpeakerDiarizer(ex, plda=ex.plda, device=dev)
+    result = diarizer.cluster_utterances(batches, num_speakers=len(corpus.speakers))
+    iv = result.ivectors
+    enrolled = {s: iv[[p for p, u in enumerate(order)
+                       if corpus.utterances[u].speaker == s]].mean(axis=0)
+                for s in corpus.speakers}
+    feats = np.concatenate([f[b, :n].cpu().numpy() for f, lens in batches
+                            for b, n in enumerate(lens)])
+    out = {"extractor": _extractor_arrays(ex), "ivectors": iv, "features": feats,
+           "cluster": result.labels,
+           "classify": diarizer.classify_speakers(batches, enrolled, ivectors=iv),
+           "vad": {}}
+    cfg = V.SegmenterConfig()
+    for wav in sorted(Path(vad_dir).glob("*.wav")):
+        log_e = V.frame_log_energy(read_wave(wav).samples, device=dev)
+        threshold = cfg.energy_threshold + cfg.energy_mean_scale * log_e.mean()
+        voiced = log_e > threshold
+        out["vad"][wav.stem] = (log_e, float(threshold), voiced,
+                                V.segments_from_vad(voiced, cfg))
+    aligner = PretrainedAligner(model_path, dict_path, AlignerConfig(), device=dev)
+    joined = Corpus.load(joined_dir)
+    (utt,) = joined.utterances
+    out["segments"] = [(s.begin, s.end, s.text) for s in segment_transcribed_file(
+        aligner, joined.load_audio(utt).samples, utt.text)]
+    return out
+
+
+def segmentation_card_vs_cpu(card, cpu, frame_s=0.01):
+    """Each deviation of the card's segmentation slice from the CPU's,
+    beside its bar: the UBM's Gaussian count equal; weights, means,
+    variances and T within 1e-3 of each array's largest magnitude; every
+    i-vector's cosine with its CPU twin >= 0.999; cluster and classify
+    labels identical; VAD voiced frames identical except those within 1e-4
+    of the threshold, segment lists identical; the transcript segments'
+    texts identical, boundaries within one frame."""
+    feats_err = float(np.abs(card["features"] - cpu["features"]).max())
+    ce, pe = card["extractor"], cpu["extractor"]
+    _check(len(ce["weights"]) == len(pe["weights"]),
+           f"UBM Gaussians: card {len(ce['weights'])}, CPU {len(pe['weights'])}")
+    rel = {}
+    for k in ("weights", "means", "variances", "T"):
+        rel[k] = float(np.abs(ce[k] - pe[k]).max() / np.abs(pe[k]).max())
+        _check(rel[k] <= 1e-3, f"card vs CPU: {k} differs by {rel[k]} of its largest")
+    a, b = card["ivectors"], cpu["ivectors"]
+    cos = (a * b).sum(1) / (np.linalg.norm(a, axis=1) * np.linalg.norm(b, axis=1))
+    _check(cos.min() >= 0.999, f"card vs CPU: an i-vector's cosine is {cos.min()}")
+    _check(np.array_equal(card["cluster"], cpu["cluster"]), "card vs CPU: cluster labels")
+    _check(card["classify"] == cpu["classify"], "card vs CPU: classify labels")
+    worst_e, near, frames = 0.0, 0, 0
+    for stem, (log_e, thr, voiced, segs) in cpu["vad"].items():
+        c_log_e, _c_thr, c_voiced, c_segs = card["vad"][stem]
+        worst_e = max(worst_e, float(np.abs(c_log_e - log_e).max()))
+        differ = c_voiced != voiced
+        _check(np.all(np.abs(log_e[differ] - thr) < 1e-4),
+               f"VAD {stem}: voiced frames differ away from the threshold")
+        near += int(differ.sum())
+        frames += len(voiced)
+        _check(c_segs == segs, f"VAD {stem}: segment lists differ")
+    cs, ps = card["segments"], cpu["segments"]
+    _check([s[2] for s in cs] == [s[2] for s in ps],
+           "create_segments: segment texts differ between the card and the CPU")
+    worst_b = max(max(abs(x[0] - y[0]), abs(x[1] - y[1])) for x, y in zip(cs, ps))
+    _check(worst_b <= frame_s + 1e-9, f"create_segments: boundaries differ by {worst_b}")
+    return {
+        "ivector": {"utterances": len(a), "num_gauss": len(pe["weights"]),
+                    "features_max_abs_diff": feats_err,
+                    "features_max_abs": float(np.abs(cpu["features"]).max()),
+                    "rel_err": rel, "rel_err_bar": 1e-3,
+                    "min_cosine": float(cos.min()), "min_cosine_bar": 0.999,
+                    "cluster_labels_identical": True,
+                    "classify_labels_identical": True},
+        "vad": {"files": len(cpu["vad"]), "frames": frames,
+                "log_energy_max_abs_diff": worst_e,
+                "voiced_frames_differing_near_threshold": near,
+                "near_threshold_bar": 1e-4, "segment_lists_identical": True},
+        "create_segments": {"segments": len(ps), "texts_identical": True,
+                            "max_boundary_diff_s": worst_b, "bar_s": frame_s},
+    }
+
 
 KERNELS = [
     ("band_forward", "montreal_forced_aligner_tpu_torch/csrc/band_viterbi.cu",
@@ -2695,7 +3203,7 @@ def main() -> int:
         _emit({"kernel_check": "state_emission",
                "path": "transcribe-dense (pass 2, first batch)",
                **dense_checks["state_emission"]})
-        nbest = transcribe_nbest_phase(model_path, dict_path, small2_dir, lms, device)
+        nbest = transcribe_nbest_phase(model_path, dict_path, small_dir, lms, device)
         _emit({"main_path": nbest})
         lvcsr, lvcsr_tr = transcribe_lvcsr_phase(model_path, dict_path, corpus_dir,
                                                  audio_s, device)
@@ -2711,6 +3219,31 @@ def main() -> int:
         _emit({"transcribe_card_vs_cpu": transcribe_card_vs_cpu(
             model_path, dict_path, small_dir, (lms[0], nbest_lm, lvcsr_lm),
             device, cpu_runs=cpu_refs.result())})
+        # i-vectors, diarization and segmentation; the CPU half of their
+        # card-against-CPU check runs in a worker beside them
+        t0 = time.perf_counter()
+        spk_dir, spk_s = build_speaker_corpus(tmp)
+        subset_dir = subset_corpus(spk_dir, tmp / "speakers32", 4)
+        vad_dir, pauses, vad_s = build_vad_set(tmp)
+        joined_dir, joined_s = build_joined_utterance(small2_dir, tmp)
+        _emit({"segmentation_fixture_s": time.perf_counter() - t0,
+               "speaker_corpus_s": spk_s, "vad_set_s": vad_s, "joined_s": joined_s})
+        seg_refs = CpuTask("segmentation_references",
+                           (subset_dir, vad_dir, joined_dir, model_path, dict_path,
+                            "cpu"), tmp / "seg.pkl")
+        ivec, ivec_model = train_ivector_phase(spk_dir, tmp, spk_s, device)
+        _emit({"main_path": ivec})
+        diar = diarize_phase(spk_dir, ivec_model, tmp / "diarized", device)
+        _emit({"main_path": diar})
+        vad = vad_phase(vad_dir, pauses, tmp / "vad_out", vad_s, device)
+        _emit({"main_path": vad})
+        segs = create_segments_phase(model_path, dict_path, long_dir,
+                                     tmp / "segments_out", device)
+        _emit({"main_path": segs})
+        _emit({"segmentation_card_vs_cpu": segmentation_card_vs_cpu(
+            segmentation_references(subset_dir, vad_dir, joined_dir, model_path,
+                                    dict_path, "cuda"),
+            seg_refs.result())})
         by_path = {"sat-2pass": reports["sat-2pass"]["launches"],
                    "train-mono": mono["launches"], "train-recipe": recipe["launches"],
                    "adapt": adapt["launches"],
@@ -2719,7 +3252,9 @@ def main() -> int:
                    "transcribe-lvcsr": lvcsr["launches"],
                    "phone-transcribe": phone["align --use_phone_model"]["launches"],
                    "transcribe-alignment":
-                       phone["transcribe --output_type alignment"]["launches"]}
+                       phone["transcribe --output_type alignment"]["launches"],
+                   "train-ivector": ivec["launches"], "diarize": diar["launches"],
+                   "vad": vad["launches"], "create-segments": segs["launches"]}
         extra = {**mono_checks, "train_recipe": recipe_checks,
                  "adapt": adapt_checks, "transcribe_dense": dense_checks}
         _emit(stamp=False, obj=kernels_line(

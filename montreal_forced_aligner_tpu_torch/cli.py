@@ -8,6 +8,10 @@
     python -m montreal_forced_aligner_tpu_torch.cli adapt CORPUS DICT MODEL OUTPUT_MODEL
     python -m montreal_forced_aligner_tpu_torch.cli transcribe CORPUS DICT MODEL OUT_DIR \\
         [--language_model_path lm.arpa] [--nbest 8] [--evaluate] ...
+    python -m montreal_forced_aligner_tpu_torch.cli train_ivector CORPUS OUTPUT_MODEL
+    python -m montreal_forced_aligner_tpu_torch.cli diarize_speakers CORPUS IVECTOR_MODEL OUT_DIR
+    python -m montreal_forced_aligner_tpu_torch.cli create_segments_vad CORPUS OUT_DIR
+    python -m montreal_forced_aligner_tpu_torch.cli create_segments CORPUS DICT MODEL OUT_DIR
     python -m montreal_forced_aligner_tpu_torch.cli validate CORPUS DICT
     python -m montreal_forced_aligner_tpu_torch.cli evaluate_alignments REF_DIR TEST_DIR
     python -m montreal_forced_aligner_tpu_torch.cli train_lm SOURCE OUTPUT
@@ -333,6 +337,98 @@ def _transcribe_parser(sub) -> None:
     t.add_argument("-a", "--audio_directory", default=None)
 
 
+def _segmentation_parsers(sub) -> None:
+    """i-vectors, diarization and segmentation: train_ivector,
+    diarize_speakers, create_segments_vad and create_segments."""
+    t = sub.add_parser("train_ivector",
+                       help="Train a UBM + i-vector extractor (+ PLDA)")
+    _num_jobs(t)
+    t.add_argument("corpus_directory")
+    t.add_argument("output_model_path")
+    _device(t)
+    t.add_argument("--num_gauss", type=int, default=256)
+    t.add_argument("--ivector_dim", type=int, default=192)
+    t.add_argument("--num_iterations", type=int, default=10)
+    t.add_argument("--batch_size", type=int, default=16)
+    t.add_argument("--plda", dest="train_plda", action="store_true",
+                   default=True,
+                   help="Also train PLDA on the corpus's speaker-labelled "
+                        "i-vectors and bundle it (default)")
+    t.add_argument("--no_plda", dest="train_plda", action="store_false")
+
+    d = sub.add_parser("diarize_speakers",
+                       help="Cluster or classify utterances into speakers")
+    _num_jobs(d)
+    d.add_argument("corpus_directory")
+    d.add_argument("ivector_extractor_path",
+                   help="i-vector extractor (npz or reference archive); the "
+                        "literal 'speechbrain' names the neural x-vector "
+                        "backend, which is out of scope and raises")
+    d.add_argument("output_directory")
+    _device(d)
+    d.add_argument("--xvector_model_path", default=None,
+                   help="SpeechBrain checkpoint for 'speechbrain': out of "
+                        "scope, raises")
+    # None = not given: a --config_path value applies, else the default
+    d.add_argument("--expected_num_speakers", type=int, default=None,
+                   help="0 = threshold-based (default 0)")
+    d.add_argument("--distance_threshold", type=float, default=None,
+                   help="default 0.5")
+    d.add_argument("--cluster_type", default=None,
+                   choices=["agglomerative", "kmeans", "spectral", "dbscan",
+                            "hdbscan", "optics", "affinity", "meanshift"],
+                   help="Clustering algorithm (default agglomerative)")
+    d.add_argument("--min_cluster_size", type=int, default=None,
+                   help="Density methods: smallest cluster (default 15)")
+    d.add_argument("--batch_size", type=int, default=None, help="default 16")
+    d.add_argument("--evaluate", "--validate", dest="evaluate",
+                   action="store_true", default=False,
+                   help="Score the clustering against the corpus's speakers")
+    d.add_argument("--no_evaluate", dest="evaluate", action="store_false")
+    d.add_argument("--classify", dest="classify", action="store_true",
+                   default=False,
+                   help="Reassign each utterance to the best-scoring known "
+                        "speaker (PLDA if bundled, else cosine)")
+    d.add_argument("--cluster", dest="classify", action="store_false")
+    d.add_argument("--metric", default=None, choices=["cosine", "plda"],
+                   help="default cosine; plda needs a PLDA-bundled extractor")
+    _flag(d, "visualize", False,
+          "Write cluster_plot.png (needs sklearn and matplotlib)")
+    d.add_argument("--manifold_algorithm", default=None,
+                   choices=["tsne", "mds", "spectral", "isomap"],
+                   help="default tsne")
+    d.add_argument("--output_format", default=None, choices=_OUTPUT_FORMATS,
+                   help="default long_textgrid")
+    d.add_argument("--config_path", default=None)
+
+    v = sub.add_parser("create_segments_vad",
+                       help="Segment audio files by energy VAD")
+    _num_jobs(v)
+    v.add_argument("corpus_directory")
+    v.add_argument("output_directory")
+    _device(v)
+    v.add_argument("--max_segment_length", type=float, default=30.0)
+    v.add_argument("--min_segment_length", type=float, default=0.333)
+    v.add_argument("--min_pause_duration", type=float, default=0.333)
+    v.add_argument("--energy_threshold", type=float, default=5.5)
+    v.add_argument("--speechbrain_model_path", default=None,
+                   help="Neural VAD: out of scope, raises")
+    v.add_argument("--output_format", default="long_textgrid",
+                   choices=_OUTPUT_FORMATS)
+
+    c = sub.add_parser("create_segments",
+                       help="Segment long transcribed files by alignment")
+    _num_jobs(c)
+    c.add_argument("corpus_directory")
+    c.add_argument("dictionary_path")
+    c.add_argument("acoustic_model_path")
+    c.add_argument("output_directory")
+    _device(c)
+    c.add_argument("--max_segment_length", type=float, default=30.0)
+    c.add_argument("--min_pause_duration", type=float, default=0.15,
+                   help="Aligned silence gap that splits segments")
+
+
 def _parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(prog="mfa-tpu-torch")
     p.add_argument("-v", "--verbose", action="store_true",
@@ -354,6 +450,7 @@ def _parser() -> argparse.ArgumentParser:
                    choices=_OUTPUT_FORMATS)
     _train_parser(sub)
     _transcribe_parser(sub)
+    _segmentation_parsers(sub)
     _host_parsers(sub)
     return p
 
@@ -1329,9 +1426,284 @@ def _history(args) -> int:
     return 0
 
 
+def _train_ivector(args) -> int:
+    """Train a UBM + i-vector extractor (reference ``mfa train_ivector``,
+    ``ivector/trainer.py``)."""
+    from montreal_forced_aligner_tpu_torch.corpus.corpus import Corpus
+    from montreal_forced_aligner_tpu_torch.ivector.pipeline import (
+        train_ivector_model,
+    )
+
+    corpus = Corpus.load(args.corpus_directory, require_transcripts=False)
+    extractor = train_ivector_model(
+        corpus, num_gauss=args.num_gauss, ivector_dim=args.ivector_dim,
+        num_iterations=args.num_iterations, batch_size=args.batch_size,
+        train_plda=args.train_plda, device=args.device,
+    )
+    if extractor.plda is not None:
+        print(f"Trained PLDA over {len(corpus.speakers)} speakers "
+              f"({corpus.num_utterances} i-vectors)")
+    elif args.train_plda:
+        print("Skipping PLDA: need at least 2 speakers", file=sys.stderr)
+    extractor.save(args.output_model_path)
+    print(f"Trained {extractor.ubm.num_gauss}-gauss UBM + {args.ivector_dim}-dim "
+          f"extractor -> {args.output_model_path}")
+    return 0
+
+
+_NEURAL_DIARIZATION = (
+    "speechbrain x-vector diarization is out of the port's scope (it needs "
+    "the speechbrain package and weights that are not in the repository; "
+    "ROADMAP.md, Queue 1, out of scope): pass an i-vector extractor"
+)
+
+
+def _diarize_speakers(args) -> int:
+    """Cluster or classify utterances into speakers (reference ``mfa
+    diarize_speakers``, ``diarization/speaker_diarizer.py``). Writes
+    utt2spk.tsv, parameters.yaml and the relabelled transcripts."""
+    import numpy as np
+
+    from montreal_forced_aligner_tpu_torch.corpus.corpus import Corpus
+    from montreal_forced_aligner_tpu_torch.diarization.speaker_diarizer import (
+        DiarizationResult,
+        SpeakerDiarizer,
+    )
+    from montreal_forced_aligner_tpu_torch.ivector.extractor import IvectorExtractor
+    from montreal_forced_aligner_tpu_torch.ivector.pipeline import (
+        corpus_feature_batches,
+    )
+
+    data = _load_command_config(args.config_path) if args.config_path else {}
+    setting = _settings(args, data)
+    expected_num_speakers = setting("expected_num_speakers", 0)
+    distance_threshold = setting("distance_threshold", 0.5)
+    cluster_type = setting("cluster_type", "agglomerative")
+    min_cluster_size = setting("min_cluster_size", 15)
+    batch_size = setting("batch_size", 16)
+    metric = setting("metric", "cosine")
+    output_format = setting("output_format", "long_textgrid")
+    manifold_algorithm = setting("manifold_algorithm", "tsne")
+    if args.ivector_extractor_path == "speechbrain":
+        raise RuntimeError(_NEURAL_DIARIZATION)
+    if not Path(args.ivector_extractor_path).exists():
+        raise FileNotFoundError(
+            f"IVECTOR_EXTRACTOR_PATH {args.ivector_extractor_path!r} does not "
+            "exist (pass an i-vector extractor archive)"
+        )
+    corpus = Corpus.load(args.corpus_directory, require_transcripts=False)
+    batches, order = corpus_feature_batches(corpus, batch_size=batch_size,
+                                            device=args.device)
+    extractor = IvectorExtractor.load(args.ivector_extractor_path)
+    if metric == "plda" and extractor.plda is None:
+        raise ValueError("--metric plda needs an extractor with bundled PLDA "
+                         "(train with train_ivector --plda)")
+    diarizer = SpeakerDiarizer(extractor, plda=extractor.plda, metric=metric,
+                               device=args.device)
+    if args.classify:
+        # enroll per-speaker mean i-vectors from the corpus's own labels,
+        # then reassign every utterance (reference classify_speakers,
+        # speaker_diarizer.py:307)
+        iv = diarizer.utterance_ivectors(batches)
+        enrolled = {}
+        for s in corpus.speakers:
+            rows = [pos for pos, ui in enumerate(order)
+                    if corpus.utterances[ui].speaker == s]
+            enrolled[s] = iv[rows].mean(axis=0)
+        names = diarizer.classify_speakers(batches, enrolled, ivectors=iv)
+        name_idx = {s: i for i, s in enumerate(corpus.speakers)}
+        result = DiarizationResult(
+            labels=np.array([name_idx[n] for n in names]), ivectors=iv
+        )
+        moved = sum(1 for pos, ui in enumerate(order)
+                    if names[pos] != corpus.utterances[ui].speaker)
+        print(f"Classification reassigned {moved}/{len(order)} utterances")
+    else:
+        result = diarizer.cluster_utterances(
+            batches,
+            num_speakers=expected_num_speakers or None,
+            threshold=None if expected_num_speakers else distance_threshold,
+            method=cluster_type,
+            min_cluster_size=min_cluster_size,
+        )
+    _export_diarization(
+        corpus, result, order, args.output_directory, args.classify,
+        args.evaluate, args.visualize, manifold_algorithm, output_format,
+        metric=metric, extractor_path=str(args.ivector_extractor_path),
+        expected_num_speakers=expected_num_speakers, cluster_type=cluster_type,
+        distance_threshold=distance_threshold, min_cluster_size=min_cluster_size,
+    )
+    return 0
+
+
+def _export_diarization(
+    corpus, result, order, output_directory, classify, evaluate,
+    visualize, manifold_algorithm, output_format, *,
+    metric="cosine", extractor_path="", expected_num_speakers=0,
+    cluster_type="agglomerative", distance_threshold=0.5,
+    min_cluster_size=15,
+):
+    """The diarization export (reference ``SpeakerDiarizer.export_files``,
+    ``speaker_diarizer.py:1505``): utt2spk.tsv, parameters.yaml, relabelled
+    transcripts at their corpus-relative paths (whole-file utterances as
+    .lab, segmented files as one tier per new speaker), and optionally the
+    cluster plot and the evaluation against the corpus's speakers."""
+    import yaml
+
+    from montreal_forced_aligner_tpu_torch.io.textgrid import Interval, TextGrid
+
+    out = Path(output_directory)
+    out.mkdir(parents=True, exist_ok=True)
+    new_speaker = {}
+    for pos, utt_idx in enumerate(order):
+        lbl = int(result.labels[pos])
+        new_speaker[utt_idx] = corpus.speakers[lbl] if classify else f"speaker{lbl}"
+    with open(out / "utt2spk.tsv", "w", encoding="utf-8") as f:
+        for utt_idx in order:
+            utt = corpus.utterances[utt_idx]
+            end = "" if utt.end is None else f"{utt.end}"
+            f.write(f"{utt.speaker}/{utt.file_name}\t{utt.begin}\t{end}\t"
+                    f"{new_speaker[utt_idx]}\n")
+    with open(out / "parameters.yaml", "w", encoding="utf-8") as f:
+        yaml.safe_dump(
+            {
+                "ivector_extractor_path": extractor_path,
+                "expected_num_speakers": expected_num_speakers,
+                "cluster": not classify,
+                "metric": metric,
+                "cluster_type": cluster_type,
+                "distance_threshold": distance_threshold,
+                "min_cluster_size": min_cluster_size,
+            },
+            f,
+        )
+    by_file = {}
+    for utt in corpus.utterances:
+        by_file.setdefault(utt.file_name, []).append(utt)
+    fmt = output_format.lower()
+    ext = ".TextGrid" if fmt.endswith("textgrid") else f".{fmt}"
+    for fname, utts in by_file.items():
+        (out / fname).parent.mkdir(parents=True, exist_ok=True)
+        if len(utts) == 1 and utts[0].end is None:
+            (out / f"{fname}.lab").write_text(utts[0].text, encoding="utf-8")
+            continue
+        tiers = {}
+        xmax = 0.0
+        for utt in utts:
+            spk = new_speaker.get(utt.id, utt.speaker)
+            end = utt.end if utt.end is not None else utt.begin
+            tiers.setdefault(spk, []).append(Interval(utt.begin, end, utt.text))
+            xmax = max(xmax, end)
+        tg = TextGrid(xmin=0.0, xmax=xmax, tiers=tiers)
+        if fmt == "json":
+            tg.write_json(out / f"{fname}{ext}")
+        elif fmt == "csv":
+            tg.write_csv(out / f"{fname}{ext}")
+        else:
+            tg.write(out / f"{fname}{ext}", output_format=fmt)
+    n = len(set(result.labels.tolist()))
+    print(f"Clustered {corpus.num_utterances} utterances into {n} speakers")
+    if visualize:
+        from montreal_forced_aligner_tpu_torch.diarization.visualization import (
+            manifold_points,
+            plot_clusters,
+        )
+
+        points = manifold_points(
+            result.ivectors,
+            algorithm=manifold_algorithm,
+            metric="cosine" if metric == "plda" else metric,
+            quick=corpus.num_utterances < 200,
+        )
+        plot_path = plot_clusters(points, result.labels, out / "cluster_plot.png")
+        print(f"Wrote cluster plot to {plot_path}")
+    if evaluate:
+        from montreal_forced_aligner_tpu_torch.diarization.clustering import (
+            adjusted_rand_index,
+            cluster_purity,
+        )
+
+        truth = [corpus.utterances[i].speaker for i in order]
+        labels = [int(x) for x in result.labels]
+        ari = adjusted_rand_index(truth, labels)
+        purity = cluster_purity(truth, labels)
+        print(f"Evaluation vs original speakers: purity {purity:.4f}, "
+              f"adjusted Rand index {ari:.4f} ({len(set(truth))} true speakers)")
+
+
+def _create_segments_vad(args) -> int:
+    """Segment audio files by energy VAD (reference ``mfa
+    create_segments_vad``, ``vad/segmenter.py:56``)."""
+    from montreal_forced_aligner_tpu_torch.vad.segmenter import (
+        SegmenterConfig,
+        SpeechbrainVadSegmenter,
+        VadSegmenter,
+    )
+
+    cfg = SegmenterConfig(
+        max_segment_length=args.max_segment_length,
+        min_segment_length=args.min_segment_length,
+        min_pause_duration=args.min_pause_duration,
+        energy_threshold=args.energy_threshold,
+    )
+    if args.speechbrain_model_path:
+        seg = SpeechbrainVadSegmenter(args.speechbrain_model_path, cfg,
+                                      device=args.device)
+    else:
+        seg = VadSegmenter(cfg, device=args.device)
+    outs = seg.segment_corpus(args.corpus_directory, args.output_directory,
+                              output_format=args.output_format)
+    print(f"Wrote {len(outs)} segment files to {args.output_directory}")
+    return 0
+
+
+def _create_segments(args) -> int:
+    """Segment long transcribed files by aligning each transcript and
+    cutting at aligned silences (reference ``TranscriptionSegmenter``,
+    ``vad/segmenter.py:575``; ``SegmentTranscriptFunction``,
+    ``vad/multiprocessing.py:409``). One TextGrid per file, whose
+    ``segments`` tier carries each segment's words."""
+    from montreal_forced_aligner_tpu_torch.align.aligner import (
+        AlignerConfig,
+        PretrainedAligner,
+    )
+    from montreal_forced_aligner_tpu_torch.corpus.corpus import Corpus
+    from montreal_forced_aligner_tpu_torch.io.textgrid import Interval, TextGrid
+    from montreal_forced_aligner_tpu_torch.vad.transcript_segmenter import (
+        segment_transcribed_file,
+    )
+
+    aligner = PretrainedAligner(args.acoustic_model_path, args.dictionary_path,
+                                AlignerConfig(), device=args.device)
+    corpus = Corpus.load(args.corpus_directory)
+    out = Path(args.output_directory)
+    out.mkdir(parents=True, exist_ok=True)
+    n_segments = 0
+    for utt in corpus.utterances:
+        wav = corpus.load_audio(utt)
+        segs = segment_transcribed_file(
+            aligner, wav.samples, utt.text,
+            min_pause=args.min_pause_duration,
+            max_segment_length=args.max_segment_length,
+        )
+        tg = TextGrid()
+        tg.xmax = wav.duration
+        tg.tiers["segments"] = [Interval(s.begin, s.end, s.text) for s in segs]
+        target = out / f"{utt.file_name}.TextGrid"
+        target.parent.mkdir(parents=True, exist_ok=True)
+        tg.write(target)
+        n_segments += len(segs)
+    print(f"Segmented {corpus.num_utterances} files into {n_segments} "
+          f"utterances -> {args.output_directory}")
+    return 0
+
+
 _COMMANDS = {
     "align": _align, "align_one": _align_one, "train": _train, "adapt": _adapt,
     "validate": _validate, "transcribe": _transcribe,
+    "train_ivector": _train_ivector, "diarize_speakers": _diarize_speakers,
+    "create_segments_vad": _create_segments_vad,
+    "create_segments": _create_segments,
     "evaluate_alignments": _evaluate_alignments,
     "train_lm": _train_lm, "train_dictionary": _train_dictionary,
     "model": _model, "models": _model, "version": _version,

@@ -1,8 +1,9 @@
 """Feature post-processing: deltas, splicing, linear transforms.
 
 Counterpart of ``montreal_forced_aligner_tpu/ops/feats.py`` for the
-alignment path. All functions take (B, T, D) tensors plus (B,) frame counts
-and are safe on padded frames.
+alignment path and the i-vector features (``sliding_cmn``). All functions
+take (B, T, D) tensors plus (B,) frame counts and are safe on padded
+frames.
 """
 
 from __future__ import annotations
@@ -86,6 +87,63 @@ def splice_frames(
     filled = edge_fill(feats, frame_lengths)
     pieces = [_shift_edge(filled, j) for j in range(-left, right + 1)]
     return torch.cat(pieces, dim=-1)
+
+
+def sliding_cmn(
+    feats: torch.Tensor,  # (B, T, D)
+    frame_lengths: torch.Tensor,  # (B,)
+    cmn_window: int = 300,
+    min_window: int = 100,
+    center: bool = True,
+    normalize_variance: bool = False,
+) -> torch.Tensor:
+    """Kaldi ``apply-cmvn-sliding`` (``SlidingWindowCmnInternal``,
+    feat/feature-functions.cc): per-frame mean over a ``cmn_window``-frame
+    window, centred when ``center`` (the i-vector recipe's setting).
+
+    The window is shifted, not shrunk, at utterance edges, so it is shorter
+    than ``cmn_window`` only when the utterance is; with ``center=False``
+    the leading frames use at least ``min_window`` frames of context.
+    Prefix sums over (B, T) in float64, as Kaldi's window sums are double
+    (the JAX package sums in float32: a parallel float32 scan on the card
+    and a sequential one on the CPU differ by about 1e-3 at T = 3,000 for a
+    c0 of about 60); padded frames pass through untouched."""
+    B, T, D = feats.shape
+    dev = feats.device
+    n = frame_lengths.to(device=dev, dtype=torch.int64)[:, None]  # (B, 1)
+    t = torch.arange(T, device=dev)[None, :]  # (1, T)
+    if center:
+        start = t - cmn_window // 2
+        end = start + cmn_window
+    else:
+        start = t - cmn_window
+        end = t + 1
+    # shift right if the window starts before the utterance
+    shift = torch.clamp(-start, min=0)
+    start = start + shift
+    end = end + shift
+    if not center:
+        end = torch.clamp(t + 1, min=min_window)
+    # shift left if the window ends past the utterance
+    over = torch.clamp(end - n, min=0)
+    start = torch.clamp(start - over, min=0)
+    end = torch.minimum(end, n)
+    mask = frame_mask(n[:, 0], T)[..., None]
+    x = torch.where(mask, feats, torch.zeros((), dtype=feats.dtype, device=dev))
+    x = x.to(torch.float64)
+
+    def window_sums(v):
+        csum = torch.cat([torch.zeros_like(v[:, :1]), torch.cumsum(v, dim=1)], 1)
+        return (torch.gather(csum, 1, end[..., None].expand(B, T, D))
+                - torch.gather(csum, 1, start[..., None].expand(B, T, D)))
+
+    wn = torch.clamp((end - start).to(torch.float64), min=1.0)[..., None]
+    mean = window_sums(x) / wn  # (B, T, D)
+    out = x - mean
+    if normalize_variance:
+        var = torch.clamp(window_sums(x * x) / wn - mean * mean, min=1e-10)
+        out = out * torch.rsqrt(var)
+    return torch.where(mask, out.to(feats.dtype), feats)
 
 
 def apply_transform(feats: torch.Tensor, transform: torch.Tensor) -> torch.Tensor:

@@ -146,17 +146,19 @@ def _mfcc_device(
     waves: torch.Tensor,  # (B, PAD_LEFT + L + PAD_RIGHT), reflection-padded
     cfg: MfccConfig,
     max_frames: int,
+    dtype: torch.dtype = torch.float32,
 ) -> torch.Tensor:
-    """(B, max_frames, num_coefficients) float32 MFCCs on ``waves.device``;
-    frames past each utterance's true count are garbage the caller masks."""
+    """(B, max_frames, num_coefficients) MFCCs in ``dtype`` on
+    ``waves.device``; frames past each utterance's true count are garbage
+    the caller masks."""
     consts = cfg.constants()
     dev = waves.device
-    window = torch.from_numpy(consts["window"]).to(dev)
-    mel = torch.from_numpy(consts["mel"]).to(dev)  # (fft/2, n_mel)
-    dct = torch.from_numpy(np.ascontiguousarray(consts["dct"])).to(dev)
-    lifter = torch.from_numpy(consts["lifter"]).to(dev)
+    window = torch.from_numpy(consts["window"]).to(dev, dtype)
+    mel = torch.from_numpy(consts["mel"]).to(dev, dtype)  # (fft/2, n_mel)
+    dct = torch.from_numpy(np.ascontiguousarray(consts["dct"])).to(dev, dtype)
+    lifter = torch.from_numpy(consts["lifter"]).to(dev, dtype)
 
-    waves = waves.to(torch.float32)
+    waves = waves.to(dtype)
     shift, length = cfg.frame_shift, cfg.frame_length
     # boundary reflection was applied on the host, so frame t reads
     # waves[t*shift + off : +length] with a constant offset
@@ -236,17 +238,20 @@ def compute_mfcc_batch(
     max_frames: Optional[int] = None,
     padded_len: Optional[int] = None,
     device="cuda",
+    dtype: torch.dtype = torch.float32,
 ) -> Tuple[torch.Tensor, np.ndarray]:
     """MFCCs for a list of 1-D waveforms (the reference package's function
     of the same name, for lists).
 
-    Returns (features (B, T_max, n_ceps) on ``device``, frame_lengths (B,)
-    on the host). Frames beyond each utterance's true frame count are
-    garbage and must be masked by the caller.
+    Returns (features (B, T_max, n_ceps) in ``dtype`` on ``device``,
+    frame_lengths (B,) on the host). Frames beyond each utterance's true
+    frame count are garbage and must be masked by the caller. The i-vector
+    features ask for float64 (``ivector/pipeline.py``).
     """
     padded, lengths = pad_waves_for_mfcc(waves, cfg, padded_len)
     frame_lengths = np.array([cfg.num_frames(int(n)) for n in lengths], dtype=np.int32)
     if max_frames is None:
         max_frames = int(frame_lengths.max())
-    feats = _mfcc_device(torch.from_numpy(padded).to(device), cfg, max_frames)
+    feats = _mfcc_device(torch.from_numpy(padded).to(device), cfg, max_frames,
+                         dtype)
     return feats, frame_lengths

@@ -154,3 +154,68 @@ def test_transcription_phases_run_on_cpu(fixture, monkeypatch, one_torch_thread)
     row = {r["name"]: r for r in line["kernels"]}["state_emission"]
     assert row["launches_by_path"] == {"transcribe-dense": 0}
     assert row["transcribe_dense_check"]["max_abs_err"] == 0.0
+
+
+def test_segmentation_phases_run_on_cpu(fixture, tmp_path, monkeypatch):
+    """train-ivector, diarize, vad and create-segments at a tiny size (8
+    Gaussians, 4 dimensions; the long path forced at 100 frames), and the
+    card-against-CPU check on two CPU runs (one in a spawned worker)."""
+    import montreal_forced_aligner_tpu_torch.online.alignment as PO
+    import montreal_forced_aligner_tpu_torch.ops.long_viterbi as LV
+
+    _tmp, model_path, dict_path, _corpus, _audio_s, small_dir, *_ = fixture
+    cpu = torch.device("cpu")
+    none = {"band_forward": 0, "band_backtrace": 0, "state_emission": 0}
+    spk_dir, spk_s = chip_smoke.build_speaker_corpus(tmp_path, per_speaker=3,
+                                                     min_s=2.0, max_s=3.0)
+    subset_dir = chip_smoke.subset_corpus(spk_dir, tmp_path / "sub", 2)
+    vad_dir, pauses, vad_s = chip_smoke.build_vad_set(tmp_path, num_files=2,
+                                                      seconds=12.0)
+    joined_dir, joined_s = chip_smoke.build_joined_utterance(small_dir, tmp_path)
+    assert len(list(subset_dir.rglob("*.wav"))) == 16 and 5.0 < joined_s < 10.0
+    args = (subset_dir, vad_dir, joined_dir, model_path, dict_path, "cpu", 8, 4)
+    task = chip_smoke.CpuTask("segmentation_references", args, tmp_path / "seg.pkl",
+                              threads=1)
+    cmp = chip_smoke.segmentation_card_vs_cpu(
+        chip_smoke.segmentation_references(*args), task.result())
+    assert not task.proc.is_alive()
+    assert cmp["ivector"]["utterances"] == 16 and cmp["ivector"]["min_cosine"] >= 0.999
+    assert cmp["create_segments"]["segments"] >= 1
+
+    ivec, model = chip_smoke.train_ivector_phase(spk_dir, tmp_path, spk_s, cpu,
+                                                 num_gauss=8, ivector_dim=4,
+                                                 num_iterations=2)
+    assert ivec["launches"] == none and ivec["two_runs_identical"]
+    assert ivec["utterances"] == 24 and ivec["speakers"] == 8
+    assert {"features", "ubm", "stats", "em", "plda", "save"} == set(
+        ivec["phases_synced_s"])
+    diar = chip_smoke.diarize_phase(spk_dir, model, tmp_path / "diar", cpu)
+    assert diar["launches"] == none and set(diar["runs"]) == set(chip_smoke.DIARIZE_RUNS)
+    for run in diar["runs"].values():
+        assert run["utterances"] == 24 and 0.0 < run["purity"] <= 1.0
+    assert "purity" in diar["runs"]["cluster-cosine"]["output"]
+    vad = chip_smoke.vad_phase(vad_dir, pauses, tmp_path / "vad_out", vad_s, cpu)
+    assert vad["launches"] == none and vad["segments"] > 0
+    assert vad["pauses_found_share"] > 0.5 and vad["median_boundary_error_s"] < 0.1
+
+    long_dir, _ = chip_smoke.build_corpus(tmp_path, [l.split()[0] for l in
+                                                     Path(dict_path).read_text().splitlines()],
+                                          1, 4.0, 4.0, seed=3, name="long",
+                                          num_speakers=1)
+    monkeypatch.setattr(PA, "_emission_kernel_eligible", lambda P, G: True)
+    monkeypatch.setattr(PO, "LONG_UTTERANCE_FRAMES", 100)
+    monkeypatch.setattr(LV, "CHUNK_FRAMES", 90)
+    segs = chip_smoke.create_segments_phase(model_path, dict_path, long_dir,
+                                            tmp_path / "seg_out", cpu, reps=1)
+    assert segs["launches"] == none and segs["chunks"] == 5
+    assert segs["segments"] >= 1 and segs["words"] == 10
+    for k in ("state_emission", "band_forward", "band_backtrace"):
+        assert segs["last_chunk"][f"{k}_max_abs_err"] == 0.0
+    line = chip_smoke.kernels_line(
+        {k: {"max_abs_err": 0.0, "ms": 1.0, "plain_ms": 1.0, "bound_ms": 1.0,
+             "bound_by": "bytes", "library_ms": None} for k in none}, none,
+        {"train-ivector": ivec["launches"], "diarize": diar["launches"],
+         "vad": vad["launches"], "create-segments": segs["launches"]})
+    for row in line["kernels"]:
+        assert row["launches_by_path"] == {"train-ivector": 0, "diarize": 0,
+                                           "vad": 0, "create-segments": 0}
