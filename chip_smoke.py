@@ -7,8 +7,9 @@ What it does, in order; any failure exits non-zero with no result line:
 
 1. prints the card's name and power limit as ``nvidia-smi`` gives them;
 2. builds the port's native code, the CUDA kernels of
-   ``montreal_forced_aligner_tpu_torch/csrc`` and the fMLLR solver of
-   ``native/`` (one compiler per source, all started together);
+   ``montreal_forced_aligner_tpu_torch/csrc`` and the host C++ of
+   ``native/`` (the fMLLR solver, the graph assembly, the FLAC decoder;
+   one compiler per source, all started together);
 3. builds, with the port's own modules, a synthetic acoustic model at SAT
    scale (random weights from a seed: 40 phones, about 5k pdfs, 32
    Gaussians per pdf, a 40-dim LDA over +-3 spliced 13-dim MFCCs, and a
@@ -109,9 +110,9 @@ What it does, in order; any failure exits non-zero with no result line:
     shortest utterances: the graph build (host Python, run in a spawned
     worker on the CPU while steps 17-19 run on the card), its S and
     fallback flag, a cold run, peak memory;
-21. **phone-transcribe**: ``align --use_phone_model`` through the CLI on
-    the corpus and ``transcribe --output_type alignment`` on the 8-utterance
-    corpus, each counted from 0 (K1, K2 and K3 all launched);
+21. **phone-transcribe**: ``align --use_phone_model`` through the CLI and
+    ``transcribe --output_type alignment``, both on the 8-utterance corpus,
+    each counted from 0 (K1, K2 and K3 all launched);
 22. **card against CPU** on the 4-utterance corpus for dense 1-best, dense
     N-best (4 ranks, a bigram over 12 words) and LVCSR (the corpus LM of
     step 19): identical words and ranked lists, >= 99.9% of frames on the
@@ -147,12 +148,33 @@ What it does, in order; any failure exits non-zero with no result line:
     identical) and ``create_segments`` of a 43-s file (the 8-utterance
     corpus joined with 0.5 s pauses: the same texts, boundaries within one
     frame);
-28. prints one ``{"kernels": [...]}`` line (sat-2pass's launches and
+28. main path **g2p-align**: the corpus's audio rewritten as FLAC by the
+    seeded writer below (every subframe type, one stereo file), a spelled
+    dictionary of 400 words over the 40 phones (a spelling determines its
+    phones) of which 100 are held out, three phonological rules, and ``cli
+    train_g2p`` on the dictionary (the pair-ngram engine), timed; the G2P
+    word accuracy on the held-out words; every file decoded natively, bit for
+    bit the samples written, MD5 verified; then ``cli align`` with
+    ``--g2p_model_path``, ``--rules_path`` and ``--language english``
+    (batch 32), counted from 0: K1, K2 and K3 launched, every utterance
+    aligned, the held-out tokens aligned with G2P pronunciations; cold,
+    warm and synchronised walls, a profiled run's busy share, the G2P
+    lookups' seconds, peak card memory; K1-K3 held to their plain versions on the first batch of pass
+    2 (band (16, 64): the rules' variants widen the graphs);
+29. **train-g2p**: a monophone stage at ``TINY_RECIPE``'s widths and a
+    pron_prob stage with ``train_g2p`` on train-reference's tone corpus,
+    with a rule: two card runs regenerate the same lexicon and train
+    bit-identical models, and the CPU regenerates the same lexicon;
+30. **card against CPU** for g2p-align on its 8 shortest files (the parity
+    bar, the same G2P entries) and the plain Python FLAC decoder on every
+    file (the native decode's samples), the CPU halves in workers beside
+    the card's run of those files and step 29;
+31. prints one ``{"kernels": [...]}`` line (sat-2pass's launches and
     second-pass checks; each row's ``launches_by_path`` adds the training,
-    adapt, transcription and segmentation paths' launches,
-    ``train_recipe_check`` the LDA-stage check, ``adapt_check`` adapt's and
-    ``transcribe_dense_check`` K3's on the dense decode), then as the last
-    line
+    adapt, transcription, segmentation and g2p-align paths' launches,
+    ``train_recipe_check`` the LDA-stage check, ``adapt_check`` adapt's,
+    ``transcribe_dense_check`` K3's on the dense decode and
+    ``g2p_align_check`` g2p-align's), then as the last line
     ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": 1}}``.
 
 It imports nothing of JAX and nothing of the JAX package.
@@ -335,6 +357,261 @@ def build_corpus(tmp: Path, words, num_utts: int, min_s=2.0, max_s=30.0,
         (d / f"utt{u}.lab").write_text(" ".join(rng.choice(words, n_words)))
         total += seconds
     return corp, total
+
+
+# -- FLAC fixture --------------------------------------------------------------
+#
+# A small seeded FLAC writer, so the corpus of the g2p-align path arrives as
+# FLAC without an encoder library. It writes 16-bit PCM (other depths by
+# their STREAMINFO codes) with every subframe type: CONSTANT where a block
+# is constant, VERBATIM for one chosen frame, FIXED of order 0-4, and LPC of
+# order 1-8 with coefficients made from the seed (an LPC subframe decodes
+# exactly with any integer coefficients, because its residual is computed
+# with those same coefficients, so there is no coefficient search). Stereo
+# frames cycle through independent, left/side, right/side and mid/side
+# channels. Residuals are Rice-coded with the parameter that minimises each
+# partition's bits; STREAMINFO carries the samples' MD5, each frame header
+# its CRC-8 and each frame its CRC-16. Bits are packed with numpy, a frame
+# at a time, and the CRC-16s of all frames of all files are computed in one
+# pass over byte positions.
+
+FLAC_BLOCK = 4096
+_FLAC_RATE_CODES = {88200: 1, 176400: 2, 192000: 3, 8000: 4, 16000: 5, 22050: 6,
+                    24000: 7, 32000: 8, 44100: 9, 48000: 10, 96000: 11}
+_FLAC_DEPTH_CODES = {8: 1, 12: 2, 16: 4, 20: 5, 24: 6, 32: 7}
+# stereo channel assignments the writer cycles through, frame by frame:
+# independent, left/side, right/side, mid/side
+_FLAC_STEREO_MODES = (1, 8, 9, 10)
+
+
+def _crc_table(poly: int, width: int) -> np.ndarray:
+    top, mask = 1 << (width - 1), (1 << width) - 1
+    table = np.zeros(256, dtype=np.int64)
+    for b in range(256):
+        c = b << (width - 8)
+        for _ in range(8):
+            c = ((c << 1) ^ poly) if c & top else (c << 1)
+        table[b] = c & mask
+    return table
+
+
+_CRC8 = _crc_table(0x07, 8)
+_CRC16 = _crc_table(0x8005, 16)
+
+
+def flac_crc8(data: bytes) -> int:
+    """FLAC's frame-header CRC-8 (polynomial x^8 + x^2 + x + 1)."""
+    c = 0
+    for b in data:
+        c = int(_CRC8[c ^ b])
+    return c
+
+
+def flac_crc16(data: bytes) -> int:
+    """FLAC's frame CRC-16 (polynomial x^16 + x^15 + x^2 + 1), one byte at a
+    time: the plain version of :func:`_crc16_many`."""
+    c = 0
+    for b in data:
+        c = ((c << 8) & 0xFFFF) ^ int(_CRC16[(c >> 8) ^ b])
+    return c
+
+
+def _crc16_many(chunks):
+    """CRC-16 of every byte string in ``chunks``, all in one pass over byte
+    positions (each step a table lookup across all strings)."""
+    lens = np.array([len(c) for c in chunks], dtype=np.int64)
+    buf = np.zeros((len(chunks), int(lens.max(initial=0))), dtype=np.uint8)
+    for i, c in enumerate(chunks):
+        buf[i, :len(c)] = np.frombuffer(c, dtype=np.uint8)
+    crc = np.zeros(len(chunks), dtype=np.int64)
+    for j in range(buf.shape[1]):
+        step = ((crc << 8) & 0xFFFF) ^ _CRC16[(crc >> 8) ^ buf[:, j]]
+        crc = np.where(j < lens, step, crc)
+    return [int(c) for c in crc]
+
+
+def _pack_bits(values, nbits) -> bytes:
+    """Big-endian bit fields (``values[i]`` in its low ``nbits[i]`` bits,
+    two's complement for negatives) packed into bytes, the last padded with
+    zero bits. A field may be wider than 64 bits only if its value is 1 (a
+    unary code)."""
+    nbits = np.asarray(nbits, dtype=np.int64)
+    values = np.asarray(values, dtype=np.int64)
+    values = np.where(nbits < 63, values & ((1 << np.minimum(nbits, 62)) - 1),
+                      values).astype(np.uint64)
+    idx = np.repeat(np.arange(len(nbits)), nbits)
+    pos = np.arange(len(idx)) - np.repeat(np.cumsum(nbits) - nbits, nbits)
+    shift = np.minimum(nbits[idx] - 1 - pos, 63).astype(np.uint64)
+    return np.packbits(((values[idx] >> shift) & np.uint64(1)).astype(np.uint8)
+                       ).tobytes()
+
+
+def _rice_fields(resid: np.ndarray, partition_order: int, block_size: int,
+                 order: int):
+    """(values, nbits) of a Rice-coded residual (method 0: 4-bit
+    parameters) in ``2**partition_order`` partitions, the first short by the
+    predictor ``order``, each with the parameter that minimises its bits."""
+    part_len = block_size >> partition_order
+    u = (resid << 1) ^ (resid >> 63)  # zigzag
+    ks = np.arange(15, dtype=np.int64)
+    vals, bits = [np.array([0, partition_order])], [np.array([2, 4])]
+    for p in range(1 << partition_order):
+        up = u[max(p * part_len - order, 0):(p + 1) * part_len - order]
+        cost = (up[None, :] >> ks[:, None]).sum(axis=1) + len(up) * (ks + 1)
+        k = int(np.argmin(cost))
+        q = up >> k
+        vals += [np.array([k]),
+                 np.stack([np.ones_like(q), up & ((1 << k) - 1)], 1).ravel()]
+        bits += [np.array([4]), np.stack([q + 1, np.full_like(q, k)], 1).ravel()]
+    return np.concatenate(vals), np.concatenate(bits)
+
+
+def _fixed_residual(x: np.ndarray, order: int) -> np.ndarray:
+    return np.diff(x, n=order) if order else x.copy()
+
+
+def _lpc_residual(x: np.ndarray, coeffs, shift: int) -> np.ndarray:
+    order = len(coeffs)
+    n = len(x)
+    pred = np.zeros(n - order, dtype=np.int64)
+    for j, c in enumerate(coeffs):
+        pred += int(c) * x[order - 1 - j:n - 1 - j]
+    return x[order:] - (pred >> shift)
+
+
+def _subframe_fields(x: np.ndarray, bps: int, kind: str, order: int = 0,
+                     coeffs=None, shift: int = 0, precision: int = 15):
+    """(values, nbits) of one subframe of ``x`` (int64) at ``bps`` bits."""
+    head = {"constant": 0, "verbatim": 1, "fixed": 8 + order,
+            "lpc": 31 + order}[kind]
+    vals, bits = [np.array([0, head, 0])], [np.array([1, 6, 1])]
+    n = len(x)
+    if kind == "constant":
+        vals.append(x[:1]); bits.append(np.array([bps]))
+    elif kind == "verbatim":
+        vals.append(x); bits.append(np.full(n, bps))
+    else:
+        vals.append(x[:order]); bits.append(np.full(order, bps))
+        if kind == "lpc":
+            vals.append(np.array([precision - 1, shift, *coeffs]))
+            bits.append(np.array([4, 5, *([precision] * order)]))
+            resid = _lpc_residual(x, coeffs, shift)
+        else:
+            resid = _fixed_residual(x, order)
+        # partition order 2 where the block splits into four partitions
+        # longer than the predictor order, else one partition
+        porder = 2 if (n % 4 == 0 and n // 4 > order) else 0
+        v, b = _rice_fields(resid, porder, n, order)
+        vals.append(v); bits.append(b)
+    return np.concatenate(vals), np.concatenate(bits)
+
+
+def _utf8_number(n: int) -> bytes:
+    """FLAC's UTF-8-like coding of a frame number (up to 36 bits)."""
+    if n < 0x80:
+        return bytes([n])
+    extra = next(e for e in range(1, 7) if n < 1 << (5 * e + 6))
+    first = ((0xFF << (7 - extra)) & 0xFF) | (n >> (6 * extra))
+    return bytes([first] + [0x80 | ((n >> (6 * (extra - 1 - i))) & 0x3F)
+                            for i in range(extra)])
+
+
+_FLAC_BLOCK_CODES = {192: 1, 576: 2, 1152: 3, 2304: 4, 4608: 5, 256: 8, 512: 9,
+                     1024: 10, 2048: 11, 4096: 12, 8192: 13, 16384: 14, 32768: 15}
+
+
+def _subframe_plan(x: np.ndarray, frame: int, channel: int, verbatim_frame: int,
+                   lpc_coeffs):
+    """The subframe the writer uses for one channel of one frame."""
+    n = len(x)
+    if (x == x[0]).all():
+        return {"kind": "constant"}
+    if frame == verbatim_frame:
+        return {"kind": "verbatim"}
+    if frame % 6 == 5:
+        order = min(1 + (frame // 6 + channel) % 8, n - 1)
+        return {"kind": "lpc", "order": order, "coeffs": lpc_coeffs[order],
+                "shift": 12}
+    return {"kind": "fixed", "order": min((frame + channel) % 5, n - 1)}
+
+
+def flac_encode(samples, sample_rate: int, bps: int = 16, seed: int = 0,
+                verbatim_frame: int = 1, declare_length: bool = True,
+                block: int = FLAC_BLOCK):
+    """One FLAC stream of ``samples`` ((N,) or (N, C) integers within
+    ``bps`` bits): (the bytes before the first frame, the frames without
+    their CRC-16). ``declare_length=False`` writes 0 for STREAMINFO's total
+    samples (a stream that does not declare its length)."""
+    import hashlib
+
+    x = np.asarray(samples, dtype=np.int64)
+    if x.ndim == 1:
+        x = x[:, None]
+    N, C = x.shape
+    rng = np.random.RandomState(seed)
+    # LPC coefficients for each order: a second-difference predictor plus
+    # seeded noise, quantised at shift 12 (any integers decode exactly)
+    lpc_coeffs = {}
+    for order in range(1, 9):
+        base = np.zeros(order)
+        base[:2] = [2.0, -1.0][:order] if order > 1 else [1.0]
+        lpc_coeffs[order] = [int(c) for c in np.round(
+            (base + rng.normal(0.0, 0.05, order)) * 4096)]
+    rate_code = _FLAC_RATE_CODES.get(sample_rate, 0)
+    depth_code = _FLAC_DEPTH_CODES[bps]
+    frames = []
+    for f, a in enumerate(range(0, N, block)):
+        blk = x[a:a + block]
+        n = len(blk)
+        if C == 2:
+            mode = _FLAC_STEREO_MODES[f % len(_FLAC_STEREO_MODES)]
+            left, right = blk[:, 0], blk[:, 1]
+            chans, depths = {
+                1: ([left, right], [bps, bps]),
+                8: ([left, left - right], [bps, bps + 1]),
+                9: ([left - right, right], [bps + 1, bps]),
+                10: ([(left + right) >> 1, left - right], [bps, bps + 1]),
+            }[mode]
+        else:
+            mode = C - 1
+            chans, depths = [blk[:, c] for c in range(C)], [bps] * C
+        bs_code = _FLAC_BLOCK_CODES.get(n, 6 if n <= 256 else 7)
+        header = bytes([0xFF, 0xF8, (bs_code << 4) | rate_code,
+                        (mode << 4) | (depth_code << 1)]) + _utf8_number(f)
+        if bs_code == 6:
+            header += bytes([n - 1])
+        elif bs_code == 7:
+            header += (n - 1).to_bytes(2, "big")
+        header += bytes([flac_crc8(header)])
+        vals, bits = [], []
+        for c, (chan, depth) in enumerate(zip(chans, depths)):
+            plan = _subframe_plan(chan, f, c, verbatim_frame, lpc_coeffs)
+            v, b = _subframe_fields(chan, depth, **plan)
+            vals.append(v)
+            bits.append(b)
+        frames.append(header + _pack_bits(np.concatenate(vals),
+                                          np.concatenate(bits)))
+    pcm = {8: "<i1", 16: "<i2"}.get(bps)
+    md5 = hashlib.md5(x.astype(pcm).tobytes()).digest() if pcm else bytes(16)
+    total = N if declare_length else 0
+    info = ((sample_rate << 44) | ((C - 1) << 41) | ((bps - 1) << 36) | total)
+    streaminfo = (block.to_bytes(2, "big") * 2 + bytes(6)
+                  + info.to_bytes(8, "big") + md5)
+    head = b"fLaC" + bytes([0x80, 0, 0, len(streaminfo)]) + streaminfo
+    return head, frames
+
+
+def write_flac_files(items) -> None:
+    """Write each ``(path, samples, sample_rate, options)`` of ``items`` as
+    FLAC (``options``: keyword arguments of :func:`flac_encode`), the frames'
+    CRC-16s computed for all files together."""
+    encoded = [flac_encode(samples, sr, **opts) for _p, samples, sr, opts in items]
+    crcs = iter(_crc16_many([fr for _h, frames in encoded for fr in frames]))
+    for (path, *_rest), (head, frames) in zip(items, encoded):
+        with open(path, "wb") as f:
+            f.write(head)
+            for fr in frames:
+                f.write(fr + next(crcs).to_bytes(2, "big"))
 
 
 # -- measurement helpers -----------------------------------------------------
@@ -928,12 +1205,14 @@ def k3_check(call, gmm, device, reps=5, term_bound=False):
 
 
 def kernel_checks(captured, gmm, device, reps=5, sm_clock_mhz=None,
-                  k3_term_bound=False):
+                  k3_term_bound=False, k1_plain_reps=3):
     """Each kernel against its plain version on one batch's recorded
     inputs (:func:`batch_inputs`), with times and bounds; K2 also on the
     last batch's, with the chain floor at ``sm_clock_mhz`` (none without
     it). K3 (:func:`k3_check`, ``k3_term_bound`` its ``term_bound``) only
-    where it was recorded."""
+    where it was recorded. K1's plain version, a loop over frames, is timed
+    over ``k1_plain_reps`` runs after a warm-up, or with 0 on the check's
+    own call alone (it takes seconds at a wide band)."""
     import torch
 
     from montreal_forced_aligner_tpu_torch.ops import cuda_viterbi as CV
@@ -948,7 +1227,14 @@ def kernel_checks(captured, gmm, device, reps=5, sm_clock_mhz=None,
     B, T, S = emit.shape
     D = lb + ub + 1
     aT_k, bp_k = CV.band_forward(emit, flens, band, start, lb, ub, scale)
+    _sync(device)
+    t0 = time.perf_counter()
     aT_p, bp_p = CV.band_forward_plain(emit, flens, band, start, lb, ub, scale)
+    _sync(device)
+    plain_ms = (time.perf_counter() - t0) * 1e3
+    if k1_plain_reps:
+        plain_ms = time_ms(lambda: CV.band_forward_plain(
+            emit, flens, band, start, lb, ub, scale), k1_plain_reps, device)
     within = torch.arange(T, device=emit.device)[:, None] < flens[None, :]
     within[0] = False
     _check(torch.equal(bp_k[within], bp_p[within]),
@@ -961,8 +1247,8 @@ def kernel_checks(captured, gmm, device, reps=5, sm_clock_mhz=None,
         "max_abs_err": a_err,
         "ms": time_ms(lambda: CV.band_forward(emit, flens, band, start, lb, ub,
                                               scale), reps, device),
-        "plain_ms": time_ms(lambda: CV.band_forward_plain(
-            emit, flens, band, start, lb, ub, scale), 3, device),
+        "plain_ms": plain_ms,
+        "plain_calls_timed": k1_plain_reps or 1,
         "bound_ms": bnd,
         "bound_by": by,
         "library_ms": None,
@@ -2442,9 +2728,10 @@ def _cli(argv):
 def phone_transcribe_phase(model_path, dict_path, corpus_dir, small_dir, out_dir,
                            device, batch_size=16):
     """**phone-transcribe**: ``align --use_phone_model`` through the CLI on
-    the corpus (the two-pass alignment, then the free phone decode against
-    a phone LM from the alignments, and its evaluation), and ``transcribe
-    --output_type alignment`` of the small corpus; each counted from 0."""
+    ``corpus_dir`` (the two-pass alignment, then the free phone decode
+    against a phone LM from the alignments, and its evaluation), and
+    ``transcribe --output_type alignment`` of ``small_dir``; each counted
+    from 0."""
     from montreal_forced_aligner_tpu_torch.ops import cuda_build
 
     out = {}
@@ -3032,6 +3319,423 @@ def segmentation_card_vs_cpu(card, cpu, frame_s=0.01):
     }
 
 
+# -- G2P, rules, language and FLAC: the g2p-align and train-g2p paths ---------
+
+
+def phone_spellings(phones):
+    """A prefix-free spelling of each phone: the first 20 by one letter
+    (a-t), the others by two, headed by one of the other six letters
+    (u-z), so a word's spelling determines its phones."""
+    singles = "abcdefghijklmnopqrst"
+    return {p: singles[i] if i < 20 else "uvwxyz"[(i - 20) % 6] + singles[(i - 20) // 6]
+            for i, p in enumerate(phones)}
+
+
+def build_spelled_lexicon(tmp: Path, phones, num_words=400, held_out=100, seed=0):
+    """``num_words`` spelled words of 2-7 phones drawn from the seed; all but
+    ``held_out`` of them go to the alignment dictionary. Returns (dictionary
+    path, {word: phones}, the held-out words)."""
+    rng = np.random.RandomState(seed)
+    spell = phone_spellings(phones)
+    words = {}
+    while len(words) < num_words:
+        ph = [phones[k] for k in rng.randint(len(phones), size=rng.randint(2, 8))]
+        words.setdefault("".join(spell[p] for p in ph), ph)
+    held = sorted(rng.choice(sorted(words), held_out, replace=False))
+    dict_path = tmp / "spelled.dict"
+    dict_path.write_text("".join(f"{w}\t{' '.join(words[w])}\n"
+                                 for w in sorted(words) if w not in set(held)))
+    return dict_path, words, held
+
+
+def g2p_rules_yaml(phones) -> str:
+    """Three context rules over ``phones`` in the reference schema: a
+    word-initial substitution of either of two phones, a deletion after a
+    phone, and a word-final substitution."""
+    p = [phones[i % len(phones)] for i in (7, 8, 9, 12, 3, 5, 6)]
+    return ("rules:\n"
+            f"  - segment: {p[0]}|{p[1]}\n    preceding_context: ^\n"
+            f"    replacement: {p[2]}\n"
+            f"  - segment: {p[3]}\n    preceding_context: {p[4]}\n"
+            "    replacement: ''\n"
+            f"  - segment: {p[5]}\n    following_context: $\n"
+            f"    replacement: {p[6]}\n")
+
+
+def _digest(samples) -> str:
+    import hashlib
+
+    a = np.asarray(samples, dtype="<i8")
+    return hashlib.sha1(np.ascontiguousarray(a.reshape(len(a), -1)).tobytes()
+                        ).hexdigest()
+
+
+def build_flac_corpus(wav_dir: Path, tmp: Path, words, seed=5, name="flac",
+                      words_per_s=2.5):
+    """The WAV corpus of :func:`build_corpus` rewritten as FLAC with new
+    transcripts (``words_per_s`` words a second drawn from ``words``). The
+    first block of every file is zeroed (digital silence, so CONSTANT
+    subframes), and the first file is stereo: its second channel is half the
+    first plus seeded noise, and the corpus reads the first. Returns (dir,
+    audio seconds, {flac path: digest of the samples written})."""
+    from montreal_forced_aligner_tpu_torch.io.wav import read_wave
+
+    rng = np.random.RandomState(seed)
+    words = sorted(words)
+    out = tmp / name
+    items, total = [], 0.0
+    for i, wav in enumerate(sorted(Path(wav_dir).rglob("*.wav"))):
+        dst = (out / wav.relative_to(wav_dir)).with_suffix(".flac")
+        dst.parent.mkdir(parents=True, exist_ok=True)
+        x = read_wave(wav, native=True).samples.astype(np.int64)
+        x[:FLAC_BLOCK] = 0
+        if i == 0:
+            x = np.stack([x, np.clip(x // 2 + rng.randint(-64, 64, len(x)),
+                                     -32768, 32767)], 1)
+        items.append((dst, x, SR, {"seed": i}))
+        seconds = len(x) / SR
+        n_words = max(2, int(seconds * words_per_s))
+        dst.with_suffix(".lab").write_text(" ".join(rng.choice(words, n_words)))
+        total += seconds
+    write_flac_files(items)
+    return out, total, {str(p): _digest(x) for p, x, _sr, _o in items}
+
+
+def build_g2p_fixture(tmp: Path, phones, wav_dir: Path, subset=8, num_words=400,
+                      held_out=100):
+    """The g2p-align path's inputs: the spelled dictionary and its held-out
+    words, the rules, the FLAC corpus, and a copy of its ``subset``
+    shortest files for the card-against-CPU check. The G2P model is trained
+    by :func:`g2p_align_phase`."""
+    import shutil
+
+    tmp.mkdir(parents=True, exist_ok=True)
+    dict_path, words, held = build_spelled_lexicon(tmp, phones, num_words, held_out)
+    rules_path = tmp / "rules.yaml"
+    rules_path.write_text(g2p_rules_yaml(phones))
+    t0 = time.perf_counter()
+    flac_dir, audio_s, written = build_flac_corpus(wav_dir, tmp, list(words))
+    writer_s = time.perf_counter() - t0
+    small_dir = tmp / "flac_small"
+    for path in sorted(written, key=lambda p: Path(p).stat().st_size)[:subset]:
+        src = Path(path)
+        dst = small_dir / src.relative_to(flac_dir)
+        dst.parent.mkdir(parents=True, exist_ok=True)
+        shutil.copy(src, dst)
+        shutil.copy(src.with_suffix(".lab"), dst.with_suffix(".lab"))
+    return {"dict_path": dict_path, "words": words, "held_out": held,
+            "rules_path": rules_path, "flac_dir": flac_dir, "small_dir": small_dir,
+            "audio_s": audio_s, "written": written, "writer_s": writer_s,
+            "g2p_path": tmp / "g2p_model.zip"}
+
+
+def g2p_prepare(tmp: Path, phones, wav_dir: Path):
+    """:func:`build_g2p_fixture`, then ``cli train_g2p`` on its dictionary
+    (the pair-ngram engine), timed."""
+    fx = build_g2p_fixture(tmp, phones, wav_dir)
+    t0 = time.perf_counter()
+    _cli(["train_g2p", fx["dict_path"], fx["g2p_path"]])
+    fx["g2p_train_s"] = time.perf_counter() - t0
+    return fx
+
+
+def flac_plain_decode(paths):
+    """Each FLAC file through the plain Python frame decoder: {path:
+    (digest of the samples, md5_ok)}. ``decode_flac`` is pointed at the
+    Python decoder for the call and restored after."""
+    from montreal_forced_aligner_tpu_torch.io import flac
+
+    native = flac._decode_frames_native
+    flac._decode_frames_native = flac._decode_frames_python
+    try:
+        out = {}
+        for p in paths:
+            st = flac.decode_flac(p)
+            out[str(p)] = (_digest(st.samples), st.md5_ok)
+        return out
+    finally:
+        flac._decode_frames_native = native
+
+
+def g2p_aligner(model_path, fx, device, batch_size=32):
+    """A :class:`PretrainedAligner` of the g2p-align path: the spelled
+    dictionary with the rules, the G2P model and the English tokenizer."""
+    from montreal_forced_aligner_tpu_torch.align.aligner import (
+        AlignerConfig,
+        PretrainedAligner,
+    )
+
+    return PretrainedAligner(
+        model_path, fx["dict_path"],
+        AlignerConfig(batch_size=batch_size, language="english"),
+        g2p_model_path=fx["g2p_path"], rules_path=fx["rules_path"], device=device)
+
+
+def g2p_align_run(model_path, fx, corpus_dir, device, batch_size=32):
+    """One aligner of the g2p-align path on ``corpus_dir``: (results, the
+    held-out words' generated pronunciations)."""
+    import torch
+
+    from montreal_forced_aligner_tpu_torch.corpus.corpus import Corpus
+
+    aligner = g2p_aligner(model_path, fx, torch.device(device), batch_size)
+    results = aligner.align_corpus(Corpus.load(corpus_dir))
+    lex = aligner.lexicon.words
+    return results, {w: [p.phones for p in lex[w]] for w in fx["held_out"]
+                     if w in lex}
+
+
+def g2p_align_phase(model_path, fx, out_dir, device, batch_size=32, warm_runs=3,
+                    sm_clock_mhz=None):
+    """Main path **g2p-align** on :func:`g2p_prepare`'s fixture and G2P
+    model: the model's word accuracy on the held-out words; every FLAC file
+    decoded natively (the writer's samples bit for bit, MD5 verified); then
+    ``cli align`` with ``--g2p_model_path``, ``--rules_path`` and
+    ``--language english`` on the FLAC corpus, counted from 0, every kernel
+    call recorded and the G2P lookups timed; then the same aligner through
+    the API: its first run (held-out tokens aligned with G2P
+    pronunciations), ``warm_runs`` warm runs, one synchronised at each
+    phase and, on the card, one profiled. Returns (report, the kernels held
+    on the first batch of pass 2)."""
+    import contextlib
+
+    import montreal_forced_aligner_tpu_torch.align.aligner as aligner_mod
+    from montreal_forced_aligner_tpu_torch.corpus.corpus import Corpus
+    from montreal_forced_aligner_tpu_torch.g2p.generator import (
+        G2PGenerator,
+        evaluate_g2p,
+    )
+    from montreal_forced_aligner_tpu_torch.g2p.trainer import G2PModel
+    from montreal_forced_aligner_tpu_torch.io.flac import decode_flac
+
+    words, held = fx["words"], fx["held_out"]
+    accuracy = evaluate_g2p(G2PGenerator(G2PModel.load(fx["g2p_path"])),
+                            [(w, words[w]) for w in held])
+
+    t0 = time.perf_counter()
+    stereo = 0
+    for path, digest in fx["written"].items():
+        st = decode_flac(path)
+        _check(st.md5_ok is True, f"{path}: the STREAMINFO MD5 does not match")
+        _check(_digest(st.samples) == digest,
+               f"{path}: the native decode differs from the samples written")
+        stereo += st.num_channels == 2
+    native_decode_s = time.perf_counter() - t0
+    _check(stereo == 1, f"{stereo} stereo files in the FLAC corpus")
+
+    g2p_s = [0.0]
+    add_g2p = aligner_mod.PretrainedAligner._add_g2p_pronunciations
+
+    def timed_add(self, *args):
+        t = time.perf_counter()
+        try:
+            return add_g2p(self, *args)
+        finally:
+            g2p_s[0] += time.perf_counter() - t
+
+    argv = ["align", fx["flac_dir"], fx["dict_path"], model_path, out_dir,
+            "--g2p_model_path", fx["g2p_path"], "--rules_path", fx["rules_path"],
+            "--language", "english", "--batch_size", batch_size,
+            "--device", device.type]
+    counted = record_kernel_calls(device)
+    _reset_peak(device)
+    with contextlib.ExitStack() as stack:
+        for rec in counted.values():
+            stack.enter_context(rec)
+        aligner_mod.PretrainedAligner._add_g2p_pronunciations = timed_add
+        stack.callback(setattr, aligner_mod.PretrainedAligner,
+                       "_add_g2p_pronunciations", add_g2p)
+        _lines, cold_wall, launches = _counted(device, lambda: _cli(argv))
+    peak = _peak_gib(device)
+    corpus = Corpus.load(fx["flac_dir"])
+    n_utts = corpus.num_utterances
+    n_batches = -(-n_utts // batch_size)
+    textgrids = len(list(Path(out_dir).rglob("*.TextGrid")))
+    _check(textgrids == len(corpus.files), f"{textgrids} TextGrids written")
+    on_card = device.type == "cuda"
+    for name, n in launches.items():
+        _check(n > 0 or not on_card, f"g2p-align: kernel {name} never launched")
+    bands = sorted({(a[0][4], a[0][5]) for a in counted["band_forward"].all_args})
+
+    aligner = g2p_aligner(model_path, fx, device, batch_size)
+    lex = aligner.lexicon.words
+    rule_variants = sum(len(prons) - 1 for prons in lex.values())
+    _check(rule_variants > 0, "the rules added no pronunciation variant")
+    t0 = time.perf_counter()
+    results = aligner.align_corpus(corpus)
+    _sync(device)
+    first_wall = time.perf_counter() - t0
+    _check(len(results) == n_utts, f"{len(results)} of {n_utts} utterances aligned")
+    for key, aln in results.items():
+        _check(aln.words and aln.phones and np.isfinite(aln.log_likelihood)
+               and aln.log_likelihood > -1e29, f"utterance {key}: bad alignment")
+    held_set = set(held)
+    held_tokens = sum(t in held_set for u in corpus.utterances
+                      for t in u.normalized_tokens)
+    aligned_g2p = sum(w.label in held_set for a in results.values() for w in a.words)
+    oov_tokens = sum(w.label == aligner.lexicon.oov_word
+                     for a in results.values() for w in a.words)
+    _check(aligned_g2p > 0, "no held-out token aligned with a G2P pronunciation")
+    warm = []
+    for _ in range(warm_runs):
+        t0 = time.perf_counter()
+        aligner.align_corpus(corpus)
+        _sync(device)
+        warm.append(time.perf_counter() - t0)
+    aligner.sync_phases = True
+    t0 = time.perf_counter()
+    aligner.align_corpus(corpus)
+    synced_wall = time.perf_counter() - t0
+    phases = dict(aligner.last_phase_seconds)
+    aligner.sync_phases = False
+    profiled = profile_warm_run(aligner, fx["flac_dir"]) if on_card else None
+    # K1's plain version takes seconds at this path's band (16, 64): its
+    # check's own call gives its time
+    checks = kernel_checks(batch_inputs(counted, n_batches), aligner.gmm, device,
+                           sm_clock_mhz=sm_clock_mhz, k1_plain_reps=0)
+    del counted, aligner
+    audio_s = fx["audio_s"]
+    median = statistics.median(warm)
+    return {
+        "path": "g2p-align",
+        "utterances": n_utts,
+        "audio_s": audio_s,
+        "flac_files": len(fx["written"]),
+        "flac_writer_s": fx["writer_s"],
+        "flac_native_decode_s": native_decode_s,
+        "g2p_train_s": fx["g2p_train_s"],
+        "g2p_held_out_word_accuracy": accuracy["word_accuracy"],
+        "g2p_held_out_phone_error_rate": accuracy["phone_error_rate"],
+        "dictionary_words": len(words) - len(held),
+        "rule_variants": rule_variants,
+        "batches": n_batches,
+        "band_buckets": [list(b) for b in bands],
+        "launches": launches,
+        "expected_launches": {k: 2 * n_batches * on_card for k in launches},
+        "cold_wall_s": cold_wall,
+        "cold_audio_s_per_s": audio_s / cold_wall,
+        "add_g2p_pronunciations_s": g2p_s[0],
+        "peak_gib": peak,
+        "first_api_wall_s": first_wall,
+        "held_out_tokens": held_tokens,
+        "held_out_tokens_aligned_by_g2p": aligned_g2p,
+        "oov_tokens": oov_tokens,
+        "warm_walls_s": warm,
+        "warm_median_wall_s": median,
+        "warm_audio_s_per_s": audio_s / median,
+        "synced_wall_s": synced_wall,
+        "phases_synced_s": phases,
+        "profiled_warm_run": profiled,
+    }, checks
+
+
+def g2p_card_vs_cpu(card, cpu, frame_shift=0.01):
+    """g2p-align's card run on the subset against the CPU's: the same G2P
+    entries, and the JAX package's parity bar."""
+    (r_card, g_card), (r_cpu, g_cpu) = card, cpu
+    _check(g_card == g_cpu, "G2P entries differ between the card and the CPU")
+    return {"utterances": len(r_cpu), "g2p_words": len(g_cpu),
+            **parity(r_card, r_cpu, frame_shift)}
+
+
+def flac_plain_check(fx, plain):
+    """The plain Python decoder's digests (:func:`flac_plain_decode`, in
+    workers) against the samples written, file by file."""
+    _check(set(plain) == set(fx["written"]), "plain decode: files differ")
+    for path, (digest, md5_ok) in plain.items():
+        _check(md5_ok is True, f"{path}: plain decode MD5 does not match")
+        _check(digest == fx["written"][path],
+               f"{path}: the plain decode differs from the native one")
+    return {"files": len(plain), "identical": True}
+
+
+TRAIN_G2P_RULES = ("rules:\n  - segment: aa\n    preceding_context: bb\n"
+                   "    following_context: $\n    replacement: ''\n")
+
+
+def train_g2p_phase(tmp: Path, device, n_utts=14):
+    """A ``TrainableAligner`` with a monophone stage at TINY_RECIPE's widths
+    and a pron_prob stage with ``train_g2p`` on train-reference's tone
+    corpus, with rules: twice on the card (the same regenerated lexicon,
+    bit-identical models) and once on the CPU (the same lexicon)."""
+    import torch
+
+    import montreal_forced_aligner_tpu_torch.training.pronunciation as pron_mod
+    from montreal_forced_aligner_tpu_torch.training.base import TrainerConfig
+    from montreal_forced_aligner_tpu_torch.training.trainer import (
+        StageConfig,
+        TrainableAligner,
+    )
+
+    tmp.mkdir(parents=True, exist_ok=True)
+    corpus_dir, _truths = make_tone_corpus(tmp, n_utts=n_utts)
+    dict_path = tmp / "tone.dict"
+    dict_path.write_text(
+        "".join(f"{w}\t{' '.join(p)}\n" for w, p in WORD_PHONES.items()))
+    rules_path = tmp / "tone_rules.yaml"
+    rules_path.write_text(TRAIN_G2P_RULES)
+    name, kind, iters, gauss, _leaves = TINY_RECIPE[0]
+    recipe = [StageConfig(name, kind, iters, gauss),
+              StageConfig("pron_prob", "pron_prob", 0, 0, train_g2p=True)]
+    train_lexicon = pron_mod.train_g2p_lexicon
+
+    def run(dev):
+        g2p_s = [0.0]
+
+        def timed(*args, **kwargs):
+            t = time.perf_counter()
+            try:
+                return train_lexicon(*args, **kwargs)
+            finally:
+                g2p_s[0] += time.perf_counter() - t
+
+        ta = TrainableAligner(
+            corpus_dir, dict_path, recipe=recipe,
+            base_config=TrainerConfig(boost_silence=1.0), batch_size=4,
+            variable_length_topology=False, rules_path=rules_path, device=dev)
+        pron_mod.train_g2p_lexicon = timed
+        try:
+            t0 = time.perf_counter()
+            model = ta.train()
+            _sync(dev)
+            wall = time.perf_counter() - t0
+        finally:
+            pron_mod.train_g2p_lexicon = train_lexicon
+        _check(len(getattr(ta, "g2p_models", {})) == 1, "no G2P model trained")
+        lexicon = {w: [(p.phones, p.probability) for p in prons]
+                   for w, prons in ta.lexicon.words.items()}
+        gmm = model.gmm
+        arrays = [model.transition_model.log_probs, gmm.weights,
+                  gmm.means_invvars, gmm.inv_vars, gmm.gconsts]
+        return {"lexicon": lexicon, "arrays": arrays, "wall_s": wall,
+                "stage_s": dict(ta.stage_seconds), "train_g2p_lexicon_s": g2p_s[0]}
+
+    runs = {"card_1": run(device), "card_2": run(device),
+            "cpu": run(torch.device("cpu"))}
+    ref = runs["card_1"]
+    _check(ref["lexicon"] == runs["card_2"]["lexicon"],
+           "two card runs regenerated different lexicons")
+    _check(all(np.array_equal(a, b) for a, b in
+               zip(ref["arrays"], runs["card_2"]["arrays"])),
+           "two card runs trained different models")
+    _check(ref["lexicon"] == runs["cpu"]["lexicon"],
+           "the card and the CPU regenerated different lexicons")
+    stage = ref["stage_s"]["pron_prob"]
+    return {
+        "path": "train-g2p",
+        "utterances": n_utts,
+        "walls_s": {k: r["wall_s"] for k, r in runs.items()},
+        "stage_s": {k: r["stage_s"] for k, r in runs.items()},
+        "pron_prob_stage_s": stage,
+        "train_g2p_lexicon_s": ref["train_g2p_lexicon_s"],
+        "g2p_share_of_stage": ref["train_g2p_lexicon_s"] / stage,
+        "lexicon_words": len(ref["lexicon"]),
+        "lexicon_pronunciations": sum(len(v) for v in ref["lexicon"].values()),
+        "card_runs_identical": True,
+        "card_cpu_lexicon_identical": True,
+    }
+
+
 KERNELS = [
     ("band_forward", "montreal_forced_aligner_tpu_torch/csrc/band_viterbi.cu",
      "montreal_forced_aligner_tpu/ops/pallas_viterbi.py:151"),
@@ -3213,7 +3917,9 @@ def main() -> int:
         del lvcsr_tr
         _emit({"main_path": transcribe_lvcsr_20k_phase(graph_20k.result(),
                                                        model_path, device)})
-        phone = phone_transcribe_phase(model_path, dict_path, corpus_dir, small2_dir,
+        # the 8-utterance corpus for both commands: a depth cut for the
+        # script's time budget (the whole corpus took 42 s)
+        phone = phone_transcribe_phase(model_path, dict_path, small2_dir, small2_dir,
                                        tmp, device)
         _emit({"phone_transcribe": phone})
         _emit({"transcribe_card_vs_cpu": transcribe_card_vs_cpu(
@@ -3244,6 +3950,30 @@ def main() -> int:
             segmentation_references(subset_dir, vad_dir, joined_dir, model_path,
                                     dict_path, "cuda"),
             seg_refs.result())})
+        # G2P, rules, the English tokenizer and FLAC audio
+        g2p_fx = g2p_prepare(tmp / "g2p", [f"p{i:02d}" for i in range(40)],
+                             corpus_dir)
+        _emit({"flac_writer_s": g2p_fx["writer_s"],
+               "g2p_train_s": g2p_fx["g2p_train_s"],
+               "flac_audio_s": g2p_fx["audio_s"]})
+        g2p, g2p_checks = g2p_align_phase(model_path, g2p_fx, tmp / "g2p_out",
+                                          device, sm_clock_mhz=sm_clock_mhz)
+        _emit({"main_path": g2p})
+        for name, c in g2p_checks.items():
+            _emit({"kernel_check": name, "path": "g2p-align (pass 2, first batch)",
+                   **c})
+        # the CPU halves in workers, beside the card's last runs: the plain
+        # Python FLAC decoder on every file, and g2p-align on the subset
+        files = sorted(g2p_fx["written"], key=lambda p: -Path(p).stat().st_size)
+        plain = [CpuTask("flac_plain_decode", (files[i::6],), tmp / f"flac{i}.pkl",
+                         threads=1) for i in range(6)]
+        cpu_ref = CpuTask("g2p_align_run", (model_path, g2p_fx, g2p_fx["small_dir"],
+                                            "cpu"), tmp / "g2p_cpu.pkl", threads=1)
+        g2p_small = g2p_align_run(model_path, g2p_fx, g2p_fx["small_dir"], device)
+        _emit({"main_path": train_g2p_phase(tmp / "tone_g2p", device)})
+        _emit({"g2p_card_vs_cpu": g2p_card_vs_cpu(g2p_small, cpu_ref.result())})
+        _emit({"flac_plain_decode": flac_plain_check(
+            g2p_fx, {k: v for task in plain for k, v in task.result().items()})})
         by_path = {"sat-2pass": reports["sat-2pass"]["launches"],
                    "train-mono": mono["launches"], "train-recipe": recipe["launches"],
                    "adapt": adapt["launches"],
@@ -3254,9 +3984,11 @@ def main() -> int:
                    "transcribe-alignment":
                        phone["transcribe --output_type alignment"]["launches"],
                    "train-ivector": ivec["launches"], "diarize": diar["launches"],
-                   "vad": vad["launches"], "create-segments": segs["launches"]}
+                   "vad": vad["launches"], "create-segments": segs["launches"],
+                   "g2p-align": g2p["launches"]}
         extra = {**mono_checks, "train_recipe": recipe_checks,
-                 "adapt": adapt_checks, "transcribe_dense": dense_checks}
+                 "adapt": adapt_checks, "transcribe_dense": dense_checks,
+                 "g2p_align": g2p_checks}
         _emit(stamp=False, obj=kernels_line(
             checks["sat-2pass"], reports["sat-2pass"]["launches"], by_path, extra))
 

@@ -41,9 +41,16 @@ from montreal_forced_aligner_tpu_torch.data import (
 )
 from montreal_forced_aligner_tpu_torch.device import resolve_device
 from montreal_forced_aligner_tpu_torch.dictionary.lexicon import (
+    Pronunciation,
     load_dictionary_argument,
 )
+from montreal_forced_aligner_tpu_torch.dictionary.rules import (
+    PhonologicalRule,
+    apply_rules_to_lexicon,
+)
 from montreal_forced_aligner_tpu_torch.dictionary.tokenizer import SimpleTokenizer
+from montreal_forced_aligner_tpu_torch.g2p.generator import G2PGenerator
+from montreal_forced_aligner_tpu_torch.g2p.trainer import G2PModel
 from montreal_forced_aligner_tpu_torch.graph.compiler import (
     AlignmentGraphCompiler,
     CompiledGraph,
@@ -91,6 +98,10 @@ from montreal_forced_aligner_tpu_torch.params import (
     GmmParams,
     fmllr_params_from_numpy,
     gmm_params_from_numpy,
+)
+from montreal_forced_aligner_tpu_torch.tokenization.languages import (
+    compose_tokenizer,
+    get_language_tokenizer,
 )
 
 POSITIONS = ("_B", "_E", "_I", "_S")
@@ -249,8 +260,6 @@ class AlignerConfig:
         if self.distributed or self.devices:
             out.append("distributed/devices: multi-GPU is ROADMAP.md Queue 1 "
                        "item 15")
-        if self.language is not None:
-            out.append("language: ROADMAP.md Queue 1 item 16 (host extras)")
         return out
 
 
@@ -339,10 +348,6 @@ class PretrainedAligner:
         self.device = resolve_device(device)
         self.config = config or AlignerConfig()
         bad = self.config.unsupported()
-        if g2p_model_path is not None:
-            bad.append("g2p_model_path: ROADMAP.md Queue 1 item 16 (host extras)")
-        if rules_path is not None:
-            bad.append("rules_path: ROADMAP.md Queue 1 item 16 (host extras)")
         if bad:
             raise NotImplementedError("not ported yet: " + "; ".join(bad))
         self.model_path = acoustic_model_path
@@ -359,10 +364,23 @@ class PretrainedAligner:
         )
         self.default_dictionary_key = default_key or next(iter(self.lexicons))
         self.lexicon = self.lexicons[self.default_dictionary_key]
+        # Rules and G2P pronunciations go to every dictionary of a
+        # multi-dictionary argument: the reference package changes only the
+        # default one, so other speakers' compilers never saw them.
+        if rules_path is not None:
+            rules = PhonologicalRule.load_rules(rules_path)
+            for lex in self.lexicons.values():
+                apply_rules_to_lexicon(lex, rules)
+        self.g2p = None
+        if g2p_model_path is not None:
+            self.g2p = G2PGenerator(G2PModel.load(g2p_model_path))
         all_words = set()
         for lex in self.lexicons.values():
             all_words |= set(lex.words)
-        self.tokenizer = SimpleTokenizer(word_set=all_words)
+        self.tokenizer = compose_tokenizer(
+            SimpleTokenizer(word_set=all_words),
+            get_language_tokenizer(self.config.language, word_set=all_words),
+        )
         self.compilers = {
             key: AlignmentGraphCompiler(
                 self.model.transition_model,
@@ -492,10 +510,11 @@ class PretrainedAligner:
 
     def _graph_pool(self, num_items: int):
         """Lazily created persistent graph-compile pool, or None when the
-        fan-out is off or the corpus is too small to pay for starting the
+        fan-out is off, G2P changes the lexicons during the run (the workers
+        hold copies), or the corpus is too small to pay for starting the
         workers."""
         n = self.config.num_graph_workers
-        if n <= 0 or num_items < 4 * n:
+        if n <= 0 or self.g2p is not None or num_items < 4 * n:
             return None
         if self._graph_pool_obj is None:
             from montreal_forced_aligner_tpu_torch.graph.parallel import (
@@ -504,6 +523,27 @@ class PretrainedAligner:
 
             self._graph_pool_obj = ParallelGraphCompiler(self.compilers, n)
         return self._graph_pool_obj
+
+    def _add_g2p_pronunciations(self, tokens, lexicon) -> None:
+        """Give ``lexicon`` a G2P pronunciation for each of ``tokens`` it
+        lacks, where every generated phone is in the model (reference online
+        align, ``online/alignment.py:44-75``). A word that G2P gives no usable
+        pronunciation stays out of vocabulary."""
+        known_phones = set()
+        for name in self.model.phone_table:
+            base = name
+            for pos in POSITIONS:
+                if base.endswith(pos):
+                    base = base[: -len(pos)]
+            known_phones.add(base)
+        for tok in tokens:
+            if tok in lexicon.words:
+                continue
+            for phones, _score in self.g2p.generate(tok, num_pronunciations=1):
+                if all(p in known_phones for p in phones):
+                    lexicon.add_pronunciation(
+                        tok, Pronunciation(phones=tuple(phones))
+                    )
 
     # -- pipeline ------------------------------------------------------------
     def _fmllr_second_pass_feats(self, prepared, num_speakers, mark):
@@ -672,6 +712,8 @@ class PretrainedAligner:
             key = self.speaker_dictionary_map.get(
                 utt.speaker, self.default_dictionary_key
             )
+            if self.g2p is not None:
+                self._add_g2p_pronunciations(tokens, self.lexicons[key])
             items.append((key, tokens))
             item_utts.append(i)
         from montreal_forced_aligner_tpu_torch.graph.native_compile import (

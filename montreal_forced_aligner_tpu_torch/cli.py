@@ -16,6 +16,11 @@
     python -m montreal_forced_aligner_tpu_torch.cli evaluate_alignments REF_DIR TEST_DIR
     python -m montreal_forced_aligner_tpu_torch.cli train_lm SOURCE OUTPUT
     python -m montreal_forced_aligner_tpu_torch.cli train_dictionary CORPUS DICT MODEL OUT
+    python -m montreal_forced_aligner_tpu_torch.cli train_g2p DICT OUTPUT_MODEL
+    python -m montreal_forced_aligner_tpu_torch.cli g2p {WORD_LIST,CORPUS} G2P_MODEL OUT
+    python -m montreal_forced_aligner_tpu_torch.cli validate_dictionary DICT
+    python -m montreal_forced_aligner_tpu_torch.cli train_tokenizer PAIRS OUTPUT_MODEL
+    python -m montreal_forced_aligner_tpu_torch.cli tokenize TEXT TOKENIZER_MODEL OUT
     python -m montreal_forced_aligner_tpu_torch.cli model {inspect,add,save,add_words,list,download}
     python -m montreal_forced_aligner_tpu_torch.cli {version,configure,history}
 
@@ -106,10 +111,9 @@ def _align_parser(sub) -> None:
                         "single-pass with the speaker-independent model "
                         "instead of the fMLLR two-pass)")
     a.add_argument("--g2p_model_path", default=None,
-                   help="G2P model for OOV pronunciations: not ported yet, "
-                        "raises")
+                   help="G2P model: OOV words get generated pronunciations")
     a.add_argument("--rules_path", default=None,
-                   help="Phonological rules: not ported yet, raises")
+                   help="Phonological rules yaml for pronunciation variants")
     a.add_argument("--profile_dir", default=None,
                    help="Write a torch.profiler trace of the alignment here")
     a.add_argument("--config_path", default=None,
@@ -128,7 +132,8 @@ def _align_parser(sub) -> None:
     a.add_argument("--custom_mapping_path", default=None,
                    help="Yaml mapping phones across phone sets for evaluation")
     a.add_argument("--language", default=None,
-                   help="Language-specific tokenizer: not ported yet, raises")
+                   help="Language-specific tokenizer (english, japanese, "
+                        "chinese, korean, thai)")
 
 
 def _train_parser(sub) -> None:
@@ -170,12 +175,13 @@ def _train_parser(sub) -> None:
                    choices=_OUTPUT_FORMATS)
     t.add_argument("--include_original_text", action="store_true")
     t.add_argument("--language", default=None,
-                   help="Language-specific tokenizer: not ported yet, raises")
+                   help="Language-specific tokenizer (english, japanese, "
+                        "chinese, korean, thai)")
     t.add_argument("--config_path", default=None,
                    help="Yaml training recipe + parameters (the reference "
                         "schema)")
     t.add_argument("--rules_path", default=None,
-                   help="Phonological rules: not ported yet, raises")
+                   help="Phonological rules yaml applied to the dictionary")
     t.add_argument("--topology_path", default=None)
     t.add_argument("--phone_groups_path", default=None)
     t.add_argument("--variable_length_topology", dest="variable_length_topology",
@@ -186,8 +192,9 @@ def _train_parser(sub) -> None:
     t.add_argument("--profile_dir", default=None,
                    help="Write a torch.profiler trace of the run here")
     t.add_argument("--train_g2p", action="store_true",
-                   help="G2P-trained pronunciation stages: not ported yet, "
-                        "raises")
+                   help="Pronunciation-probability stages train a G2P model "
+                        "on the aligned pronunciations and regenerate the "
+                        "lexicon from it")
 
 
 def _host_parsers(sub) -> None:
@@ -230,7 +237,8 @@ def _host_parsers(sub) -> None:
     v.add_argument("--output_directory", "--output_path", default=None,
                    help="Write oovs_found.txt / utterance_oovs.txt here")
     v.add_argument("--rules_path", default=None,
-                   help="Phonological rules: not ported yet, raises")
+                   help="Phonological rules yaml applied to the dictionary "
+                        "before validation")
     v.add_argument("--config_path", default=None)
 
     e = sub.add_parser("evaluate_alignments",
@@ -429,6 +437,82 @@ def _segmentation_parsers(sub) -> None:
                    help="Aligned silence gap that splits segments")
 
 
+def _g2p_parsers(sub) -> None:
+    """The host commands over G2P and tokenizer models: train_g2p, g2p,
+    validate_dictionary, train_tokenizer and tokenize."""
+    t = sub.add_parser("train_g2p",
+                       help="Train a G2P model from a pronunciation dictionary")
+    _num_jobs(t)
+    t.add_argument("dictionary_path")
+    t.add_argument("output_model_path")
+    t.add_argument("--order", type=int, default=8, help="default 8")
+    t.add_argument("--num_alignment_iterations", type=int, default=10,
+                   help="default 10")
+    t.add_argument("--evaluate", "--validate", dest="evaluation_mode",
+                   action="store_true",
+                   help="Hold out a random tenth of the dictionary, report "
+                        "word accuracy and phone error rate on it")
+    t.add_argument("--phonetisaurus", action="store_true",
+                   help="Use the Phonetisaurus-style engine (many-to-many "
+                        "chunked EM alignment + graphone n-gram); default is "
+                        "the pair-ngram engine with random-start EM")
+    t.add_argument("--random_starts", type=int, default=10,
+                   help="Random EM starts for the pair-ngram engine "
+                        "(default 10)")
+    t.add_argument("--reference_format", action="store_true",
+                   help="Write a reference-format G2P archive (binary "
+                        "OpenFst model.fst + symbol tables) instead of the "
+                        "graphone-LM zip")
+
+    g = sub.add_parser("g2p", help="Generate pronunciations for a word list "
+                       "or a corpus directory's vocabulary")
+    _num_jobs(g)
+    g.add_argument("input_path")
+    g.add_argument("g2p_model_path")
+    g.add_argument("output_path")
+    # None = not given: a --config_path value applies, else the default
+    g.add_argument("--num_pronunciations", type=int, default=None,
+                   help="default 1")
+    g.add_argument("--dictionary_path", default=None,
+                   help="Existing dictionary: only OOV words get "
+                        "pronunciations")
+    g.add_argument("--include_bracketed", action="store_true", default=None,
+                   help="Also generate for [bracketed]/(...)/<...> words")
+    g.add_argument("--export_scores", action="store_true", default=None,
+                   help="Add a column with each pronunciation's score")
+    g.add_argument("--sorted", dest="sorted_output", action="store_true",
+                   help="Sort the output alphabetically")
+    g.add_argument("--config_path", default=None,
+                   help="Yaml parameter file (reference --config_path "
+                        "semantics)")
+
+    v = sub.add_parser("validate_dictionary",
+                       help="G2P-based dictionary QA")
+    v.add_argument("dictionary_path")
+    v.add_argument("--order", type=int, default=6, help="default 6")
+
+    tt = sub.add_parser("train_tokenizer", help="Train a tokenizer from "
+                        "tab-separated (raw, tokenized) lines")
+    _num_jobs(tt)
+    tt.add_argument("training_file")
+    tt.add_argument("output_model_path")
+    tt.add_argument("--order", type=int, default=6, help="default 6")
+    tt.add_argument("--evaluate", "--validate", dest="evaluation_mode",
+                    action="store_true",
+                    help="Hold out a random tenth of the pairs and report "
+                         "utterance accuracy and character error rate on it")
+    tt.add_argument("--phonetisaurus", action="store_true",
+                    help="Accepted for reference-CLI parity: the trainable "
+                         "tokenizer is always the pair-ngram EM aligner")
+
+    k = sub.add_parser("tokenize", help="Tokenize text with a trained "
+                       "tokenizer")
+    _num_jobs(k)
+    k.add_argument("input_path")
+    k.add_argument("tokenizer_model_path")
+    k.add_argument("output_path")
+
+
 def _parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(prog="mfa-tpu-torch")
     p.add_argument("-v", "--verbose", action="store_true",
@@ -452,6 +536,7 @@ def _parser() -> argparse.ArgumentParser:
     _transcribe_parser(sub)
     _segmentation_parsers(sub)
     _host_parsers(sub)
+    _g2p_parsers(sub)
     return p
 
 
@@ -850,12 +935,16 @@ def _validate(args) -> int:
         print("Error: --test_transcriptions requires --acoustic_model_path",
               file=sys.stderr)
         return 1
-    if args.rules_path is not None:
-        raise NotImplementedError(
-            "--rules_path: ROADMAP.md Queue 1 item 16 (host extras)")
     ignore_acoustics = bool(setting("ignore_acoustics", False))
     speaker_characters = setting("speaker_characters", "0")
     lex = Lexicon.load(args.dictionary_path)
+    if args.rules_path is not None:
+        from montreal_forced_aligner_tpu_torch.dictionary.rules import (
+            PhonologicalRule,
+            apply_rules_to_lexicon,
+        )
+
+        apply_rules_to_lexicon(lex, PhonologicalRule.load_rules(args.rules_path))
     corpus = Corpus.load(
         args.corpus_directory,
         speaker_characters=speaker_characters,
@@ -1698,6 +1787,218 @@ def _create_segments(args) -> int:
     return 0
 
 
+def _train_g2p(args) -> int:
+    """Train a G2P model from a pronunciation dictionary (reference ``mfa
+    train_g2p``: the PyniniTrainer pair-ngram engine by default,
+    ``g2p/trainer.py:79-880``; ``--phonetisaurus`` the chunked-graphone
+    engine, ``g2p/phonetisaurus_trainer.py``)."""
+    from montreal_forced_aligner_tpu_torch.dictionary.lexicon import (
+        parse_dictionary_file,
+    )
+    from montreal_forced_aligner_tpu_torch.g2p.pair_ngram import PairNgramTrainer
+    from montreal_forced_aligner_tpu_torch.g2p.trainer import G2PTrainer
+
+    def make_trainer():
+        if args.phonetisaurus:
+            return G2PTrainer(
+                order=args.order,
+                num_alignment_iterations=args.num_alignment_iterations,
+            )
+        return PairNgramTrainer(
+            order=args.order,
+            num_random_starts=args.random_starts,
+            max_em_iterations=args.num_alignment_iterations * 2,
+        )
+
+    if args.evaluation_mode:
+        # 90/10 split evaluation before the full train (reference
+        # ``g2p/trainer.py:736-770``, validation_proportion 0.1)
+        import random
+
+        from montreal_forced_aligner_tpu_torch.g2p.generator import (
+            G2PGenerator,
+            evaluate_g2p,
+        )
+
+        pairs = [
+            (word, pron.phones)
+            for word, pron in parse_dictionary_file(args.dictionary_path)
+        ]
+        rng = random.Random(1234)
+        words = sorted({w for w, _p in pairs})
+        held = set(rng.sample(words, max(1, len(words) // 10)))
+        train_pairs = [(w, p) for w, p in pairs if w not in held]
+        test_pairs = [(w, p) for w, p in pairs if w in held]
+        eval_model = make_trainer().train_from_pairs(train_pairs)
+        metrics = evaluate_g2p(G2PGenerator(eval_model), test_pairs)
+        print(
+            f"Evaluation on {len(test_pairs)} held-out pronunciations: "
+            f"word accuracy {metrics['word_accuracy']:.4f}, "
+            f"phone error rate {metrics['phone_error_rate']:.4f}"
+        )
+    model = make_trainer().train_from_dictionary(args.dictionary_path)
+    if args.reference_format:
+        from montreal_forced_aligner_tpu_torch.g2p.export_openfst import (
+            export_reference_g2p,
+        )
+
+        export_reference_g2p(model, args.output_model_path)
+        print(f"Saved reference-format G2P archive to {args.output_model_path}")
+    else:
+        model.save(args.output_model_path)
+        print(f"Saved G2P model to {args.output_model_path}")
+    return 0
+
+
+def _g2p(args) -> int:
+    """Generate pronunciations for a word list (one word per line) or a
+    corpus directory's vocabulary (reference ``mfa g2p``,
+    ``g2p/generator.py:475-1100``)."""
+    from montreal_forced_aligner_tpu_torch.g2p.generator import G2PGenerator
+    from montreal_forced_aligner_tpu_torch.g2p.trainer import G2PModel
+
+    data = _load_command_config(args.config_path) if args.config_path else {}
+    setting = _settings(args, data)
+    num_pronunciations = int(setting("num_pronunciations", 1))
+    include_bracketed = bool(setting("include_bracketed", False))
+    export_scores = bool(setting("export_scores", False))
+    gen = G2PGenerator(G2PModel.load(args.g2p_model_path))
+    input_path = Path(args.input_path)
+    if input_path.is_dir():
+        # corpus mode: vocabulary from every transcript (reference
+        # PyniniCorpusGenerator / PyniniDictionaryCorpusGenerator), scanned
+        # directly so text-only corpora (no audio) work too
+        from montreal_forced_aligner_tpu_torch.dictionary.tokenizer import (
+            SimpleTokenizer,
+        )
+        from montreal_forced_aligner_tpu_torch.io.textgrid import TextGrid
+
+        tok = SimpleTokenizer()
+        vocab = set()
+        for ext in (".lab", ".txt"):
+            for f in input_path.rglob(f"*{ext}"):
+                vocab.update(tok.tokenize(f.read_text(encoding="utf-8")))
+        for ext in (".TextGrid", ".textgrid"):
+            for f in input_path.rglob(f"*{ext}"):
+                tg = TextGrid.read(f)
+                for ivs in tg.tiers.values():
+                    for iv in ivs:
+                        if iv.label.strip():
+                            vocab.update(tok.tokenize(iv.label))
+        words = sorted(vocab)
+    else:
+        words = [
+            w.strip().lower()
+            for w in input_path.read_text(encoding="utf-8").splitlines()
+            if w.strip()
+        ]
+    if not include_bracketed:
+        words = [w for w in words if not (w[:1] in "[(<" and w[-1:] in "])>")]
+    if args.dictionary_path:
+        from montreal_forced_aligner_tpu_torch.dictionary.lexicon import Lexicon
+
+        known = set(Lexicon.load(args.dictionary_path).words)
+        words = [w for w in words if w not in known]
+    if args.sorted_output:
+        words = sorted(words)
+    with open(args.output_path, "w", encoding="utf-8") as f:
+        n = 0
+        for w in words:
+            for phones, score in gen.generate(w, num_pronunciations):
+                if export_scores:
+                    f.write(f"{w}\t{score:.4f}\t{' '.join(phones)}\n")
+                else:
+                    f.write(f"{w}\t{' '.join(phones)}\n")
+                n += 1
+    print(f"Wrote {n} pronunciations for {len(words)} words to {args.output_path}")
+    return 0
+
+
+def _validate_dictionary(args) -> int:
+    """G2P-based dictionary QA (reference ``mfa validate_dictionary``,
+    ``validation/dictionary_validator.py:15``): train a G2P model on the
+    dictionary and flag entries whose pronunciations disagree strongly."""
+    from montreal_forced_aligner_tpu_torch.dictionary.lexicon import (
+        parse_dictionary_file,
+    )
+    from montreal_forced_aligner_tpu_torch.evaluation import edit_distance
+    from montreal_forced_aligner_tpu_torch.g2p.generator import G2PGenerator
+    from montreal_forced_aligner_tpu_torch.g2p.trainer import G2PTrainer
+
+    pairs = [
+        (w, p.phones) for w, p in parse_dictionary_file(args.dictionary_path)
+    ]
+    gen = G2PGenerator(G2PTrainer(order=args.order).train_from_pairs(pairs))
+    flagged = []
+    for w, phones in pairs:
+        hyps = gen.generate(w, num_pronunciations=3)
+        if not hyps:
+            continue
+        best = min(edit_distance(list(phones), list(h)) for h, _s in hyps)
+        if best > max(2, len(phones) // 2):
+            flagged.append((w, " ".join(phones), best))
+    print(f"Validated {len(pairs)} entries; {len(flagged)} flagged")
+    for w, pron, d in flagged[:50]:
+        print(f"  {w}\t{pron}\t(phone distance {d})")
+    return 0
+
+
+def _train_tokenizer(args) -> int:
+    """Train a tokenizer from tab-separated (raw, tokenized) lines
+    (reference ``mfa train_tokenizer``, ``tokenization/trainer.py``)."""
+    from montreal_forced_aligner_tpu_torch.tokenization.trainer import (
+        TokenizerTrainer,
+    )
+
+    pairs = []
+    for line in Path(args.training_file).read_text(encoding="utf-8").splitlines():
+        if "\t" in line:
+            raw, tok = line.split("\t", 1)
+            pairs.append((raw.strip(), tok.strip()))
+    if args.evaluation_mode and len(pairs) >= 10:
+        import random
+
+        from montreal_forced_aligner_tpu_torch.evaluation import edit_distance
+
+        rng = random.Random(1234)
+        idx = set(rng.sample(range(len(pairs)), max(1, len(pairs) // 10)))
+        train = [p for i, p in enumerate(pairs) if i not in idx]
+        test = [p for i, p in enumerate(pairs) if i in idx]
+        tok = TokenizerTrainer(order=args.order).train_from_pairs(train)
+        correct = 0
+        cers = []
+        for raw, ref in test:
+            hyp = tok.tokenize(raw)
+            correct += hyp == ref
+            # spaces count: they are exactly what tokenization predicts
+            cers.append(edit_distance(list(ref), list(hyp)) / max(len(ref), 1))
+        print(
+            f"Evaluation on {len(test)} held-out lines: utterance accuracy "
+            f"{correct / len(test):.4f}, CER "
+            f"{sum(cers) / len(cers):.4f}"
+        )
+    tokenizer = TokenizerTrainer(order=args.order).train_from_pairs(pairs)
+    tokenizer.model.save(args.output_model_path)
+    print(f"Trained tokenizer on {len(pairs)} pairs -> {args.output_model_path}")
+    return 0
+
+
+def _tokenize(args) -> int:
+    """Tokenize text with a trained tokenizer (reference ``mfa tokenize``)."""
+    from montreal_forced_aligner_tpu_torch.g2p.trainer import G2PModel
+    from montreal_forced_aligner_tpu_torch.tokenization.trainer import (
+        TrainedTokenizer,
+    )
+
+    tok = TrainedTokenizer(model=G2PModel.load(args.tokenizer_model_path))
+    lines = Path(args.input_path).read_text(encoding="utf-8").splitlines()
+    with open(args.output_path, "w", encoding="utf-8") as f:
+        for line in lines:
+            f.write(tok.tokenize(line.strip()) + "\n")
+    print(f"Tokenized {len(lines)} lines -> {args.output_path}")
+    return 0
+
+
 _COMMANDS = {
     "align": _align, "align_one": _align_one, "train": _train, "adapt": _adapt,
     "validate": _validate, "transcribe": _transcribe,
@@ -1708,6 +2009,9 @@ _COMMANDS = {
     "train_lm": _train_lm, "train_dictionary": _train_dictionary,
     "model": _model, "models": _model, "version": _version,
     "configure": _configure, "history": _history,
+    "train_g2p": _train_g2p, "g2p": _g2p,
+    "validate_dictionary": _validate_dictionary,
+    "train_tokenizer": _train_tokenizer, "tokenize": _tokenize,
 }
 
 

@@ -223,26 +223,47 @@ def read_wave(
     channel: int = 0,
     native: bool = False,
 ) -> WaveData:
-    """Read a (segment of a) WAV file; selects one channel. FLAC, MP3 and
-    Opus raise ``NotImplementedError`` until their decoders are ported.
+    """Read a (segment of a) WAV/FLAC/MP3/Opus file; selects one channel.
 
     With ``native=True``, sources whose samples are exactly representable as
-    int16 (16-bit PCM WAV) are returned as int16 instead of
+    int16 (16-bit PCM WAV, <=16-bit FLAC) are returned as int16 instead of
     float32. Values are identical either way (int16-scaled); the narrow
     dtype halves host memory traffic and host->device transfer on the
     alignment hot path, where waveforms are only padded and shipped.
     """
     lower = str(path).lower()
     native_i16 = False
-    if lower.endswith((".flac", ".mp3", ".opus")):
-        raise NotImplementedError(
-            f"{path}: only WAV is decoded so far; FLAC/MP3/Opus decoding is "
-            "ROADMAP.md Queue 1 item 16 (host extras)"
+    if lower.endswith(".flac"):
+        from montreal_forced_aligner_tpu_torch.io.flac import decode_flac
+
+        st = decode_flac(path)
+        if native and st.bits_per_sample == 16:
+            samples = st.samples.astype(np.int16)
+            native_i16 = True
+        else:
+            scale = 2.0 ** (16 - st.bits_per_sample)
+            samples = st.samples.astype(np.float32) * scale
+        if st.num_channels == 1:
+            samples = samples[:, 0]
+        sample_rate = st.sample_rate
+        num_channels = st.num_channels
+    elif lower.endswith(".mp3") or lower.endswith(".opus"):
+        from montreal_forced_aligner_tpu_torch.io.codecs import decode_mp3, decode_opus
+
+        pcm, sample_rate = (
+            decode_mp3(path) if lower.endswith(".mp3") else decode_opus(path)
         )
-    with open(path, "rb") as f:
-        data = f.read()
-    samples, sample_rate, num_channels = _parse_wav(data, native=native)
-    native_i16 = samples.dtype == np.int16
+        num_channels = pcm.shape[1]
+        samples = pcm.astype(np.float32)
+        if num_channels == 1:
+            samples = samples[:, 0]
+    else:
+        with open(path, "rb") as f:
+            data = f.read()
+        samples, sample_rate, num_channels = _parse_wav(
+            data, native=native
+        )
+        native_i16 = samples.dtype == np.int16
     if num_channels > 1:
         samples = samples[:, channel]
     total = len(samples)

@@ -65,6 +65,8 @@ def align_utterance_online(
     dev = aligner.device
     cfg = aligner.config
     tokens = aligner.tokenizer.tokenize(text)
+    if aligner.g2p is not None:
+        aligner._add_g2p_pronunciations(tokens, aligner.lexicon)
     graph = aligner.compiler.compile(tokens)
 
     L = _round_up(len(samples), 16000)

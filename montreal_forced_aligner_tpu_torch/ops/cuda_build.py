@@ -49,6 +49,8 @@ SOURCES: Dict[str, Source] = {
     "fmllr_solve": Source(_PKG / "native" / "fmllr_solve.cc", "g++", _GXX_FLAGS),
     "graph_assembly": Source(_PKG / "native" / "graph_assembly.cc", "g++",
                              _GXX_FLAGS),
+    "flac_decode": Source(_PKG / "native" / "flac_decode.cc", "g++",
+                          _GXX_FLAGS),
 }
 
 # kernel name -> launches since the last reset; each wrapper adds one where

@@ -62,6 +62,10 @@ from montreal_forced_aligner_tpu_torch.ops.viterbi import (
     viterbi_align_batch_band,
 )
 from montreal_forced_aligner_tpu_torch.params import GmmParams
+from montreal_forced_aligner_tpu_torch.tokenization.languages import (
+    compose_tokenizer,
+    get_language_tokenizer,
+)
 
 
 @dataclass
@@ -280,13 +284,9 @@ class TrainingPipeline:
         language=None,
         device="cuda",
     ):
-        bad = []
         if mesh is not None:
-            bad.append("mesh: multi-GPU is ROADMAP.md Queue 1 item 15")
-        if language is not None:
-            bad.append("language: ROADMAP.md Queue 1 item 16 (host extras)")
-        if bad:
-            raise NotImplementedError("not ported yet: " + "; ".join(bad))
+            raise NotImplementedError(
+                "not ported yet: mesh: multi-GPU is ROADMAP.md Queue 1 item 15")
         self.device = resolve_device(device)
         self.corpus = corpus
         self.lexicon = lexicon
@@ -304,7 +304,10 @@ class TrainingPipeline:
         self.num_graph_workers = num_graph_workers
         self._graph_pool = None
         self.last_transfer_mode: Optional[str] = None
-        self.tokenizer = SimpleTokenizer(word_set=set(lexicon.words))
+        self.tokenizer = compose_tokenizer(
+            SimpleTokenizer(word_set=set(lexicon.words)),
+            get_language_tokenizer(language, word_set=set(lexicon.words)),
+        )
         self.batches: List[FeatureBatch] = []
         self.graphs: List[CompiledGraph] = []
         self._spk_mean: Optional[np.ndarray] = None

@@ -317,9 +317,64 @@ def train_g2p_lexicon(
     order: int = 6,
 ):
     """``train_g2p`` variant of the pronunciation-probability stage
-    (reference ``acoustic_modeling/pronunciation_probabilities.py:160,420``):
-    it trains a G2P model, which this port does not have yet."""
-    raise NotImplementedError(
-        "train_g2p (a G2P model trained on the aligned pronunciations): "
-        "ROADMAP.md Queue 1 item 16 (host extras)"
+    (reference ``acoustic_modeling/pronunciation_probabilities.py:160,420``
+    ``train_g2p_lexicon``): train a G2P model on the aligned
+    word->pronunciation data accumulated from the previous stage's
+    alignments, then regenerate the shared lexicon's pronunciations from
+    that model so subsequent stages compile graphs against the
+    G2P-generated lexicon (the reference swaps the dictionary's lexicon
+    FST for the trained G2P transducer and sets ``use_g2p``).
+
+    Returns the trained :class:`~...g2p.trainer.G2PModel`; the lexicon is
+    updated in place (words the model cannot pronounce keep their
+    original entries).
+    """
+    import math
+
+    from montreal_forced_aligner_tpu_torch.dictionary.lexicon import Pronunciation
+    from montreal_forced_aligner_tpu_torch.g2p.generator import G2PGenerator
+    from montreal_forced_aligner_tpu_torch.g2p.trainer import G2PTrainer
+
+    pairs = []
+    for word, prons in sorted(counter.word_pronunciation_counts.items()):
+        if not word or word.startswith(("<", "[", "{", "(")):
+            continue
+        for pron_str, count in sorted(prons.items()):
+            phones = pron_str.split()
+            if not phones:
+                continue
+            # weight by observed count (capped: the EM aligner's cost is
+            # linear in training pairs and heavy repetition adds nothing)
+            pairs.extend([(word, phones)] * min(int(count), max_repeats))
+    if not pairs:
+        logger.warning("train_g2p_lexicon: no aligned pronunciations")
+        return None
+    model = G2PTrainer(order=order).train_from_pairs(pairs)
+    gen = G2PGenerator(model)
+    replaced = 0
+    for word in sorted(lexicon.words):
+        if not word or word.startswith(("<", "[", "{", "(")):
+            continue
+        cands = gen.generate(word, num_pronunciations)
+        if not cands:
+            continue
+        # normalized probabilities from the log10 scores
+        mx = max(s for _p, s in cands)
+        weights = [math.pow(10.0, s - mx) for _p, s in cands]
+        z = sum(weights)
+        lexicon.words[word] = [
+            Pronunciation(
+                phones=tuple(phones),
+                probability=format_probability(wt / z),
+            )
+            for (phones, _s), wt in zip(cands, weights)
+        ]
+        replaced += 1
+    lexicon.bump_version()
+    logger.info(
+        "train_g2p_lexicon: G2P model over %d aligned pairs regenerated "
+        "%d lexicon entries",
+        len(pairs),
+        replaced,
     )
+    return model

@@ -2,7 +2,7 @@
 
 Counterpart of ``montreal_forced_aligner_tpu/training/trainer.py`` on one
 device (``device="cuda"`` by default; it raises without a card). Options
-that reach the reference package only through a mesh or host extras raise
+that reach the reference package only through a mesh raise
 ``NotImplementedError`` naming their ROADMAP.md item.
 
 Behavioral spec: reference ``acoustic_modeling/trainer.py`` — the default
@@ -31,6 +31,10 @@ from montreal_forced_aligner_tpu_torch.corpus.corpus import Corpus
 from montreal_forced_aligner_tpu_torch.device import resolve_device
 from montreal_forced_aligner_tpu_torch.ops import cuda_build
 from montreal_forced_aligner_tpu_torch.dictionary.lexicon import Lexicon
+from montreal_forced_aligner_tpu_torch.dictionary.rules import (
+    PhonologicalRule,
+    apply_rules_to_lexicon,
+)
 from montreal_forced_aligner_tpu_torch.models.acoustic_model import AcousticModel
 from montreal_forced_aligner_tpu_torch.training.base import TrainerConfig, TrainingPipeline
 from montreal_forced_aligner_tpu_torch.training.lda import LdaTrainer
@@ -103,18 +107,10 @@ class TrainableAligner:
         device="cuda",
     ):
         recipe = recipe if recipe is not None else DEFAULT_RECIPE
-        bad = []
         if distributed or mesh is not None:
-            bad.append("distributed/mesh: multi-GPU is ROADMAP.md Queue 1 item 15")
-        if rules_path is not None:
-            bad.append("rules_path: ROADMAP.md Queue 1 item 16 (host extras)")
-        if language is not None:
-            bad.append("language: ROADMAP.md Queue 1 item 16 (host extras)")
-        if any(st.train_g2p for st in recipe):
-            bad.append("train_g2p stages: ROADMAP.md Queue 1 item 16 (host "
-                       "extras)")
-        if bad:
-            raise NotImplementedError("not ported yet: " + "; ".join(bad))
+            raise NotImplementedError(
+                "not ported yet: distributed/mesh: multi-GPU is ROADMAP.md "
+                "Queue 1 item 15")
         self.device = resolve_device(device)
         self.corpus = Corpus.load(
             corpus_directory,
@@ -129,6 +125,11 @@ class TrainableAligner:
         self.lexicon = Lexicon.load(
             dictionary_path, position_dependent=position_dependent_phones
         )
+        if rules_path is not None:
+            apply_rules_to_lexicon(
+                self.lexicon, PhonologicalRule.load_rules(rules_path)
+            )
+        self.language = language
         self.recipe = recipe
         self.base_config = base_config or TrainerConfig()
         self.batch_size = batch_size
@@ -471,6 +472,7 @@ class TrainableAligner:
             num_graph_workers=self.num_graph_workers,
             use_pitch=self.use_pitch,
             mfcc_config=self.mfcc_config,
+            language=self.language,
             device=self.device,
         )
         pipeline.clock.sync = self.sync_phases

@@ -267,25 +267,56 @@ def test_emission_rule():
     ids=lambda k: next(iter(k)),
 )
 def test_unserved_settings_raise(mono, kwargs):
+    """``transfer_mode="features"`` and ``distributed`` raise; ``language``
+    (ported since the host extras) builds the JAX package's composed
+    tokenizer (``tests/test_torch_tokenization.py`` holds every language)."""
     _tmp, _corpus_dir, model_path, dict_path = mono
+    if "language" in kwargs:
+        pal = PA.PretrainedAligner(model_path, dict_path, PA.AlignerConfig(**kwargs),
+                                   device="cpu")
+        jal = JA.PretrainedAligner(model_path, dict_path, JA.AlignerConfig(**kwargs))
+        for text in ("Ab a!", "ab's [laughter] ba", "aing b"):
+            assert pal.tokenizer.tokenize(text) == jal.tokenizer.tokenize(text)
+        return
     with pytest.raises(NotImplementedError, match="ROADMAP|waves"):
         PA.PretrainedAligner(model_path, dict_path, PA.AlignerConfig(**kwargs),
                              device="cpu")
 
 
-def test_g2p_and_rules_raise(mono):
-    _tmp, _corpus_dir, model_path, dict_path = mono
-    for kw in ({"g2p_model_path": "g2p.zip"}, {"rules_path": "rules.yaml"}):
-        with pytest.raises(NotImplementedError):
-            PA.PretrainedAligner(model_path, dict_path, device="cpu", **kw)
-    for extra, item in ((["--language", "english"], "item 16"),
-                        (["--distributed"], "item 15"),
-                        (["--g2p_model_path", "g2p.zip"], "item 16"),
-                        (["--rules_path", "rules.yaml"], "item 16"),
+def test_g2p_and_rules_raise(mono, tmp_path):
+    """``--distributed`` and ``--transfer_mode features`` raise naming their
+    item; ``--g2p_model_path``, ``--rules_path`` and ``--language`` (the host
+    extras) align as the JAX package's CLI does
+    (``tests/test_torch_align_g2p.py`` holds the paths in full)."""
+    from click.testing import CliRunner
+
+    import montreal_forced_aligner_tpu.cli as JCLI
+    from montreal_forced_aligner_tpu_torch.g2p.trainer import G2PTrainer
+
+    _tmp, corpus_dir, model_path, dict_path = mono
+    for extra, item in ((["--distributed"], "item 15"),
                         (["--transfer_mode", "features"], "waves")):
         with pytest.raises(NotImplementedError, match=item):
             cli_main(["align", "c", str(dict_path), str(model_path), "o",
                       "--device", "cpu", *extra])
+    g2p = tmp_path / "g2p.zip"
+    G2PTrainer(order=3, num_alignment_iterations=2).train_from_dictionary(
+        dict_path).save(g2p)
+    rules = tmp_path / "rules.yaml"
+    rules.write_text("rules:\n  - segment: bb\n    following_context: $\n"
+                     "    replacement: aa\n")
+    for i, extra in enumerate((["--language", "english"],
+                               ["--g2p_model_path", str(g2p)],
+                               ["--rules_path", str(rules)])):
+        got, want = tmp_path / f"port{i}", tmp_path / f"jax{i}"
+        assert cli_main(["align", str(corpus_dir), str(dict_path), str(model_path),
+                         str(got), "--device", "cpu", *extra]) == 0
+        out = CliRunner().invoke(JCLI.align_cli, [str(corpus_dir), str(dict_path),
+                                                  str(model_path), str(want),
+                                                  *extra], catch_exceptions=False)
+        assert out.exit_code == 0, out.output
+        (a,), (b,) = list(got.rglob("*.TextGrid")), list(want.rglob("*.TextGrid"))
+        assert a.read_text() == b.read_text()
 
 
 @pytest.fixture(scope="module")
@@ -404,10 +435,28 @@ def test_confidence_matches_jax(sat2, monkeypatch, chunked):
                 atol=1e-4)
 
 
-def test_compressed_audio_raises(tmp_path):
+def test_compressed_audio_raises(tmp_path, monkeypatch):
+    """FLAC, MP3 and Opus decode (``tests/test_torch_codecs.py`` holds them
+    against the JAX package in full); a file that is not what its name says
+    raises the JAX package's error."""
+    import montreal_forced_aligner_tpu.io.flac as JF
+    from montreal_forced_aligner_tpu.io.wav import read_wave as j_read_wave
+
+    monkeypatch.setattr(JF, "_decode_frames_native", lambda *a: None)
     for ext in ("flac", "mp3", "opus"):
-        with pytest.raises(NotImplementedError):
-            read_wave(tmp_path / f"a.{ext}")
+        path = tmp_path / f"a.{ext}"
+        path.write_bytes(b"\0" * 4096)
+        with pytest.raises(Exception) as got:
+            read_wave(path)
+        with pytest.raises(Exception) as want:
+            j_read_wave(path)
+        assert type(got.value) is type(want.value)
+        assert str(got.value) == str(want.value)
+    x = np.round(synth_wave()).astype(np.int64)
+    chip_smoke.write_flac_files([(tmp_path / "b.flac", x, 16000, {})])
+    got, want = read_wave(tmp_path / "b.flac"), j_read_wave(tmp_path / "b.flac")
+    assert np.array_equal(got.samples, want.samples)
+    assert np.array_equal(got.samples, x.astype(np.float32))
 
 
 def test_cuda_default_raises_without_card(mono):
@@ -447,7 +496,11 @@ def test_port_names_no_jax_in_any_import():
                    "transcription/transcriber.py", "transcription/lvcsr.py",
                    "transcription/lvcsr_pm.py",
                    "transcription/phone_transcriber.py",
-                   "online/transcription.py"):
+                   "online/transcription.py", "io/flac.py", "io/codecs.py",
+                   "dictionary/rules.py", "g2p/trainer.py", "g2p/generator.py",
+                   "g2p/pair_ngram.py", "g2p/openfst_model.py",
+                   "g2p/export_openfst.py", "tokenization/languages.py",
+                   "tokenization/trainer.py", "tokenization_surface.py"):
         assert f"montreal_forced_aligner_tpu_torch/{module}" in names
     for path in _port_files():
         tree = ast.parse(path.read_text(), filename=str(path))
@@ -481,7 +534,10 @@ def test_importing_the_port_loads_no_jax():
         "'language_modeling.archive', 'model_manager', 'config', 'ops.pitch', "
         "'align.fine_tune', 'transcription.transcriber', 'transcription.lvcsr', "
         "'transcription.lvcsr_pm', 'transcription.phone_transcriber', "
-        "'online.transcription'):\n"
+        "'online.transcription', 'io.flac', 'io.codecs', 'dictionary.rules', "
+        "'g2p.trainer', 'g2p.generator', 'g2p.pair_ngram', 'g2p.openfst_model', "
+        "'g2p.export_openfst', 'tokenization.languages', 'tokenization.trainer', "
+        "'tokenization_surface'):\n"
         "    assert p.__name__ + '.' + m in mods, m\n"
         "print('ok', len(mods))\n"
     )

@@ -10,7 +10,8 @@ the JAX package's commands on the same inputs.
 * ``evaluate_alignments`` and ``align --reference_directory``: the same
   scores as the JAX package's; ``train_lm``: the same ARPA text, alone and
   in the archive; ``train_dictionary``: the same dictionary file;
-  ``validate``: the same OOV reports; ``model inspect`` the same summary;
+  ``validate`` (with ``--rules_path``): the same OOV reports; ``model
+  inspect`` the same summary;
   ``model add/save/add_words/list/download``, ``version``, ``configure``
   and ``history`` on temporary stores.
 """
@@ -207,9 +208,20 @@ def test_validate_matches_jax(tones, tmp_path, capsys):
     # without an acoustic model it refuses, as the JAX package's does
     assert cli_main(["validate", str(corpus_dir), str(dict_path),
                      "--test_transcriptions"]) == 1
-    with pytest.raises(NotImplementedError, match="item 16"):
-        cli_main(["validate", str(corpus_dir), str(dict_path),
-                  "--rules_path", "rules.yaml"])
+    # --rules_path applies the rules before validating, as the JAX package's
+    rules = tmp_path / "rules.yaml"
+    rules.write_text("rules:\n  - segment: bb\n    following_context: $\n"
+                     "    replacement: aa\n")
+    got, want = tmp_path / "port_rules", tmp_path / "jax_rules"
+    assert cli_main(["validate", str(corpus_dir), str(dict_path),
+                     "--output_directory", str(got), "--rules_path",
+                     str(rules)]) == 0
+    out = capsys.readouterr().out
+    jout = jax_run(JCLI.validate_cli, [corpus_dir, dict_path, "--output_directory",
+                                       want, "--rules_path", rules])
+    assert out.replace(str(got), str(want)) == jout
+    for name in ("oovs_found.txt", "utterance_oovs.txt"):
+        assert (got / name).read_text() == (want / name).read_text()
 
 
 def test_model_commands(mono, tmp_path, capsys):

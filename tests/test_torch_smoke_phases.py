@@ -1,8 +1,8 @@
-"""``chip_smoke.py``'s adapt, graph-compile, pitch, fine-tune and
-transcription phases at a tiny size on the CPU, where every kernel wrapper
-takes its plain version (so no launches are counted): their reports, checks
-and the kernels line with adapt's and the dense decode's launches and
-checks."""
+"""``chip_smoke.py``'s adapt, graph-compile, pitch, fine-tune,
+transcription, segmentation and G2P phases at a tiny size on the CPU, where
+every kernel wrapper takes its plain version (so no launches are counted):
+their reports, checks and the kernels line with adapt's, the dense
+decode's and g2p-align's launches and checks."""
 
 import sys
 from pathlib import Path
@@ -219,3 +219,56 @@ def test_segmentation_phases_run_on_cpu(fixture, tmp_path, monkeypatch):
     for row in line["kernels"]:
         assert row["launches_by_path"] == {"train-ivector": 0, "diarize": 0,
                                            "vad": 0, "create-segments": 0}
+
+
+def test_g2p_phases_run_on_cpu(fixture, tmp_path, monkeypatch):
+    """g2p-align (the FLAC writer, ``cli train_g2p``, the native decode,
+    ``cli align`` with G2P, rules and the English tokenizer, the API runs,
+    the kernels on pass 2's first batch), its card-against-CPU check (the
+    CPU half in a spawned worker), the plain FLAC decode and train-g2p, at a
+    tiny size."""
+    _tmp, model_path, _d, corpus_dir, audio_s, *_ = fixture
+    monkeypatch.setattr(PA, "_emission_kernel_eligible", lambda P, G: True)
+    cpu = torch.device("cpu")
+    none = {"band_forward": 0, "band_backtrace": 0, "state_emission": 0}
+    build = chip_smoke.build_g2p_fixture
+    monkeypatch.setattr(chip_smoke, "build_g2p_fixture",
+                        lambda *a: build(*a, subset=3, num_words=40, held_out=10))
+    fx = chip_smoke.g2p_prepare(tmp_path / "g2p", [f"p{i:02d}" for i in range(5)],
+                                corpus_dir)
+    assert len(fx["written"]) == 6 and abs(fx["audio_s"] - audio_s) < 1e-3
+    assert len(list(fx["small_dir"].rglob("*.flac"))) == 3
+    assert not list(fx["flac_dir"].rglob("*.wav"))
+    assert fx["g2p_train_s"] > 0 and fx["g2p_path"].exists()
+    report, checks = chip_smoke.g2p_align_phase(
+        model_path, fx, tmp_path / "out", cpu, batch_size=6, warm_runs=1)
+    small = chip_smoke.g2p_align_run(model_path, fx, fx["small_dir"], cpu)
+    assert report["launches"] == report["expected_launches"] == none
+    assert report["utterances"] == 6 and report["batches"] == 1
+    assert report["flac_files"] == 6 and report["rule_variants"] > 0
+    assert report["held_out_tokens_aligned_by_g2p"] == report["held_out_tokens"] > 0
+    assert report["oov_tokens"] == 0
+    assert 0.0 <= report["g2p_held_out_word_accuracy"] <= 1.0
+    assert {"audio_load", "graph_compile", "fmllr_pass1"} <= set(
+        report["phases_synced_s"])
+    assert set(checks) == set(none)
+    for c in checks.values():
+        assert c["max_abs_err"] == 0.0
+    assert checks["band_forward"]["plain_calls_timed"] == 1
+    task = chip_smoke.CpuTask("g2p_align_run",
+                              (model_path, fx, fx["small_dir"], "cpu"),
+                              tmp_path / "g2p_cpu.pkl", threads=1)
+    cmp = chip_smoke.g2p_card_vs_cpu(small, task.result())
+    assert cmp["utterances"] == 3 and cmp["frame_agreement"] == 1.0
+    plain = chip_smoke.flac_plain_check(
+        fx, chip_smoke.flac_plain_decode(sorted(fx["written"])))
+    assert plain == {"files": 6, "identical": True}
+    line = chip_smoke.kernels_line(checks, report["launches"],
+                                   {"g2p-align": report["launches"]},
+                                   {"g2p_align": checks})
+    for row in line["kernels"]:
+        assert row["launches_by_path"] == {"g2p-align": 0}
+        assert row["g2p_align_check"]["max_abs_err"] == 0.0
+    train = chip_smoke.train_g2p_phase(tmp_path / "tone", cpu, n_utts=4)
+    assert train["card_runs_identical"] and train["card_cpu_lexicon_identical"]
+    assert 0.0 < train["g2p_share_of_stage"] <= 1.0

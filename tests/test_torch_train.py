@@ -441,13 +441,54 @@ def test_cli_train_writes_a_loadable_archive(tmp_path, capsys):
     (["--distributed"], "item 15"),
 ])
 def test_cli_train_unported_options_raise(tmp_path, monkeypatch, args, item):
+    """``--distributed`` (item 15) raises. The item-16 options are ported:
+    ``train`` with each of them runs a monophone and a pron_prob stage and
+    regenerates the dictionary as the JAX package's ``TrainableAligner``
+    does with the same option (``--language thai`` without its engine takes
+    the dictionary max-match fallback in both packages)."""
+    from montreal_forced_aligner_tpu.training.base import TrainerConfig as JCfg
+    from montreal_forced_aligner_tpu.training.trainer import StageConfig as JStage
+    from montreal_forced_aligner_tpu.training.trainer import (
+        TrainableAligner as JTrainable,
+    )
+
     make_training_corpus(tmp_path, n_utts=2)
     dict_path = write_dict(tmp_path / "train.dict")
-    (tmp_path / "rules.yaml").write_text("rules: []\n")
+    (tmp_path / "rules.yaml").write_text(
+        "rules:\n  - segment: aa\n    preceding_context: bb\n"
+        "    following_context: $\n    replacement: ''\n")
     monkeypatch.chdir(tmp_path)
-    with pytest.raises(NotImplementedError, match=item):
-        cli_main(["train", str(tmp_path / "train_corpus"), str(dict_path),
-                  str(tmp_path / "m.zip"), "--device", "cpu"] + args)
+    argv = ["train", str(tmp_path / "train_corpus"), str(dict_path),
+            str(tmp_path / "m.zip"), "--device", "cpu"]
+    if item == "item 15":
+        with pytest.raises(NotImplementedError, match=item):
+            cli_main(argv + args)
+        return
+    cfg = tmp_path / "recipe.yaml"
+    cfg.write_text("training:\n  - monophone:\n      num_iterations: 2\n"
+                   "      max_gaussians: 20\n  - pronunciation_probabilities:\n"
+                   "      num_iterations: 0\n")
+    import montreal_forced_aligner_tpu_torch.training.trainer as PT
+
+    trained = []
+    monkeypatch.setattr(PT.TrainableAligner, "export_model",
+                        lambda self, path: trained.append(self))
+    assert cli_main(argv + ["--config_path", str(cfg), "--batch_size", "2",
+                            "--chain_topology", *args]) == 0
+    (port,) = trained
+    option = {"--language": {"language": "thai"},
+              "--rules_path": {"rules_path": "rules.yaml"}}.get(args[0], {})
+    jax = JTrainable(tmp_path / "train_corpus", dict_path,
+                     recipe=[JStage("monophone", "mono", 2, 20),
+                             JStage("pronunciation_probabilities", "pron_prob", 0, 0,
+                                    train_g2p=args == ["--train_g2p"])],
+                     base_config=JCfg(), batch_size=2,
+                     variable_length_topology=False, **option)
+    jax.train()
+    assert [st.train_g2p for st in port.recipe] == [False, args == ["--train_g2p"]]
+    for a, b in ((port.lexicon, jax.lexicon),):
+        assert {w: [(p.phones, p.probability) for p in v] for w, v in a.words.items()} \
+            == {w: [(p.phones, p.probability) for p in v] for w, v in b.words.items()}
 
 
 def test_training_raises_without_a_card(tmp_path):
