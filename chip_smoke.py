@@ -169,9 +169,34 @@ What it does, in order; any failure exits non-zero with no result line:
     bar, the same G2P entries) and the plain Python FLAC decoder on every
     file (the native decode's samples), the CPU halves in workers beside
     the card's run of those files and step 29;
-31. prints one ``{"kernels": [...]}`` line (sat-2pass's launches and
+31. multi-GPU on the one card (the machine has one; ranks that share it
+    measure the protocol, not scaling): **W = 1 on NCCL** in this process
+    (a real ``init_process_group("nccl")`` over a file store): sat-2pass
+    and sat-si through ``align_corpus`` with ``distributed`` identical to
+    the plain runs (intervals, scores), train-mono through
+    ``TrainableAligner(distributed=True)`` (its statistics through NCCL's
+    all_reduce) bit-identical to the plain run; **W = 2 over gloo**, ranks
+    spawned by ``parallel.multihost.run_ranks``: sat-si intervals identical,
+    sat-2pass at the parity bar with identical phone sequences, train-mono
+    at the JAX distributed test's bars and two W = 2 trainings
+    bit-identical, TF32 off in every rank; ``python -m
+    torch.distributed.run --nproc_per_node 2 -m ...cli align ...
+    --distributed`` (gloo): the ranks' TextGrids against the plain export
+    (the same files and phone sequences, the parity bar's frames and
+    boundaries), each rank's wall, launches and peak memory; the dry run
+    ``parallel.dryrun.dryrun_multichip(2)`` (mono -> tri -> SAT, align,
+    fine-tune, adapt over the ranks); K1-K3 launched on every rank of every
+    path (K1 and K2 for the monophone models, whose size K3's rule does not
+    take);
+32. **MFA**: ``wrapper.MFA`` on the card against the CPU (a worker) on the
+    4-utterance corpus plus one in-memory record: the parity bar;
+33. **parity harness**: ``parity.harness.compare_corpus_sat``, the card's
+    sat-2pass against the independent numpy two-pass decoder, on the 4
+    shortest utterances (frame and boundary agreement reported);
+34. prints one ``{"kernels": [...]}`` line (sat-2pass's launches and
     second-pass checks; each row's ``launches_by_path`` adds the training,
-    adapt, transcription, segmentation and g2p-align paths' launches,
+    adapt, transcription, segmentation, g2p-align and multi-GPU paths'
+    launches (a list by rank where ranks share the card),
     ``train_recipe_check`` the LDA-stage check, ``adapt_check`` adapt's,
     ``transcribe_dense_check`` K3's on the dense decode and
     ``g2p_align_check`` g2p-align's), then as the last line
@@ -3746,6 +3771,529 @@ KERNELS = [
 ]
 
 
+# -- multi-GPU phases ----------------------------------------------------------
+#
+# The script needs one card, so the ranks of these phases are one rank on
+# NCCL (in this process) or two ranks sharing the card over gloo (spawned,
+# or launched by torch.distributed.run): they measure the protocol, not
+# scaling.
+
+MONO_STAGE = ("monophone", "mono", 4, 64)  # bench.py's train workload
+
+
+def _mono_trainer(corpus_dir, dict_path, device, batch_size=32, **kw):
+    from montreal_forced_aligner_tpu_torch.training.trainer import (
+        StageConfig,
+        TrainableAligner,
+    )
+
+    return TrainableAligner(
+        corpus_dir, dict_path, recipe=[StageConfig(*MONO_STAGE)],
+        batch_size=batch_size, variable_length_topology=False, device=device,
+        **kw)
+
+
+def _mono_summary(ta, model):
+    """A trained monophone model's arrays and its iteration log."""
+    gmm = model.gmm
+    return {
+        "arrays": {"tm": np.asarray(model.transition_model.log_probs),
+                   "weights": gmm.weights, "miv": gmm.means_invvars,
+                   "iv": gmm.inv_vars, "gconsts": gmm.gconsts},
+        "loglikes": _loglikes(ta.trainers["monophone"]),
+        "gaussians": [e["num_gaussians"]
+                      for e in ta.trainers["monophone"].iteration_log],
+        "utterances": ta.corpus.num_utterances,
+    }
+
+
+def _same_arrays(a, b) -> bool:
+    return all(np.array_equal(np.asarray(a[k]), np.asarray(b[k])) for k in a)
+
+
+def _train_bars(got, want):
+    """The JAX package's test_training_matches_single_device bars: the same
+    Gaussian counts per iteration, log-likelihood per frame within 2e-3,
+    transition log-probabilities within 1e-4."""
+    _check(got["gaussians"] == want["gaussians"],
+           f"Gaussians {got['gaussians']} != {want['gaussians']}")
+    ll = float(np.max(np.abs(np.subtract(got["loglikes"], want["loglikes"]))))
+    tm = float(np.max(np.abs(got["arrays"]["tm"] - want["arrays"]["tm"])))
+    _check(ll <= 2e-3, f"log-likelihood per frame differs by {ll}")
+    _check(tm <= 1e-4, f"transition log-probabilities differ by {tm}")
+    return {"max_loglike_diff": ll, "max_log_prob_diff": tm}
+
+
+def _aligned(model_path, dict_path, corpus_dir, device, adaptation,
+             distributed=False, batch_size=32):
+    """One counted ``align_corpus``: (results, wall, launches, aligner)."""
+    from montreal_forced_aligner_tpu_torch.align.aligner import (
+        AlignerConfig,
+        PretrainedAligner,
+    )
+    from montreal_forced_aligner_tpu_torch.corpus.corpus import Corpus
+    from montreal_forced_aligner_tpu_torch.ops import cuda_build
+
+    al = PretrainedAligner(model_path, dict_path, AlignerConfig(
+        batch_size=batch_size, uses_speaker_adaptation=adaptation,
+        distributed=distributed), device=device)
+    corpus = Corpus.load(corpus_dir)
+    _sync(device)
+    cuda_build.reset_launch_counts()
+    t0 = time.perf_counter()
+    res = al.align_corpus(corpus)
+    _sync(device)
+    wall = time.perf_counter() - t0
+    _check(len(res) == corpus.num_utterances, "not every utterance aligned")
+    return res, wall, dict(cuda_build.LAUNCHES), al
+
+
+def _identical(got, want):
+    """Intervals and scores identical, utterance by utterance."""
+    def key(a):
+        return ([(p.label, p.begin, p.end) for p in a.phones],
+                [(w.label, w.begin, w.end) for w in a.words], a.log_likelihood)
+
+    _check(sorted(got) == sorted(want), "different utterances")
+    bad = [i for i in want if key(got[i]) != key(want[i])]
+    _check(not bad, f"utterances {bad[:5]} differ")
+    return True
+
+
+def _intervals_identical(got, want):
+    def key(a):
+        return ([(p.label, p.begin, p.end) for p in a.phones],
+                [(w.label, w.begin, w.end) for w in a.words])
+
+    bad = [i for i in want if key(got[i]) != key(want[i])]
+    _check(sorted(got) == sorted(want) and not bad,
+           f"intervals differ in utterances {bad[:5]}")
+    return {"utterances": len(want),
+            "max_score_diff": max(abs(got[i].log_likelihood - want[i].log_likelihood)
+                                  for i in want)}
+
+
+def _two_pass_bar(got, want, frame_shift=0.01):
+    """sat-2pass across rank counts: the parity bar and identical phone
+    sequences (the JAX test_sat_model_distributed_two_pass)."""
+    out = parity(got, want, frame_shift)
+    bad = [i for i in want if [p.label for p in got[i].phones]
+           != [p.label for p in want[i].phones]]
+    _check(not bad, f"phone sequences differ in utterances {bad[:5]}")
+    return out
+
+
+def _require_kernels(path, launches, on_card, names=("band_forward",
+                                                     "band_backtrace",
+                                                     "state_emission")):
+    """Every kernel in ``names`` launched on the card; on the CPU (the
+    rehearsal) none, since each wrapper takes its plain version there."""
+    for name in names:
+        _check((launches.get(name, 0) > 0) == on_card,
+               f"{path}: {name} launched {launches.get(name, 0)} times")
+
+
+def nccl_one_rank_phase(model_path, dict_path, corpus_dir, tmp, device):
+    """**align-distributed / train-distributed, W = 1 on NCCL**: a real
+    ``init_process_group("nccl")`` of one rank in this process, then
+    ``align_corpus`` with ``distributed`` (sat-2pass and sat-si) and
+    ``train --distributed``'s ``TrainableAligner`` (train-mono, its
+    statistics through NCCL's all_reduce) against the same runs without a
+    process group: intervals, scores and the model identical. Each is timed
+    in turns, plain, distributed, distributed, plain (the first distributed
+    training sets NCCL's communicator up)."""
+    import torch
+
+    from montreal_forced_aligner_tpu_torch.ops import cuda_build
+    from montreal_forced_aligner_tpu_torch.parallel import multihost
+
+    paths = (("sat-2pass", True), ("sat-si", False))
+
+    def train(**kw):
+        ta = _mono_trainer(corpus_dir, dict_path, device, **kw)
+        _sync(device)
+        cuda_build.reset_launch_counts()
+        t0 = time.perf_counter()
+        summary = _mono_summary(ta, ta.train())
+        _sync(device)
+        return (summary, time.perf_counter() - t0, dict(cuda_build.LAUNCHES), ta)
+
+    def plain_runs():
+        for path, adaptation in paths:
+            res, wall, _l, _a = _aligned(model_path, dict_path, corpus_dir,
+                                         device, adaptation)
+            plain.setdefault(path, []).append((res, wall))
+        plain.setdefault("train-mono", []).append(train()[:2])
+
+    plain, dist = {}, {}
+    plain_runs()
+    on_card = device.type == "cuda"
+    # NCCL carries card tensors only: the CPU rehearsal runs one gloo rank
+    backend = "nccl" if on_card else "gloo"
+    rank, world = multihost.initialize_multihost(
+        f"file://{tmp / 'nccl_store'}", world_size=1, rank=0, backend=backend,
+        device=device.type)
+    try:
+        _check(torch.distributed.get_backend() == backend and world == 1,
+               f"the process group is not one rank on {backend}")
+        for _ in range(2):
+            for path, adaptation in paths:
+                res, wall, launches, al = _aligned(
+                    model_path, dict_path, corpus_dir, device, adaptation,
+                    distributed=True)
+                _check(al.mesh is not None and al.mesh.world_size == 1,
+                       "the aligner has no one-rank mesh")
+                _require_kernels(f"{path} (W = 1, NCCL)", launches, on_card)
+                dist.setdefault(path, []).append((res, wall, launches))
+            _reset_peak(device)
+            summary, wall, launches, ta = train(distributed=True)
+            _check(ta.mesh is not None and ta.mesh.world_size == 1,
+                   "no train mesh")
+            _require_kernels("train-mono (W = 1, NCCL)", launches, on_card,
+                             ("band_forward", "band_backtrace"))
+            dist.setdefault("train-mono", []).append((summary, wall, launches))
+    finally:
+        multihost.shutdown_multihost()
+    plain_runs()
+    out = {}
+    for path, _adaptation in paths:
+        want = plain[path][0][0]
+        for run in dist[path] + plain[path][1:]:
+            _identical(run[0], want)
+        out[path] = {"identical": True, "launches": dist[path][0][2],
+                     "walls_s": [r[1] for r in dist[path]],
+                     "plain_walls_s": [r[1] for r in plain[path]]}
+    want = plain["train-mono"][0][0]
+    for run in dist["train-mono"] + plain["train-mono"][1:]:
+        _check(_same_arrays(run[0]["arrays"], want["arrays"])
+               and run[0]["loglikes"] == want["loglikes"],
+               "train-mono on one NCCL rank differs from the plain run")
+    out["train-mono"] = {"bit_identical": True,
+                         "launches": dist["train-mono"][0][2],
+                         "walls_s": [r[1] for r in dist["train-mono"]],
+                         "plain_walls_s": [r[1] for r in plain["train-mono"]],
+                         "peak_memory_gib": _peak_gib(device)}
+    return out
+
+
+def distributed_rank(rank, world, model_path, dict_path, corpus_dir, train_runs,
+                     device="cuda"):
+    """One of the ranks sharing the card over gloo: ``align_corpus`` with
+    ``distributed`` (sat-2pass, sat-si) and ``train --distributed``'s
+    train-mono ``train_runs`` times, each counted from 0."""
+    import torch
+
+    from montreal_forced_aligner_tpu_torch.ops import cuda_build
+
+    dev = (torch.device("cuda", torch.cuda.current_device())
+           if device == "cuda" else torch.device(device))
+    out = {"rank": rank, "device": str(dev),
+           "tf32": bool(torch.backends.cuda.matmul.allow_tf32),
+           "backend": torch.distributed.get_backend()}
+    for path, adaptation in (("sat-2pass", True), ("sat-si", False)):
+        res, wall, launches, al = _aligned(model_path, dict_path, corpus_dir,
+                                           dev, adaptation, distributed=True)
+        out[path] = {"results": res, "wall_s": wall, "launches": launches,
+                     "utterances": len(al.last_shard)}
+    out["train"] = []
+    for _ in range(train_runs):
+        _reset_peak(dev)
+        ta = _mono_trainer(corpus_dir, dict_path, dev, distributed=True)
+        _sync(dev)
+        cuda_build.reset_launch_counts()
+        t0 = time.perf_counter()
+        summary = _mono_summary(ta, ta.train())
+        _sync(dev)
+        summary.update(wall_s=time.perf_counter() - t0,
+                       launches=dict(cuda_build.LAUNCHES),
+                       peak_memory_gib=_peak_gib(dev))
+        out["train"].append(summary)
+    return out
+
+
+def gloo_two_ranks_phase(model_path, dict_path, corpus_dir, device):
+    """**align-distributed / train-distributed, W = 2 over gloo on the one
+    card** (ranks spawned by ``parallel.multihost.run_ranks``): sat-si
+    intervals identical to the plain run, sat-2pass at the parity bar with
+    identical phone sequences, train-mono at the JAX distributed test's bars
+    against the plain run and bit-identical between two W = 2 trainings;
+    K1-K3 launched on every rank."""
+    from montreal_forced_aligner_tpu_torch.parallel.multihost import run_ranks
+
+    plain = {path: _aligned(model_path, dict_path, corpus_dir, device, adapt)[0]
+             for path, adapt in (("sat-2pass", True), ("sat-si", False))}
+    ta = _mono_trainer(corpus_dir, dict_path, device)
+    mono_plain = _mono_summary(ta, ta.train())
+    t0 = time.perf_counter()
+    on_card = device.type == "cuda"
+    ranks = run_ranks(distributed_rank, 2,
+                      args=(str(model_path), str(dict_path), str(corpus_dir), 2,
+                            device.type),
+                      backend="gloo", device=device.type, timeout=600.0,
+                      threads=0 if on_card else 2)
+    spawn_wall = time.perf_counter() - t0
+    out = {"spawn_wall_s": spawn_wall, "ranks": []}
+    for r in ranks:
+        _check(not r["tf32"], f"rank {r['rank']} runs with TF32 on")
+        _check(r["backend"] == "gloo", f"rank {r['rank']} backend {r['backend']}")
+        for path in ("sat-2pass", "sat-si"):
+            _require_kernels(f"{path} (W = 2, gloo, rank {r['rank']})",
+                             r[path]["launches"], on_card)
+        for run in r["train"]:
+            _require_kernels(f"train-mono (W = 2, gloo, rank {r['rank']})",
+                             run["launches"], on_card,
+                             ("band_forward", "band_backtrace"))
+    r0, r1 = ranks
+    _check(r0["sat-si"]["utterances"] + r1["sat-si"]["utterances"]
+           == len(plain["sat-si"]), "the ranks' shards do not cover the corpus")
+    out["sat-si"] = _intervals_identical(r0["sat-si"]["results"], plain["sat-si"])
+    out["sat-2pass"] = _two_pass_bar(r0["sat-2pass"]["results"], plain["sat-2pass"])
+    for path in ("sat-si", "sat-2pass"):
+        _identical(r1[path]["results"], r0[path]["results"])  # every rank has all
+    (a, b), (c, d) = r0["train"], r1["train"]
+    _check(_same_arrays(a["arrays"], b["arrays"]),
+           "two W = 2 trainings are not bit-identical")
+    _check(_same_arrays(a["arrays"], c["arrays"]) and _same_arrays(b["arrays"],
+                                                                  d["arrays"]),
+           "the ranks hold different models")
+    out["train-mono"] = {"bars": _train_bars(a, mono_plain),
+                         "two_runs_bit_identical": True}
+    for r in ranks:
+        out["ranks"].append({
+            "rank": r["rank"], "device": r["device"],
+            **{f"{p}_wall_s": r[p]["wall_s"] for p in ("sat-2pass", "sat-si")},
+            **{f"{p}_utterances": r[p]["utterances"] for p in ("sat-2pass", "sat-si")},
+            **{f"{p}_launches": r[p]["launches"] for p in ("sat-2pass", "sat-si")},
+            "train_walls_s": [t["wall_s"] for t in r["train"]],
+            "train_launches": r["train"][0]["launches"],
+            "train_utterances": r["train"][0]["utterances"],
+            "train_peak_memory_gib": r["train"][-1]["peak_memory_gib"],
+        })
+    return out
+
+
+def _tier_labels(path, frame_shift=0.01):
+    """A TextGrid's phone tiers as frame labels and boundary frames."""
+    from montreal_forced_aligner_tpu_torch.io.textgrid import TextGrid
+
+    tg = TextGrid.read(path)
+    out = {}
+    for name, ivs in tg.tiers.items():
+        if "phones" not in name:
+            continue
+        n = int(round(max((iv.end for iv in ivs), default=0) / frame_shift))
+        lab = np.full(n, "", dtype=object)
+        starts = []
+        for iv in ivs:
+            b, e = int(round(iv.begin / frame_shift)), int(round(iv.end / frame_shift))
+            lab[b:e] = iv.label
+            starts.append(b)
+        out[name] = (lab, starts, [iv.label for iv in ivs])
+    return out
+
+
+def run_group(cmd, timeout, **kw) -> subprocess.CompletedProcess:
+    """``cmd`` in a session of its own, its output captured; past
+    ``timeout`` seconds the whole session (a launcher and the ranks it
+    started) is killed and this raises."""
+    import signal
+
+    proc = subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                            text=True, start_new_session=True, **kw)
+    try:
+        out, err = proc.communicate(timeout=timeout)
+    except subprocess.TimeoutExpired:
+        os.killpg(proc.pid, signal.SIGKILL)
+        proc.communicate()
+        raise
+    return subprocess.CompletedProcess(cmd, proc.returncode, out, err)
+
+
+def torchrun_align_phase(model_path, dict_path, corpus_dir, out_dir, device):
+    """**align-distributed as users launch it**: ``python -m
+    torch.distributed.run --nproc_per_node 2 -m
+    montreal_forced_aligner_tpu_torch.cli align ... --distributed`` with
+    ``MFA_TPU_TORCH_DIST_BACKEND=gloo`` (the two ranks share the card): each
+    rank exports its speakers' TextGrids; their union against the plain
+    run's export: the same files, identical phone sequences, >= 99.9% of
+    frames and >= 99.5% of boundaries within one frame; each rank's wall,
+    launches (K1-K3 on both) and peak memory from its ``rank_summary``."""
+    import socket
+
+    from montreal_forced_aligner_tpu_torch.corpus.corpus import Corpus
+
+    res, _w, _l, al = _aligned(model_path, dict_path, corpus_dir, device, True)
+    want_dir, got_dir = out_dir / "plain", out_dir / "ranks"
+    al.export_textgrids(Corpus.load(corpus_dir), res, want_dir)
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        port = s.getsockname()[1]
+    root = Path(__file__).resolve().parent
+    env = dict(os.environ, MFA_TPU_TORCH_DIST_BACKEND="gloo",
+               PYTHONPATH=str(root) + os.pathsep + os.environ.get("PYTHONPATH", ""))
+    # each rank's output to its own file: two ranks writing one pipe can
+    # interleave their lines
+    logs = out_dir / "torchrun_logs"
+    cmd = [sys.executable, "-m", "torch.distributed.run", "--nproc_per_node", "2",
+           "--master_addr", "localhost", "--master_port", str(port),
+           "--log-dir", str(logs), "--redirects", "3",
+           "-m", f"{PKG}.cli", "align", str(corpus_dir), str(dict_path),
+           str(model_path), str(got_dir), "--batch_size", "32", "--distributed",
+           "--device", device.type]
+    t0 = time.perf_counter()
+    proc = run_group(cmd, cwd=root, env=env, timeout=600)
+    wall = time.perf_counter() - t0
+    rank_logs = {name: "".join(f.read_text() for f in sorted(logs.rglob(name)))
+                 for name in ("stdout.log", "stderr.log")}
+    _check(proc.returncode == 0,
+           f"torchrun align exited {proc.returncode}: {proc.stderr[-2000:]} "
+           f"{rank_logs['stderr.log'][-2000:]}")
+    summaries = sorted((json.loads(line.split(" ", 1)[1])
+                        for line in rank_logs["stdout.log"].splitlines()
+                        if line.startswith("rank_summary ")),
+                       key=lambda s: s["rank"])
+    _check([s["rank"] for s in summaries] == [0, 1], "missing rank summaries")
+    for s in summaries:
+        _require_kernels(f"cli align (W = 2, gloo, rank {s['rank']})",
+                         s["launches"], device.type == "cuda")
+    want = {p.relative_to(want_dir): p for p in want_dir.rglob("*.TextGrid")}
+    got = {p.relative_to(got_dir): p for p in got_dir.rglob("*.TextGrid")}
+    _check(set(got) == set(want), "the ranks exported other files")
+    frames = mismatched = b_total = b_within = 0
+    for rel in want:
+        tw, tg = _tier_labels(want[rel]), _tier_labels(got[rel])
+        _check(set(tw) == set(tg), f"{rel}: tiers differ")
+        for tier, (lw, sw, names_w) in tw.items():
+            lg, sg, names_g = tg[tier]
+            _check(names_g == names_w, f"{rel}: phone sequences differ")
+            n = min(len(lw), len(lg))
+            frames += len(lw)
+            mismatched += int((lw[:n] != lg[:n]).sum()) + abs(len(lw) - len(lg))
+            sg = np.asarray(sg)
+            for s in sw:
+                b_total += 1
+                b_within += int(len(sg) > 0 and np.abs(sg - s).min() <= 1)
+    agreement = 1.0 - mismatched / max(frames, 1)
+    _check(agreement >= 0.999 and b_within >= 0.995 * b_total,
+           f"torchrun align: frames {agreement}, boundaries {b_within}/{b_total}")
+    return {"files": len(want), "frames": frames, "frame_agreement": agreement,
+            "boundaries": b_total, "boundaries_within_1": b_within,
+            "launch_wall_s": wall, "ranks": summaries}
+
+
+def dryrun_phase(device):
+    """**dryrun**: ``parallel.dryrun.dryrun_multichip(2)`` on the card, the
+    two ranks sharing it over gloo: mono -> tri -> SAT, align, fine-tune and
+    adapt over the ranks; the ranks' models agree (the function checks)."""
+    from montreal_forced_aligner_tpu_torch.parallel.dryrun import dryrun_multichip
+
+    on_card = device.type == "cuda"
+    t0 = time.perf_counter()
+    ranks = dryrun_multichip(2, device=device.type, backend="gloo", timeout=600.0,
+                             threads=0 if on_card else 2)
+    wall = time.perf_counter() - t0
+    for r in ranks:
+        _require_kernels(f"dryrun rank {r['rank']}", r["launches"], on_card,
+                         ("band_forward", "band_backtrace"))
+    return {"wall_s": wall, "ranks": [
+        {k: r[k] for k in ("rank", "device", "utterances", "num_pdfs", "num_gauss",
+                           "aligned", "boundaries", "launches", "train_s",
+                           "wall_s")} for r in ranks]}
+
+
+def _mfa_records(corpus_dir):
+    from montreal_forced_aligner_tpu_torch.corpus.corpus import Corpus
+
+    corpus = Corpus.load(corpus_dir)
+    recs = [{"speaker_id": u.speaker, "file_id": u.file_name, "text": u.text,
+             "audio_path": str(u.file_path)} for u in corpus.utterances]
+    # the last one again, as in-memory samples
+    first = corpus.utterances[-1]
+    recs.append({"speaker_id": first.speaker, "file_id": "samples",
+                 "text": first.text,
+                 "samples": corpus.load_audio(first).samples})
+    return recs
+
+
+def mfa_run(model_path, dict_path, corpus_dir, device):
+    """``wrapper.MFA(...).align(records)`` on ``device``."""
+    from montreal_forced_aligner_tpu_torch.align.aligner import AlignerConfig
+    from montreal_forced_aligner_tpu_torch.wrapper import MFA
+
+    t0 = time.perf_counter()
+    out = MFA(model_path, dict_path, AlignerConfig(batch_size=32),
+              device=device).align(_mfa_records(corpus_dir))
+    return out, time.perf_counter() - t0
+
+
+def mfa_phase(model_path, dict_path, corpus_dir, device, cpu):
+    """**MFA**: the batch API on the card against the CPU (``cpu``, from a
+    worker) on the 4-utterance corpus and one in-memory record: the parity
+    bar (>= 99.9% of frames, >= 99.5% of boundaries within one frame, scores
+    within 5 nats) and the same words."""
+    from montreal_forced_aligner_tpu_torch.data import CtmInterval, UtteranceAlignment
+
+    got, wall = mfa_run(model_path, dict_path, corpus_dir, device)
+    want, cpu_wall = cpu
+
+    def as_alignment(rec):
+        phones = [CtmInterval(p["begin"], p["end"], p["phone"]) for p in rec["phones"]]
+        n = int(round(phones[-1].end / 0.01)) if phones else 1
+        return UtteranceAlignment(utterance_id=0, words=[], phones=phones,
+                                  log_likelihood=rec["log_likelihood"] * n,
+                                  per_frame_log_likelihood=rec["log_likelihood"])
+
+    for g, w in zip(got, want):
+        _check([x["word"] for x in g["words"]] == [x["word"] for x in w["words"]],
+               f"MFA {g['file_id']}: words differ")
+    rep = parity({i: as_alignment(g) for i, g in enumerate(got)},
+                 {i: as_alignment(w) for i, w in enumerate(want)}, 0.01)
+    return {"records": len(got), "wall_s": wall, "cpu_wall_s": cpu_wall, **rep}
+
+
+def parity_harness_phase(model_path, dict_path, corpus_dir, device, n=4):
+    """**parity harness**: ``parity.harness.compare_corpus_sat`` (the card's
+    sat-2pass against the independent numpy two-pass decoder) on the ``n``
+    shortest utterances: frame and boundary agreement, reported."""
+    from montreal_forced_aligner_tpu_torch.align.aligner import (
+        AlignerConfig,
+        PretrainedAligner,
+    )
+    from montreal_forced_aligner_tpu_torch.corpus.corpus import Corpus
+    from montreal_forced_aligner_tpu_torch.ops import cuda_build
+    from montreal_forced_aligner_tpu_torch.parity.harness import compare_corpus_sat
+
+    corpus = Corpus.load(corpus_dir)
+    durations = [read_duration(u.file_path) for u in corpus.utterances]
+    shortest = sorted(np.argsort(durations, kind="stable")[:n].tolist())
+    sub = corpus.subset(shortest)
+    al = PretrainedAligner(model_path, dict_path, AlignerConfig(batch_size=32),
+                           device=device)
+    cuda_build.reset_launch_counts()
+    t0 = time.perf_counter()
+    report = compare_corpus_sat(al, sub)
+    wall = time.perf_counter() - t0
+    frames = sum(r.num_frames for r in report)
+    b_tot = sum(r.boundary_total for r in report)
+    return {
+        "utterances": len(report), "audio_s": float(np.sum(np.sort(durations)[:n])),
+        "frames": frames,
+        "frame_agreement": 1 - sum(r.frame_mismatches for r in report) / max(frames, 1),
+        "boundaries": b_tot,
+        "boundary_exact": sum(r.boundary_exact for r in report),
+        "boundary_within_1": sum(r.boundary_within_1 for r in report),
+        "max_score_diff": max(abs(r.score_production - r.score_reference)
+                              for r in report),
+        "launches": dict(cuda_build.LAUNCHES), "wall_s": wall,
+    }
+
+
+def read_duration(path) -> float:
+    from montreal_forced_aligner_tpu_torch.io.wav import read_wave
+
+    return read_wave(path).duration
+
+
 def kernels_line(checks, launches, by_path=None, extra_checks=None):
     """The kernels line: sat-2pass's launches and checks in the contract's
     keys; ``by_path`` adds each path's launches (``launches_by_path``) and
@@ -3974,6 +4522,26 @@ def main() -> int:
         _emit({"g2p_card_vs_cpu": g2p_card_vs_cpu(g2p_small, cpu_ref.result())})
         _emit({"flac_plain_decode": flac_plain_check(
             g2p_fx, {k: v for task in plain for k, v in task.result().items()})})
+        # multi-GPU on the one card; MFA's CPU half in a worker beside it
+        mfa_cpu = CpuTask("mfa_run", (model_path, dict_path, small_dir, "cpu"),
+                          tmp / "mfa_cpu.pkl")
+        nccl = nccl_one_rank_phase(model_path, dict_path, corpus_dir, tmp, device)
+        _emit({"main_path": {"path": "distributed (W = 1, NCCL)", **nccl}})
+        gloo = gloo_two_ranks_phase(model_path, dict_path, corpus_dir, device)
+        _emit({"main_path": {"path": "distributed (W = 2, gloo, one card)", **gloo}})
+        trun = torchrun_align_phase(model_path, dict_path, corpus_dir,
+                                    tmp / "torchrun", device)
+        _emit({"main_path": {"path": "align-distributed (torch.distributed.run, "
+                                     "W = 2, gloo)", **trun}})
+        dry = dryrun_phase(device)
+        _emit({"main_path": {"path": "dryrun (W = 2, gloo)", **dry}})
+        _emit({"mfa": mfa_phase(model_path, dict_path, small_dir, device,
+                                mfa_cpu.result())})
+        _emit({"parity_harness": parity_harness_phase(model_path, dict_path,
+                                                      corpus_dir, device)})
+
+        def by_rank(launches):
+            return {k: [l[k] for l in launches] for k in launches[0]}
         by_path = {"sat-2pass": reports["sat-2pass"]["launches"],
                    "train-mono": mono["launches"], "train-recipe": recipe["launches"],
                    "adapt": adapt["launches"],
@@ -3985,7 +4553,15 @@ def main() -> int:
                        phone["transcribe --output_type alignment"]["launches"],
                    "train-ivector": ivec["launches"], "diarize": diar["launches"],
                    "vad": vad["launches"], "create-segments": segs["launches"],
-                   "g2p-align": g2p["launches"]}
+                   "g2p-align": g2p["launches"],
+                   "align-distributed (W = 1, NCCL)": nccl["sat-2pass"]["launches"],
+                   "align-distributed (W = 2, gloo, ranks 0 and 1)": by_rank(
+                       [r["launches"] for r in trun["ranks"]]),
+                   "train-distributed (W = 1, NCCL)": nccl["train-mono"]["launches"],
+                   "train-distributed (W = 2, gloo, ranks 0 and 1)": by_rank(
+                       [r["train_launches"] for r in gloo["ranks"]]),
+                   "dryrun (W = 2, gloo, ranks 0 and 1)": by_rank(
+                       [r["launches"] for r in dry["ranks"]])}
         extra = {**mono_checks, "train_recipe": recipe_checks,
                  "adapt": adapt_checks, "transcribe_dense": dense_checks,
                  "g2p_align": g2p_checks}

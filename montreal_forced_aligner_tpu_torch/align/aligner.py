@@ -1,4 +1,4 @@
-"""Pretrained-model corpus alignment pipeline, in PyTorch on one device.
+"""Pretrained-model corpus alignment pipeline, in PyTorch.
 
 Counterpart of ``montreal_forced_aligner_tpu/align/aligner.py``
 (``PretrainedAligner._align_corpus_impl``): corpus load → audio load →
@@ -19,11 +19,15 @@ with the chunked exact Viterbi.
 
 Utterances are bucketed by length so each batch pads little; every batch
 is dispatched before any result is fetched, so host work (graph compile,
-padding) overlaps the device's.
+padding) overlaps the device's. Batches go round-robin to the local devices
+of ``AlignerConfig.devices``; when the caller asks for a multi-GPU run
+(``distributed``) each rank aligns its own speakers and the ranks exchange
+the results.
 """
 
 from __future__ import annotations
 
+import copy
 import logging
 import time
 from dataclasses import dataclass
@@ -135,13 +139,14 @@ def _mfcc_and_spk_stats(
     num_speakers: int,
 ):
     """Phase A: MFCC + per-speaker sums of the valid frames, reduced on the
-    device with ``index_add_``: returns (feats (B, T, D), spk_sum (N, D))."""
+    device by one product with the (N, B) speaker indicator, in a fixed
+    order (``index_add_`` adds with atomics on the card, so two runs, and a
+    run and its one-rank distributed twin, would differ in the last bits):
+    returns (feats (B, T, D), spk_sum (N, D))."""
     feats, sums = _mfcc_and_sums(padded_waves, frame_lengths, cfg, max_frames)
-    spk_sum = torch.zeros(
-        (num_speakers, feats.shape[2]), dtype=feats.dtype, device=feats.device
-    )
-    spk_sum.index_add_(0, spk_idx, sums)
-    return feats, spk_sum
+    onehot = (torch.arange(num_speakers, device=feats.device)[:, None]
+              == spk_idx[None, :]).to(sums.dtype)
+    return feats, onehot @ sums
 
 
 def _final_feats(feats, frame_lengths, mean_rows, lda=None, pitch=None):
@@ -241,8 +246,14 @@ class AlignerConfig:
     # reference --single_speaker: False aligns a SAT model single-pass with
     # its speaker-independent model
     uses_speaker_adaptation: bool = True
+    # local devices the batches go to round-robin (default: the aligner's
+    # device); reductions meet on the first
     devices: Optional[tuple] = None
-    distributed: Optional[bool] = None
+    # multi-GPU, only when asked: under a process group of several ranks
+    # each rank aligns its own speakers of the corpus every rank was given
+    # (shard_corpus_for_host) on its card and every rank returns all the
+    # results; in one process, batches round-robin over every local card
+    distributed: bool = False
     language: Optional[str] = None
     # "auto" resolves to "waves" (see resolve_transfer_mode)
     transfer_mode: str = "auto"
@@ -257,9 +268,6 @@ class AlignerConfig:
         if self.transfer_mode not in ("auto", "waves"):
             out.append(f"transfer_mode={self.transfer_mode!r} (only 'waves' "
                        "exists on a local card)")
-        if self.distributed or self.devices:
-            out.append("distributed/devices: multi-GPU is ROADMAP.md Queue 1 "
-                       "item 15")
         return out
 
 
@@ -332,9 +340,27 @@ def reconstruct_phone_table(meta: Dict, topo) -> Dict[str, int]:
     return table
 
 
+def _aligner_layout(config: AlignerConfig, device):
+    """(mesh, devices) of an aligner: ``devices`` round-robin when given;
+    with ``distributed`` a ``parallel.mesh.Mesh``: the rank's card under a
+    process group, else every local card of this process."""
+    from montreal_forced_aligner_tpu_torch.parallel.mesh import get_mesh
+
+    mesh = get_mesh(config.devices, device=device) if config.distributed else None
+    if config.devices:
+        devices = [resolve_device(d) for d in config.devices]
+    elif mesh is not None:
+        devices = list(mesh.devices)
+    else:
+        devices = [resolve_device(device)]
+    return mesh, devices
+
+
 class PretrainedAligner:
     """Aligns a corpus with a pretrained acoustic model + pronunciation
-    dictionary on one device (reference entry point: ``mfa align``)."""
+    dictionary (reference entry point: ``mfa align``) on one device, on
+    several local devices round-robin (``AlignerConfig.devices``), or on a
+    rank's shard of the corpus (``AlignerConfig.distributed``)."""
 
     def __init__(
         self,
@@ -345,11 +371,12 @@ class PretrainedAligner:
         rules_path=None,
         device="cuda",
     ):
-        self.device = resolve_device(device)
         self.config = config or AlignerConfig()
         bad = self.config.unsupported()
         if bad:
             raise NotImplementedError("not ported yet: " + "; ".join(bad))
+        self.mesh, self.devices = _aligner_layout(self.config, device)
+        self.device = self.devices[0]
         self.model_path = acoustic_model_path
         self.dictionary_path = dictionary_path
         self.model = AcousticModel.load(acoustic_model_path)
@@ -452,6 +479,7 @@ class PretrainedAligner:
                 gmm, silence_pdf_mask(self._silence_pdfs(), gmm.num_pdfs)
             ).to(self.device)
         self._graph_pool_obj = None
+        self._per_device = {}
         self.last_transfer_mode: Optional[str] = None
         # statistics and transforms of the last two-pass run
         self.last_fmllr: Optional[FmllrEstimate] = None
@@ -545,6 +573,19 @@ class PretrainedAligner:
                         tok, Pronunciation(phones=tuple(phones))
                     )
 
+    def _on(self, name: str, dev: torch.device):
+        """The device tensors ``name`` (``gmm``, ``si_gmm`` or ``fmllr``) on
+        ``dev``: the aligner's own on its first device, a copy made once on
+        every other (``Module.to`` moves a module in place: copy it first)."""
+        value = getattr(self, name)
+        if value is None or (dev.type == self.device.type
+                             and (dev.index or 0) == (self.device.index or 0)):
+            return value
+        key = (name, dev)
+        if key not in self._per_device:
+            self._per_device[key] = copy.deepcopy(value).to(dev)
+        return self._per_device[key]
+
     # -- pipeline ------------------------------------------------------------
     def _fmllr_second_pass_feats(self, prepared, num_speakers, mark):
         """Pass 1 with the speaker-independent model, per-speaker fMLLR
@@ -553,11 +594,12 @@ class PretrainedAligner:
         two-pass align ``alignment/base.py:491-558``; estimation spec
         ``corpus/features.py:422-548`` with silence_weight=0). Nothing else
         leaves the device between the two passes."""
-        fm = self.fmllr
         stats = None
         for b in prepared:
+            dev = b.ff.device
+            fm = self._on("fmllr", dev)
             state_path, _sc = _emit_and_align(
-                b.ff, b.flens_dev, b.graph, self.si_gmm,
+                b.ff, b.flens_dev, b.graph, self._on("si_gmm", dev),
                 self.config.acoustic_scale, band_limits=b.band_limits,
                 use_emission_kernel=self.si_use_emission_kernel,
             )
@@ -567,7 +609,8 @@ class PretrainedAligner:
                 nonsilence_weight(frame_pdf, fm.sil_mask),
                 fm.means, fm.inv_vars, fm.gconsts, fm.miv, num_speakers,
             )
-            # float32 sums on the device, in batch order
+            # float32 sums on the first device, in batch order
+            out = tuple(x.to(self.device) for x in out)
             stats = out if stats is None else tuple(a + b for a, b in zip(stats, out))
         mark("fmllr_pass1")
         K, G, beta = stats_to_host(*stats)
@@ -577,9 +620,11 @@ class PretrainedAligner:
         )
         self.last_fmllr = FmllrEstimate(K, G, beta, transforms)
         mark("fmllr_solve")
-        trans_dev = torch.from_numpy(transforms).to(self.device)
+        trans = torch.from_numpy(transforms)
+        trans_on = {d: trans.to(d) for d in {b.ff.device for b in prepared}}
         adapted = [
-            b._replace(ff=apply_per_speaker_transform(b.ff, b.spk_dev, trans_dev))
+            b._replace(ff=apply_per_speaker_transform(
+                b.ff, b.spk_dev, trans_on[b.ff.device]))
             for b in prepared
         ]
         mark("fmllr_apply")
@@ -589,7 +634,44 @@ class PretrainedAligner:
         """Align every utterance; returns {utterance_id: UtteranceAlignment}.
         Host-clock seconds of each phase are left in ``last_phase_seconds``:
         dispatch times, since the device runs behind the host until the path
-        fetch, unless ``sync_phases`` is set."""
+        fetch, unless ``sync_phases`` is set.
+
+        With ``distributed`` under several ranks, every rank is given the
+        same corpus and aligns its own speakers of it (a speaker's CMVN and
+        fMLLR statistics never leave its rank, so no statistic is reduced)
+        and the ranks exchange their results: every rank returns every
+        utterance's alignment. ``last_shard`` holds the original ids of the
+        rank's own utterances."""
+        if self.mesh is None or self.mesh.world_size == 1:
+            self.last_shard = [u.id for u in corpus.utterances]
+            return self._align_local(corpus)
+        from montreal_forced_aligner_tpu_torch.parallel.multihost import (
+            host_allgather_object,
+            shard_corpus,
+        )
+
+        sub, ids = shard_corpus(corpus)
+        self.last_shard = ids
+        local = self._align_local(sub) if ids else {}
+        for new_id, old_id in enumerate(ids):
+            src, dst = sub.utterances[new_id], corpus.utterances[old_id]
+            dst.num_samples, dst.num_frames = src.num_samples, src.num_frames
+            dst.normalized_tokens = src.normalized_tokens
+        mine = {}
+        for new_id, aln in local.items():
+            aln.utterance_id = ids[new_id]
+            mine[ids[new_id]] = aln
+        results = {}
+        for part in host_allgather_object(mine):
+            results.update(part)
+        # this rank's own objects, not their copies
+        results.update(mine)
+        return dict(sorted(results.items()))
+
+    def _align_local(self, corpus: Corpus) -> Dict[int, UtteranceAlignment]:
+        """``align_corpus`` on this process's devices: batches round-robin
+        over ``self.devices``, per-speaker sums and fMLLR statistics reduced
+        on the first in batch order."""
         from montreal_forced_aligner_tpu_torch.online import alignment as online
 
         cfg = self.config
@@ -651,7 +733,8 @@ class PretrainedAligner:
         spk_total = torch.zeros((num_speakers, D), dtype=torch.float32, device=dev)
         spk_count = np.zeros(num_speakers, dtype=np.float64)
         stashes = []
-        for batch in batches:
+        for bi, batch in enumerate(batches):
+            bdev = self.devices[bi % len(self.devices)]
             wave_list = [waves[i] for i in batch]
             L = _round_up(max(len(w) for w in wave_list), 16000)
             padded, lens = pad_waves_for_mfcc(wave_list, self.mfcc_config, L)
@@ -663,17 +746,17 @@ class PretrainedAligner:
                 [speaker_index[corpus.utterances[i].speaker] for i in batch],
                 np.int64,
             )
-            flens_dev = torch.from_numpy(flens).to(dev)
-            spk_dev = torch.from_numpy(spk_idx).to(dev)
+            flens_dev = torch.from_numpy(flens).to(bdev)
+            spk_dev = torch.from_numpy(spk_idx).to(bdev)
             feats_dev, bsum = _mfcc_and_spk_stats(
-                torch.from_numpy(padded).to(dev),
+                torch.from_numpy(padded).to(bdev),
                 flens_dev,
                 spk_dev,
                 self.mfcc_config,
                 max_frames,
                 num_speakers,
             )
-            spk_total += bsum
+            spk_total += bsum.to(dev)
             # frame counts accumulate on the host in float64
             np.add.at(spk_count, spk_idx, flens.astype(np.float64))
             pitch = None
@@ -692,7 +775,7 @@ class PretrainedAligner:
                     np.array([len(w) for w in wave_list], np.int32),
                     flens,
                     max_frames,
-                    device=dev,
+                    device=bdev,
                 )
             stashes.append((batch, feats_dev, flens, pitch, flens_dev, spk_dev))
             for row, i in enumerate(batch):
@@ -735,14 +818,19 @@ class PretrainedAligner:
         spk_mean = spk_total / torch.from_numpy(
             np.maximum(spk_count, 1.0).astype(np.float32)
         ).to(dev)[:, None]
+        spk_mean_on = {}
         prepared = []
         for batch, feats_dev, flens, pitch, flens_dev, spk_dev in stashes:
+            bdev = feats_dev.device
+            if bdev not in spk_mean_on:
+                spk_mean_on[bdev] = spk_mean.to(bdev)
             garrs = batch_graphs([graphs[i] for i in batch])
-            graph = ship_graph_to_device(garrs, dev)
+            graph = ship_graph_to_device(garrs, bdev)
             band_limits = band_limits_from_arcs(garrs)
             ff = _final_feats(
-                feats_dev, flens_dev, spk_mean[spk_dev], self.gmm.lda,
-                None if pitch is None else torch.from_numpy(pitch).to(dev),
+                feats_dev, flens_dev, spk_mean_on[bdev][spk_dev],
+                self._on("gmm", bdev).lda,
+                None if pitch is None else torch.from_numpy(pitch).to(bdev),
             )
             prepared.append(
                 _Batch(batch, flens, garrs, graph, ff, flens_dev, band_limits, spk_dev)
@@ -754,15 +842,16 @@ class PretrainedAligner:
 
         pending = []
         for b in prepared:
+            gmm = self._on("gmm", b.ff.device)
             state_path, scores = _emit_and_align(
-                b.ff, b.flens_dev, b.graph, self.gmm, cfg.acoustic_scale,
+                b.ff, b.flens_dev, b.graph, gmm, cfg.acoustic_scale,
                 band_limits=b.band_limits,
                 use_emission_kernel=self.use_emission_kernel,
             )
             conf = None
             if cfg.compute_confidence:
                 conf = _phone_confidence(
-                    b.ff, state_path, b.graph, self.gmm.W, self.gmm.gconsts
+                    b.ff, state_path, b.graph, gmm.W, gmm.gconsts
                 )
             # halve the path bytes when state indices fit int16
             if b.graph.state_pdf.shape[1] <= 32767:
@@ -776,11 +865,12 @@ class PretrainedAligner:
 
         def pad_cat(xs):
             return torch.cat(
-                [torch.nn.functional.pad(x, (0, Tmax - x.shape[1])) for x in xs]
+                [torch.nn.functional.pad(x, (0, Tmax - x.shape[1])).to(dev)
+                 for x in xs]
             ).cpu().numpy()
 
         all_sp = pad_cat([p[3] for p in pending])
-        all_sc = torch.cat([p[4] for p in pending]).cpu().numpy()
+        all_sc = torch.cat([p[4].to(dev) for p in pending]).cpu().numpy()
         all_cf = pad_cat([p[5] for p in pending]) if cfg.compute_confidence else None
         mark("path_fetch")
 

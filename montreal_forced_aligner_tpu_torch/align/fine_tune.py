@@ -71,7 +71,42 @@ def fine_tune_alignments(
     padding_frames: float = 1.5,
     feature_padding_factor: int = 3,
 ) -> Dict[int, UtteranceAlignment]:
-    """Refine all phone boundaries to 1 ms; returns updated results."""
+    """Refine all phone boundaries to 1 ms; returns updated results. On an
+    aligner's mesh of several ranks the boundary windows shard as align
+    batches do: each rank refines its own speakers' utterances and every
+    rank returns all of them."""
+    mesh = getattr(aligner, "mesh", None)
+    if mesh is None or mesh.world_size == 1:
+        return _fine_tune_local(aligner, corpus, results, batch_size,
+                                padding_frames, feature_padding_factor)
+    from montreal_forced_aligner_tpu_torch.parallel.multihost import (
+        host_allgather_object,
+        shard_corpus,
+    )
+
+    sub, ids = shard_corpus(corpus)
+    mine = {}
+    if ids:
+        local = {new: results[old] for new, old in enumerate(ids)
+                 if old in results}
+        tuned = _fine_tune_local(aligner, sub, local, batch_size,
+                                 padding_frames, feature_padding_factor)
+        mine = {ids[new]: aln for new, aln in tuned.items()}
+    for part in host_allgather_object(mine):
+        results.update(part)
+    results.update(mine)
+    return results
+
+
+def _fine_tune_local(
+    aligner,
+    corpus: Corpus,
+    results: Dict[int, UtteranceAlignment],
+    batch_size: int,
+    padding_frames: float,
+    feature_padding_factor: int,
+) -> Dict[int, UtteranceAlignment]:
+    """``fine_tune_alignments`` on this process's device."""
     base_cfg = aligner.mfcc_config
     fine_cfg = MfccConfig(
         sample_rate=base_cfg.sample_rate,

@@ -26,6 +26,14 @@
 
 Serves the reference package's commands that this port implements, with
 their options, plus ``--device`` on the commands that run on a device.
+
+Several cards: ``python -m torch.distributed.run --nproc_per_node N -m
+montreal_forced_aligner_tpu_torch.cli {align,train,validate,transcribe} ...
+--distributed`` (one rank a card on NCCL; ``MFA_TPU_TORCH_DIST_BACKEND=gloo``
+lets ranks share cards, and ``--device cpu`` runs the ranks on the CPU over
+gloo). Each rank works on its own speakers; ``align`` and ``transcribe``
+ranks export their own files, ``train`` reduces the statistics over the
+ranks and rank 0 writes the model.
 Options whose work is not ported yet parse and then raise
 ``NotImplementedError`` naming their ROADMAP item. Built on ``argparse`` so
 it needs nothing beyond the standard library, numpy, torch and yaml.
@@ -37,12 +45,15 @@ import argparse
 import contextlib
 import json
 import logging
+import os
 import shutil
 import sys
 import tempfile
 import time
 from pathlib import Path
 from typing import List, Optional
+
+import numpy as np
 
 _OUTPUT_FORMATS = ["long_textgrid", "short_textgrid", "json", "csv"]
 
@@ -89,7 +100,9 @@ def _align_parser(sub) -> None:
                    help="Processes for host graph compilation of "
                         "context-dependent trees (0 = in-process; default 0)")
     _flag(a, "distributed", None,
-          "Multi-GPU alignment: not ported yet, raises")
+          "Multi-GPU alignment: under torch.distributed.run each rank aligns "
+          "its own speakers and exports their files; in one process, batches "
+          "round-robin over the local cards (default: on under several ranks)")
     _flag(a, "include_silence", None)
     a.add_argument("--textgrid_cleanup", dest="textgrid_cleanup",
                    action="store_true", default=None,
@@ -188,7 +201,10 @@ def _train_parser(sub) -> None:
                    action="store_true", default=True)
     t.add_argument("--chain_topology", dest="variable_length_topology",
                    action="store_false")
-    _flag(t, "distributed", None, "Multi-GPU training: not ported yet, raises")
+    _flag(t, "distributed", None,
+          "Multi-GPU training: under torch.distributed.run each rank trains on "
+          "its own speakers and the statistics are reduced over the ranks "
+          "(default: on under several ranks)")
     t.add_argument("--profile_dir", default=None,
                    help="Write a torch.profiler trace of the run here")
     t.add_argument("--train_g2p", action="store_true",
@@ -227,6 +243,10 @@ def _host_parsers(sub) -> None:
           "Decode utterances against per-speaker LMs and report WER "
           "(flags likely transcript errors; needs --acoustic_model_path)")
     _device(v)
+    _flag(v, "distributed", None,
+          "Under torch.distributed.run each rank decodes its own speakers for "
+          "--test_transcriptions and the WER is reduced over the ranks "
+          "(default: on under several ranks)")
     v.add_argument("--ignore_acoustics", "--skip_acoustics",
                    dest="ignore_acoustics", action="store_true", default=None)
     v.add_argument("--no_ignore_acoustics", "--no_skip_acoustics",
@@ -315,6 +335,9 @@ def _transcribe_parser(sub) -> None:
     t.add_argument("--language_model_path", default=None,
                    help="ARPA LM or LanguageModel zip; trained from the "
                         "corpus transcripts if omitted")
+    _flag(t, "distributed", None,
+          "Under torch.distributed.run each rank decodes its own speakers and "
+          "exports their transcripts (default: on under several ranks)")
     _flag(t, "evaluate", None, "Print WER and CER against the transcripts")
     t.add_argument("--batch_size", type=int, default=None, help="default 16")
     t.add_argument("--nbest", type=int, default=None,
@@ -637,6 +660,53 @@ def _profiled(profile_dir, device, name: str):
     return trace()
 
 
+def _sharded(args) -> bool:
+    """Whether this command splits its corpus over the ranks: ``--distributed``
+    (None: on when several ranks run). The command decides: the aligner and
+    the decoders work on the corpus they are given unless told otherwise."""
+    from montreal_forced_aligner_tpu_torch.parallel import multihost
+
+    flag = getattr(args, "distributed", None)
+    return multihost.process_count() > 1 and flag is not False
+
+
+def _aligner_distributed(args) -> bool:
+    """``AlignerConfig.distributed`` of a command: sharded over the ranks
+    (:func:`_sharded`), or round-robin over the local cards of one process
+    with ``--distributed``."""
+    return _sharded(args) or bool(getattr(args, "distributed", None))
+
+
+def _rank_corpus(corpus, ids):
+    """The utterances ``ids`` of ``corpus`` with their ids kept (what one rank
+    exports)."""
+    from montreal_forced_aligner_tpu_torch.corpus.corpus import Corpus
+
+    utts = [corpus.utterances[i] for i in ids]
+    return Corpus(utterances=utts, speakers=sorted({u.speaker for u in utts}),
+                  files=dict(corpus.files))
+
+
+def _rank_summary(command: str, device, utterances: int, t0: float) -> None:
+    """One line per rank of a multi-process run: its utterances, wall,
+    kernel launches and peak card memory."""
+    import torch
+
+    from montreal_forced_aligner_tpu_torch.ops import cuda_build
+    from montreal_forced_aligner_tpu_torch.parallel import multihost
+
+    if not multihost.is_initialized():
+        return
+    peak = (torch.cuda.max_memory_allocated(device)
+            if device is not None and device.type == "cuda" else None)
+    print("rank_summary " + json.dumps({
+        "command": command, "rank": multihost.process_index(),
+        "world_size": multihost.process_count(), "device": str(device),
+        "utterances": utterances, "wall_s": time.time() - t0,
+        "launches": dict(cuda_build.LAUNCHES), "peak_memory_bytes": peak,
+    }), flush=True)
+
+
 def _train(args) -> int:
     """Train through the staged recipe (reference ``mfa train``,
     ``command_line/train_acoustic_model.py``)."""
@@ -676,11 +746,16 @@ def _train(args) -> int:
         )
         for st in recipe
     ]
+    from montreal_forced_aligner_tpu_torch.parallel import multihost
+
     if args.clean and args.working_directory is not None:
         wd = Path(args.working_directory)
-        if wd.exists():
+        # ranks share the working directory: rank 0 wipes it, and no rank
+        # goes on before it has
+        if multihost.process_index() == 0 and wd.exists():
             shutil.rmtree(wd)
             print(f"Cleaned working directory {wd}")
+        multihost.host_barrier("train_clean")
     ta = TrainableAligner(
         args.corpus_directory, args.dictionary_path, recipe=recipe,
         base_config=TrainerConfig(
@@ -706,8 +781,12 @@ def _train(args) -> int:
     )
     with _profiled(args.profile_dir, ta.device, "train_trace.json"):
         ta.train()
-    ta.export_model(args.output_model_path)
-    print(f"Saved model to {args.output_model_path}")
+    # every rank holds the same model: rank 0 writes it
+    if multihost.process_index() == 0:
+        ta.export_model(args.output_model_path)
+        print(f"Saved model to {args.output_model_path}")
+    multihost.host_barrier("train_saved")
+    _rank_summary("train", ta.device, ta.corpus.num_utterances, t0)
     if args.output_directory is not None:
         _align_and_export(args, args.output_model_path, batch_size)
     print(f"Done! Everything took {time.time() - t0:.1f} seconds on {ta.device}")
@@ -725,7 +804,9 @@ def _align_and_export(args, model_path, batch_size: int = 16) -> None:
     from montreal_forced_aligner_tpu_torch.corpus.corpus import Corpus
 
     aligner = PretrainedAligner(
-        model_path, args.dictionary_path, AlignerConfig(batch_size=batch_size),
+        model_path, args.dictionary_path,
+        AlignerConfig(batch_size=batch_size,
+                      distributed=_aligner_distributed(args)),
         device=args.device,
     )
     corpus = Corpus.load(
@@ -734,6 +815,8 @@ def _align_and_export(args, model_path, batch_size: int = 16) -> None:
         audio_directory=args.audio_directory,
     )
     results = aligner.align_corpus(corpus)
+    if aligner.mesh is not None and aligner.mesh.world_size > 1:
+        corpus = _rank_corpus(corpus, aligner.last_shard)
     outs = aligner.export_textgrids(
         corpus, results, args.output_directory,
         output_format=args.output_format,
@@ -758,9 +841,6 @@ def _align(args) -> int:
             f"{output_format!r}"
         )
     fine_tune = bool(setting("fine_tune", False))
-    if args.distributed:
-        raise NotImplementedError(
-            "--distributed: multi-GPU is ROADMAP.md Queue 1 item 15")
     use_phone_model = bool(setting("use_phone_model", False))
     include_silence = bool(setting("include_silence", False))
     # after the config: an explicit flag always wins
@@ -776,6 +856,7 @@ def _align(args) -> int:
         uses_speaker_adaptation=not args.single_speaker,
         language=args.language,
         transfer_mode=args.transfer_mode,
+        distributed=_aligner_distributed(args),
     )
     aligner = PretrainedAligner(
         args.acoustic_model_path, args.dictionary_path, config,
@@ -793,6 +874,22 @@ def _align(args) -> int:
     )
     with _profiled(args.profile_dir, aligner.device, "align_trace.json"):
         results = aligner.align_corpus(corpus)
+    # several ranks: every rank holds every result; each exports the files
+    # of its own speakers, rank 0 the corpus-wide reports
+    multi = aligner.mesh is not None and aligner.mesh.world_size > 1
+    lead = not multi or aligner.mesh.rank == 0
+    full_corpus = corpus
+    # the phone decode runs on this rank's utterances, numbered from 0
+    phone_corpus, phone_results, phone_csv = (
+        corpus, results, "phone_transcript_evaluation.csv")
+    if multi:
+        corpus = _rank_corpus(corpus, aligner.last_shard)
+        print(f"rank {aligner.mesh.rank}/{aligner.mesh.world_size}: aligned "
+              f"{corpus.num_utterances} utterances")
+        phone_corpus = full_corpus.subset(aligner.last_shard)
+        phone_results = {n: results[o] for n, o in enumerate(aligner.last_shard)
+                         if o in results}
+        phone_csv = f"phone_transcript_evaluation.rank{aligner.mesh.rank}.csv"
     phone_transcripts = None
     if use_phone_model:
         # the reference's precedence (``alignment/base.py:543``): the phone
@@ -806,7 +903,7 @@ def _align(args) -> int:
                   "behavior); skipping fine-tuning")
             fine_tune = False
         phone_transcripts = transcribe_phones(
-            args.acoustic_model_path, corpus, results,
+            args.acoustic_model_path, phone_corpus, phone_results,
             batch_size=config.batch_size, phone_lm=aligner.model.phone_lm,
             device=aligner.device,
         )
@@ -816,7 +913,7 @@ def _align(args) -> int:
             fine_tune_alignments,
         )
 
-        results = fine_tune_alignments(aligner, corpus, results)
+        results = fine_tune_alignments(aligner, full_corpus, results)
         print("Fine-tuned boundaries at 1 ms resolution")
     outs = aligner.export_textgrids(
         corpus,
@@ -834,30 +931,39 @@ def _align(args) -> int:
     )
 
     analyses, flagged = analyze_alignments(results)
-    csv_report(analyses, corpus,
-               Path(args.output_directory) / "alignment_analysis.csv")
-    if flagged:
+    if lead:
+        csv_report(analyses, full_corpus,
+                   Path(args.output_directory) / "alignment_analysis.csv")
+    if flagged and lead:
         print(f"Flagged {len(flagged)} utterances with anomalous phone "
               "durations (see alignment_analysis.csv)")
     print(
         f"Aligned {len(results)} utterances -> {len(outs)} files in "
         f"{time.time() - t0:.1f}s on {aligner.device}"
     )
+    _rank_summary("align", aligner.device, corpus.num_utterances, t0)
     if phone_transcripts is not None:
         from montreal_forced_aligner_tpu_torch.transcription.phone_transcriber import (
             evaluate_against_alignments,
         )
 
         overlap, per = evaluate_against_alignments(
-            results, phone_transcripts, corpus,
-            output_path=Path(args.output_directory)
-            / "phone_transcript_evaluation.csv",
+            phone_results, phone_transcripts, phone_corpus,
+            output_path=Path(args.output_directory) / phone_csv,
             silence_phone=aligner.lexicon.silence_phone,
         )
         print("Phone-transcript evaluation: overlap error "
               f"{'n/a' if overlap is None else f'{overlap:.4f}'}, "
-              f"PER {per:.4f} (phone_transcript_evaluation.csv)")
-    if args.reference_directory:
+              f"PER {per:.4f} ({phone_csv})")
+    if multi and args.reference_directory:
+        from montreal_forced_aligner_tpu_torch.parallel.multihost import (
+            host_barrier,
+        )
+
+        # rank 0 reads every rank's exports
+        host_barrier("align_exported")
+        corpus = full_corpus
+    if args.reference_directory and lead:
         eval_dir = args.output_directory
         if output_format in ("json", "csv"):
             # the evaluator reads TextGrids; export a temporary copy
@@ -1021,12 +1127,34 @@ def _test_transcriptions(args, corpus) -> None:
         Transcriber,
     )
 
+    from montreal_forced_aligner_tpu_torch.parallel import multihost
+
+    t0 = time.time()
     tr = Transcriber(args.acoustic_model_path, args.dictionary_path,
                      device=args.device)
-    results = tr.transcribe_corpus_per_speaker(corpus)
+    sharded = _sharded(args)
+    if sharded:
+        # per-speaker LM decode is speaker-independent: each rank decodes
+        # its own speakers (the reference's speaker-sharded
+        # PerSpeakerDecodeFunction jobs)
+        corpus = multihost.shard_corpus(corpus)[0]
+        print(f"rank {multihost.process_index()}/{multihost.process_count()}: "
+              f"decoding {corpus.num_utterances} utterances with per-speaker LMs")
+    results = (tr.transcribe_corpus_per_speaker(corpus)
+               if corpus.num_utterances else {})
     metrics = tr.evaluate(corpus, results)
     print(f"Transcription check: WER {metrics['wer']:.4f} over "
           f"{metrics['num_utterances']} utterances")
+    if sharded:
+        # the corpus-wide numbers a single run gives: utterance-weighted
+        # WER/CER sums over the ranks
+        n = metrics["num_utterances"]
+        tot = multihost.host_allreduce_sum(np.array(
+            [metrics["wer"] * n, metrics["cer"] * n, n], np.float64))
+        if tot[2] > 0:
+            print(f"Transcription check (all ranks): WER {tot[0] / tot[2]:.4f} "
+                  f"CER {tot[1] / tot[2]:.4f} over {int(tot[2])} utterances")
+        _rank_summary("validate", tr.device, corpus.num_utterances, t0)
     flagged = []
     for utt in corpus.utterances:
         if utt.id not in results:
@@ -1084,6 +1212,16 @@ def _transcribe(args) -> int:
                          speaker_characters=args.speaker_characters,
                          audio_directory=args.audio_directory,
                          require_transcripts=False)
+    from montreal_forced_aligner_tpu_torch.parallel import multihost
+
+    t0 = time.time()
+    sharded = _sharded(args)
+    if sharded:
+        # decoding is per utterance: each rank takes its speakers and exports
+        # their transcripts (as align does)
+        corpus, shard_ids = multihost.shard_corpus(corpus)
+        print(f"rank {multihost.process_index()}/{multihost.process_count()}: "
+              f"transcribing {corpus.num_utterances} utterances")
     rescore_lm = ArpaModel.read(args.rescore_lm_path) if args.rescore_lm_path else None
     if rescore_lm is None and archive_rescore is not None:
         # rescoring needs alternatives to re-rank: N-best even when 1-best
@@ -1095,8 +1233,10 @@ def _transcribe(args) -> int:
     if rescore_weight is None:
         rescore_weight = lm_weight
     with _profiled(args.profile_dir, tr.device, "transcribe_trace.json"):
-        results = tr.transcribe_corpus(corpus, nbest=nbest, rescore_lm=rescore_lm,
-                                       rescore_weight=float(rescore_weight))
+        results = tr.transcribe_corpus(
+            corpus, nbest=nbest, rescore_lm=rescore_lm,
+            rescore_weight=float(rescore_weight),
+        ) if corpus.num_utterances else {}
     _export_transcripts(corpus, {i: r.text for i, r in results.items()},
                         args.output_directory)
     if args.output_type == "alignment":
@@ -1105,6 +1245,8 @@ def _transcribe(args) -> int:
                               speaker_characters=args.speaker_characters,
                               audio_directory=args.audio_directory,
                               require_transcripts=False)
+        if sharded:
+            decoded = decoded.subset(shard_ids)
         for utt in decoded.utterances:
             if utt.id in results:
                 utt.text = results[utt.id].text
@@ -1124,6 +1266,15 @@ def _transcribe(args) -> int:
         metrics = tr.evaluate(corpus, results)
         print(f"WER: {metrics['wer']:.4f}  CER: {metrics['cer']:.4f} "
               f"({metrics['num_utterances']} utterances)")
+        if sharded:
+            n = metrics["num_utterances"]
+            tot = multihost.host_allreduce_sum(np.array(
+                [metrics["wer"] * n, metrics["cer"] * n, n], np.float64))
+            if tot[2] > 0:
+                print(f"WER (all ranks): {tot[0] / tot[2]:.4f}  CER: "
+                      f"{tot[1] / tot[2]:.4f} ({int(tot[2])} utterances)")
+    if sharded:
+        _rank_summary("transcribe", tr.device, corpus.num_utterances, t0)
     return 0
 
 
@@ -2038,12 +2189,22 @@ def main(argv: Optional[List[str]] = None) -> int:
 
         record_history(sys.argv[1:])
     from montreal_forced_aligner_tpu_torch.exceptions import MFAError
+    from montreal_forced_aligner_tpu_torch.parallel import multihost
 
+    # a multi-process launch (python -m torch.distributed.run): join the
+    # process group before any device use (a caller that made the group
+    # keeps it)
+    joined = "WORLD_SIZE" in os.environ and not multihost.is_initialized()
+    if joined:
+        multihost.initialize_multihost(device=getattr(args, "device", "cpu"))
     try:
         return _COMMANDS[args.command](args)
     except MFAError as e:
         print(f"Error: {e}", file=sys.stderr)
         return 1
+    finally:
+        if joined:
+            multihost.shutdown_multihost()
 
 
 if __name__ == "__main__":

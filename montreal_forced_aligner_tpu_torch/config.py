@@ -104,6 +104,10 @@ def history_path() -> Path:
 
 
 def record_history(command: List[str], exit_code: int = 0) -> None:
+    """Append ``command`` to the history store. Processes that run at once
+    (the ranks of one launch) share the store: each writes a file of its
+    own and renames it over the store, so a reader never sees a partial
+    one; an unreadable store starts anew."""
     path = history_path()
     path.parent.mkdir(parents=True, exist_ok=True)
     entry = {
@@ -111,13 +115,15 @@ def record_history(command: List[str], exit_code: int = 0) -> None:
         "time": datetime.datetime.now().isoformat(timespec="seconds"),
         "exit_code": exit_code,
     }
-    history: List[dict] = []
-    if path.exists():
-        with open(path, "r", encoding="utf-8") as f:
-            history = yaml.safe_load(f) or []
+    try:
+        history = load_history()
+    except yaml.YAMLError:
+        history = []
     history.append(entry)
-    with open(path, "w", encoding="utf-8") as f:
+    tmp = path.with_name(f"{path.name}.{os.getpid()}.tmp")
+    with open(tmp, "w", encoding="utf-8") as f:
         yaml.safe_dump(history[-200:], f)
+    os.replace(tmp, path)
 
 
 def load_history() -> List[dict]:

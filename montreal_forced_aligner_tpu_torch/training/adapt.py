@@ -13,8 +13,11 @@ fMLLR-transformed features; the speaker-independent alignment model
 accumulates on SI features under the same (pass-2) alignment — the
 two-feats semantics of ``AccStatsTwoFeatsFunction`` (``sat.py:46``).
 
-Both passes align through the training alignment (``training/base.py``):
-the state-emission kernel K3 when the model is large enough, then the band
+With a distributed aligner each rank adapts on its own speakers: it
+estimates their fMLLR transforms from its own statistics (a speaker's
+statistics never leave its rank) and the MAP statistics are reduced over
+the ranks. Both passes align through the training alignment
+(``training/base.py``): the state-emission kernel K3 when the model is large enough, then the band
 Viterbi kernels K1 and K2. Both models align unboosted, as the reference
 package's adaptation does. The statistics sum in a fixed order
 (``ops/stats.py``) and the per-batch fMLLR and GMM sums are added in float64
@@ -106,7 +109,7 @@ class MapAdapter:
         )
         from montreal_forced_aligner_tpu_torch.params import fmllr_params_from_numpy
 
-        S = pipeline.num_speakers_global or len(pipeline.corpus.speakers)
+        S = len(pipeline.corpus.speakers)
         fm = fmllr_params_from_numpy(
             gmm, silence_pdf_mask(self.aligner._silence_pdfs(), gmm.num_pdfs)
         ).to(pipeline.device)
@@ -117,13 +120,14 @@ class MapAdapter:
                     fb.put_b(fb.feats),
                     pipeline.put_b(fb.frame_lengths),
                     fb.frame_pdf,
-                    pipeline.put_b(fb.speaker_idx.astype(np.int64) + pipeline.spk_offset),
+                    pipeline.put_b(fb.speaker_idx.astype(np.int64)),
                     nonsilence_weight(fb.frame_pdf, fm.sil_mask),
                     fm.means, fm.inv_vars, fm.gconsts, fm.miv, S,
                 )
             )
-        K = np.zeros((S,) + tuple(pending[0][0].shape[1:]))
-        G = np.zeros((S,) + tuple(pending[0][1].shape[1:]))
+        D = gmm.dim
+        K = np.zeros((S, D, D + 1))
+        G = np.zeros((S, D, D + 1, D + 1))
         beta = np.zeros(S)
         for k, g, b in fetch_all(pending):
             K += k.astype(np.float64)
@@ -162,7 +166,7 @@ class MapAdapter:
                 np.zeros(tm.num_transition_ids + 1),
                 float(ll), 0.0,
             )
-        return acc
+        return pipeline.reduce_accumulators(acc)
 
     def _map_update(self, gmm, acc):
         acc = ismooth_stats_from_model(gmm, acc, self.mapping_tau)
@@ -178,6 +182,17 @@ class MapAdapter:
             speaker_characters=speaker_characters,
             audio_directory=audio_directory,
         )
+        # a distributed aligner's ranks adapt on their own speakers and
+        # reduce the statistics (a single process keeps one device)
+        mesh = self.aligner.mesh
+        if mesh is not None and len(mesh.devices) != 1:
+            mesh = None
+        if mesh is not None and mesh.world_size > 1:
+            from montreal_forced_aligner_tpu_torch.parallel.multihost import (
+                shard_corpus,
+            )
+
+            corpus = shard_corpus(corpus)[0]
         pipeline = TrainingPipeline(
             corpus,
             self.aligner.lexicon,
@@ -185,6 +200,7 @@ class MapAdapter:
             batch_size=self.aligner.config.batch_size,
             uses_deltas=model.uses_deltas,
             lda_mat=model.lda_mat,
+            mesh=mesh,
             device=self.device,
         )
         clock = pipeline.clock

@@ -284,9 +284,18 @@ class TrainingPipeline:
         language=None,
         device="cuda",
     ):
+        # multi-GPU: a ``parallel.mesh.Mesh`` of this rank's one device; the
+        # rank's statistics meet the other ranks' in reduce_card/reduce_host.
+        # A rank holds its speakers whole: per-speaker statistics (CMVN,
+        # fMLLR) stay on it
+        self.mesh = mesh
         if mesh is not None:
-            raise NotImplementedError(
-                "not ported yet: mesh: multi-GPU is ROADMAP.md Queue 1 item 15")
+            if len(mesh.devices) != 1:
+                raise ValueError(
+                    "a training mesh holds one device per rank: launch one "
+                    "process per card (python -m torch.distributed.run "
+                    "--nproc_per_node N ...)")
+            device = mesh.device
         self.device = resolve_device(device)
         self.corpus = corpus
         self.lexicon = lexicon
@@ -311,8 +320,6 @@ class TrainingPipeline:
         self.batches: List[FeatureBatch] = []
         self.graphs: List[CompiledGraph] = []
         self._spk_mean: Optional[np.ndarray] = None
-        self.spk_offset = 0
-        self.num_speakers_global: Optional[int] = None
         self.clock = PhaseClock(self.device)
 
     def put_b(self, x) -> torch.Tensor:
@@ -320,6 +327,51 @@ class TrainingPipeline:
 
     def put_rep(self, x) -> torch.Tensor:
         return _put(x, self.device)
+
+    @property
+    def world_size(self) -> int:
+        return 1 if self.mesh is None else self.mesh.world_size
+
+    def reduce_card(self, tensors) -> List[torch.Tensor]:
+        """Statistics on the card summed over the ranks in rank order
+        (``parallel.data_parallel.ordered_allreduce``); unchanged without a
+        mesh or a process group. Every rank calls it once per pass, whatever
+        its batch count: lockstep is one collective per statistic pass."""
+        if self.mesh is None:
+            return list(tensors)
+        from montreal_forced_aligner_tpu_torch.parallel.data_parallel import (
+            ordered_allreduce,
+        )
+
+        return ordered_allreduce(tensors)
+
+    def reduce_host(self, *arrays) -> List[np.ndarray]:
+        """Host statistics summed over the ranks in rank order, in float64
+        for floats, in one collective; unchanged on one rank."""
+        if self.world_size == 1:
+            return list(arrays)
+        from montreal_forced_aligner_tpu_torch.parallel.multihost import (
+            host_allreduce_sum,
+        )
+
+        arrays = [np.asarray(a, np.float64) for a in arrays]
+        flat = host_allreduce_sum(np.concatenate([a.reshape(-1) for a in arrays]))
+        out, off = [], 0
+        for a in arrays:
+            out.append(flat[off:off + a.size].reshape(a.shape))
+            off += a.size
+        return out
+
+    def reduce_accumulators(self, acc):
+        """``ops.stats.GmmAccumulators`` summed over the ranks (in place)."""
+        if self.world_size == 1:
+            return acc
+        acc.occ, acc.mean_acc, acc.var_acc, acc.transition_counts, tail = (
+            self.reduce_host(acc.occ, acc.mean_acc, acc.var_acc,
+                             acc.transition_counts,
+                             np.array([acc.total_loglike, acc.total_frames])))
+        acc.total_loglike, acc.total_frames = float(tail[0]), float(tail[1])
+        return acc
 
     def _store(self, x: torch.Tensor) -> torch.Tensor:
         """Where a feature batch lives: the card, or pinned host memory."""
@@ -356,8 +408,6 @@ class TrainingPipeline:
         D = self.mfcc_config.num_coefficients
         spk_sum = np.zeros((num_speakers, D))
         spk_count = np.zeros(num_speakers)
-        self.spk_offset = 0
-        self.num_speakers_global = num_speakers
         from montreal_forced_aligner_tpu_torch.align.aligner import (
             resolve_transfer_mode,
         )
@@ -453,7 +503,7 @@ class TrainingPipeline:
             )
             if trans_t is not None:
                 final = apply_per_speaker_transform(
-                    final, self.put_b(fb.speaker_idx + self.spk_offset), trans_t,
+                    final, self.put_b(fb.speaker_idx), trans_t,
                 )
             fb.feats = self._store(final)
             fb.frame_pdf = None
@@ -564,6 +614,9 @@ class TrainingPipeline:
             tot += s.astype(np.float64)
             totsq += sq.astype(np.float64)
             n += float(cnt)
+        # each rank's first batches, reduced over the ranks
+        tot, totsq, n_arr = self.reduce_host(tot, totsq, np.array([n]))
+        n = float(n_arr[0])
         mean = tot / max(n, 1.0)
         var = np.maximum(totsq / max(n, 1.0) - mean**2, 1e-3)
         return mean, var

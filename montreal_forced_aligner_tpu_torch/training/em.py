@@ -2,7 +2,10 @@
 
 Counterpart of ``montreal_forced_aligner_tpu/training/em.py``, in PyTorch on
 the pipeline's device: the model and the accumulators stay on the device
-between host syncs, as in the reference package.
+between host syncs, as in the reference package. In a multi-GPU run each
+rank accumulates over its own batches and the statistics are reduced over
+the ranks once per pass (``TrainingPipeline.reduce_card``/``reduce_host``),
+so every rank makes the same update.
 
 The loop structure mirrors the reference's ``AcousticModelTrainingMixin``
 contract (``acoustic_modeling/base.py:745-835``): initialize → per iteration
@@ -279,7 +282,8 @@ class ViterbiEmTrainer:
         )
 
         num_tids = self.tm.num_transition_ids
-        if all(fb.frame_tid_dev is not None for fb in pipeline.batches):
+        if pipeline.batches and all(fb.frame_tid_dev is not None
+                                    for fb in pipeline.batches):
             total = None
             for fb in pipeline.batches:
                 t = accumulate_transition_stats(
@@ -298,6 +302,9 @@ class ViterbiEmTrainer:
                 counts += np.bincount(
                     ft[ft > 0], minlength=num_tids + 1
                 )[: num_tids + 1]
+        # integer counts: the host reduction over the ranks is exact, and
+        # every rank takes it whichever path counted its own frames
+        (counts,) = pipeline.reduce_host(counts)
         self._tcounts = counts
         return counts
 
@@ -328,7 +335,15 @@ class ViterbiEmTrainer:
             else:
                 occ, mean, var = occ + o, mean + ma, var + va
                 ll, frames = ll + l, frames + f
-        return DeviceAccumulators(occ, mean, var, ll, frames)
+        if occ is None:
+            # a rank with no batches still takes part in the reduction
+            P, G, D = m.miv.shape
+            zeros = lambda *shape: torch.zeros(shape, dtype=torch.float32,
+                                               device=pipeline.device)
+            occ, mean, var, ll, frames = (zeros(P, G), zeros(P, G, D),
+                                          zeros(P, G, D), zeros(), zeros())
+        return DeviceAccumulators(
+            *pipeline.reduce_card([occ, mean, var, ll, frames]))
 
     def _update(self, acc, mixup_target: Optional[int]) -> dict:
         """MLE update + mixing-up. Returns {"loglike", "frames"}."""
@@ -412,6 +427,15 @@ class ViterbiEmTrainer:
     # ``acoustic_modeling/base.py:820-826``); set by the orchestrator
     checkpoint_dir = None
 
+    def _ckpt_suffix(self) -> str:
+        """Ranks of a multi-GPU run write files of their own: the model is
+        the same on every rank, the cached alignments are each rank's own
+        corpus rows."""
+        pipeline = self._pipeline
+        if pipeline is None or pipeline.world_size == 1:
+            return ""
+        return f".p{pipeline.mesh.rank}"
+
     def _save_iter_checkpoint(self, it, pipeline, current_target) -> None:
         import json as _json
         from pathlib import Path
@@ -441,13 +465,15 @@ class ViterbiEmTrainer:
                 data[f"state_path_{i}"] = fb.host_state_path()
                 data[f"frame_tid_{i}"] = fb.host_frame_tid()
                 data[f"align_scores_{i}"] = fb.host_align_scores()
-        tmp = d / f"{it}.npz.tmp"
+        sfx = self._ckpt_suffix()
+        tmp = d / f"{it}{sfx}.npz.tmp"
         with open(tmp, "wb") as f:
             np.savez_compressed(f, **data)
-        tmp.rename(d / f"{it}.npz")
+        tmp.rename(d / f"{it}{sfx}.npz")
         # only the latest checkpoint is needed for resume
-        for old in d.glob("*.npz"):
-            if old.stem.isdigit() and int(old.stem) < it:
+        for old in d.glob(f"*{sfx}.npz"):
+            stem = old.name[: -len(f"{sfx}.npz")]
+            if stem.isdigit() and int(stem) < it:
                 old.unlink()
 
     def _load_iter_checkpoint(self, pipeline) -> int:
@@ -466,14 +492,15 @@ class ViterbiEmTrainer:
         d = Path(self.checkpoint_dir)
         if not d.exists():
             return 0, None
-        stems = [int(p.stem) for p in d.glob("*.npz") if p.stem.isdigit()]
-        iters = sorted(stems, reverse=True)
+        sfx = self._ckpt_suffix()
+        stems = [p.name[: -len(f"{sfx}.npz")] for p in d.glob(f"*{sfx}.npz")]
+        iters = sorted((int(s) for s in stems if s.isdigit()), reverse=True)
         if not iters:
             return 0, None
         it = iters[0]
         if it > self.config.num_iterations:
             return 0, None
-        data = np.load(d / f"{it}.npz")
+        data = np.load(d / f"{it}{sfx}.npz")
         self.tm.log_probs = data["tm_log_probs"]
         gmm = DiagGmmSet(
             weights=data["gmm_weights"],

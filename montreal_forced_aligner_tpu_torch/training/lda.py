@@ -85,6 +85,7 @@ class LdaTrainer(TriphoneTrainer):
             counts += c
             sums += s
             second += sec
+        counts, sums, second = pipeline.reduce_host(counts, sums, second)
         self.lda_mat = estimate_lda(
             counts, sums, second, target_dim=self.lda_dimension
         )
@@ -94,10 +95,17 @@ class LdaTrainer(TriphoneTrainer):
         with pipeline.clock("tree"):
             # labels + LDA estimation use the previous stage's alignment/features
             labels = self._extract_labels(pipeline)
-            # one process: the reference's cross-host max is the identity
-            prev_num_classes = int(
-                max(int(fb.frame_pdf.max().item()) for fb in pipeline.batches) + 1
+            # the previous stage's pdf count, the largest over the ranks
+            prev_num_classes = max(
+                (int(fb.frame_pdf.max().item()) + 1 for fb in pipeline.batches),
+                default=0,
             )
+            if pipeline.world_size > 1:
+                from montreal_forced_aligner_tpu_torch.parallel.multihost import (
+                    host_allreduce_max,
+                )
+
+                prev_num_classes = host_allreduce_max(prev_num_classes)
             self._estimate_lda(pipeline, prev_num_classes)
             pipeline.set_feature_transform(uses_deltas=False, lda_mat=self.lda_mat)
 
@@ -165,6 +173,8 @@ class LdaTrainer(TriphoneTrainer):
         for G_mats, beta in fetch_all(pending):
             G_total += G_mats
             beta_total += float(beta)
+        G_total, beta_arr = pipeline.reduce_host(G_total, np.array([beta_total]))
+        beta_total = float(beta_arr[0])
         M = solve_mllt(G_total, beta_total)
         logger.info(
             "MLLT at iter %d: |log det| = %.4f",

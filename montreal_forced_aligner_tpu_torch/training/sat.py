@@ -98,11 +98,8 @@ class SatTrainer(TriphoneTrainer):
         # the device-resident EM keeps the model on device between host
         # syncs; this hook reads self.gmm, so sync first
         self.sync_host_model(pipeline)
-        # dense speaker space of the corpus
-        S = getattr(pipeline, "num_speakers_global", None) or len(
-            pipeline.corpus.speakers
-        )
-        spk_offset = getattr(pipeline, "spk_offset", 0)
+        # dense speaker space of the (rank's) corpus
+        S = len(pipeline.corpus.speakers)
         D = pipeline.feature_dim
         K = np.zeros((S, D, D + 1))
         G = np.zeros((S, D, D + 1, D + 1))
@@ -123,7 +120,7 @@ class SatTrainer(TriphoneTrainer):
                 fb.put_b(fb.feats),
                 pipeline.put_b(fb.frame_lengths),
                 fb.frame_pdf,
-                pipeline.put_b(fb.speaker_idx + spk_offset),
+                pipeline.put_b(fb.speaker_idx),
                 weight,
                 means,
                 iv,
@@ -134,6 +131,8 @@ class SatTrainer(TriphoneTrainer):
             pending.append(out)
         from montreal_forced_aligner_tpu_torch.training.base import fetch_all
 
+        # a rank holds its speakers whole (the corpus shards by speaker):
+        # their transforms come from this rank's statistics alone
         for k, g, b in fetch_all(pending):
             K += k
             G += g
@@ -210,6 +209,7 @@ class SatTrainer(TriphoneTrainer):
             ) if ft is not None else np.zeros(self.tm.num_transition_ids + 1)
             acc.add(occ, mean_acc, var_acc, tcounts, float(ll),
                     float(fb.frame_lengths.sum()))
+        pipeline.reduce_accumulators(acc)
         self.alignment_gmm, _ = mle_update(
             self.gmm, acc, min_gaussian_occupancy=self.config.min_gaussian_occupancy
         )

@@ -1,9 +1,11 @@
 """Full training recipe orchestration.
 
-Counterpart of ``montreal_forced_aligner_tpu/training/trainer.py`` on one
-device (``device="cuda"`` by default; it raises without a card). Options
-that reach the reference package only through a mesh raise
-``NotImplementedError`` naming their ROADMAP.md item.
+Counterpart of ``montreal_forced_aligner_tpu/training/trainer.py``
+(``device="cuda"`` by default; it raises without a card). With
+``distributed`` (on by itself under a process group of several ranks) or a
+``mesh``, each rank trains on its own speakers' utterances
+(``parallel.multihost.shard_corpus_for_host``) and the statistics of every
+pass are reduced over the ranks, so all ranks hold the same model.
 
 Behavioral spec: reference ``acoustic_modeling/trainer.py`` — the default
 recipe chains monophone → triphone → LDA+MLLT → SAT (→ SAT) with growing
@@ -107,16 +109,33 @@ class TrainableAligner:
         device="cuda",
     ):
         recipe = recipe if recipe is not None else DEFAULT_RECIPE
-        if distributed or mesh is not None:
-            raise NotImplementedError(
-                "not ported yet: distributed/mesh: multi-GPU is ROADMAP.md "
-                "Queue 1 item 15")
-        self.device = resolve_device(device)
+        from montreal_forced_aligner_tpu_torch.parallel import multihost
+        from montreal_forced_aligner_tpu_torch.parallel.mesh import Mesh, get_mesh
+
+        # multi-GPU (reference scaling analogue: speaker-sharded worker
+        # jobs, ``utils.py:1505``). None = on under a process group of
+        # several ranks; on a single process the mesh is this one device
+        world = multihost.process_count()
+        if distributed is None:
+            distributed = world > 1
+        self.mesh = mesh
+        if mesh is None and distributed:
+            self.mesh = (get_mesh(device=device) if multihost.is_initialized()
+                         else Mesh((resolve_device(device),)))
+        if world > 1 and self.mesh is None:
+            # each rank would train an independent model on its shard
+            raise ValueError(
+                "training over several ranks needs the mesh; do not pass "
+                "--no_distributed to a multi-process run")
+        self.device = (self.mesh.device if self.mesh is not None
+                       else resolve_device(device))
         self.corpus = Corpus.load(
             corpus_directory,
             speaker_characters=speaker_characters,
             audio_directory=audio_directory,
         )
+        if self.mesh is not None and self.mesh.world_size > 1:
+            self.corpus = multihost.shard_corpus(self.corpus)[0]
         self.rules_path = rules_path
         self.topology_path = topology_path
         # reference default since MFA 2.0: phones as short as one frame
@@ -291,7 +310,11 @@ class TrainableAligner:
         if self.working_directory is None:
             return None, None
         d = self.working_directory / stage_name
-        return d / "model.zip", d / "aux.npz"
+        # the model is every rank's; the speaker transforms are each rank's
+        # own speakers'
+        rank = (f".p{self.mesh.rank}" if self.mesh is not None
+                and self.mesh.world_size > 1 else "")
+        return d / "model.zip", d / f"aux{rank}.npz"
 
     def _save_checkpoint(self, stage_name: str, trainer, model) -> None:
         """Per-stage checkpoint (reference: filesystem-is-the-checkpoint,
@@ -387,10 +410,21 @@ class TrainableAligner:
         alignment log-likelihood/frame z-score is below ``z_threshold``
         (reference ``quality_check_subset``, ``trainer.py:516``)."""
         lls = pipeline.utterance_loglikes()
-        if len(lls) < 10:
-            return
-        vals = np.asarray(list(lls.values()))
-        mean, std = vals.mean(), vals.std()
+        if pipeline.world_size > 1:
+            # the moments of every rank, so each rank applies the threshold a
+            # single run would (and drops only its own utterances)
+            vals_local = np.asarray(list(lls.values()), np.float64)
+            tot, sq, n = pipeline.reduce_host(
+                vals_local.sum(), (vals_local ** 2).sum(), len(vals_local))
+            if n < 10:
+                return
+            mean = float(tot) / float(n)
+            std = float(np.sqrt(max(float(sq) / float(n) - mean * mean, 0.0)))
+        else:
+            if len(lls) < 10:
+                return
+            vals = np.asarray(list(lls.values()))
+            mean, std = vals.mean(), vals.std()
         if std <= 1e-6:
             return
         bad = {i for i, v in lls.items() if (v - mean) / std < z_threshold}
@@ -428,6 +462,8 @@ class TrainableAligner:
         produced under different settings."""
         if self.working_directory is None:
             return
+        if self.mesh is not None and self.mesh.rank != 0:
+            return  # one writer of the shared marker
         import json as _json
 
         self.working_directory.mkdir(parents=True, exist_ok=True)
@@ -472,6 +508,7 @@ class TrainableAligner:
             num_graph_workers=self.num_graph_workers,
             use_pitch=self.use_pitch,
             mfcc_config=self.mfcc_config,
+            mesh=self.mesh,
             language=self.language,
             device=self.device,
         )
@@ -498,7 +535,11 @@ class TrainableAligner:
             _t0 = _time.perf_counter()
             _launched = dict(cuda_build.LAUNCHES)
             if stage.kind != "pron_prob":
+                # stage subsets are global sizes: each rank draws its share
+                # from its own speakers (the reference's per-job analogue)
                 stage_subset = stage.subset
+                if stage_subset and pipeline.world_size > 1:
+                    stage_subset = max(1, stage_subset // pipeline.world_size)
                 if stage_subset and stage_subset < self.corpus.num_utterances:
                     subset = select_training_subset(
                         self.corpus, stage_subset,
@@ -649,6 +690,13 @@ class TrainableAligner:
                 labels = [l for l in labels if l and l not in sil]
                 if labels:
                     texts.append(" ".join(labels))
+        if pipeline.world_size > 1:
+            # every rank's phone sequences, in rank order: one phone LM
+            from montreal_forced_aligner_tpu_torch.parallel.multihost import (
+                host_allgather_object,
+            )
+
+            texts = [t for part in host_allgather_object(texts) for t in part]
         if texts:
             from montreal_forced_aligner_tpu_torch.language_modeling.ngram import (
                 train_lm_from_texts,
@@ -715,6 +763,20 @@ class TrainableAligner:
                 )
                 counter.add_utterance(aln, self.lexicon.silence_phone)
                 n += 1
+        if pipeline.world_size > 1:
+            # each rank counted its own speakers: merge every rank's counts
+            # in rank order, so all ranks fold the same probabilities into
+            # their lexicons (reference: the parent's sum of per-job
+            # counters, ``alignment/base.py:937``)
+            from montreal_forced_aligner_tpu_torch.parallel.multihost import (
+                host_allgather_object,
+            )
+
+            gathered = host_allgather_object((counter.to_plain(), n))
+            counter = PronunciationCounter()
+            for state, _n in gathered:
+                counter.merge(PronunciationCounter.from_plain(state))
+            n = sum(_n for _state, _n in gathered)
         if n == 0:
             logger.warning("pron_prob stage skipped: no cached alignments")
             return

@@ -230,6 +230,29 @@ class TriphoneTrainer(ViterbiEmTrainer):
                         event_ids[key] = eid
                     ev[row, t] = eid
             batch_events.append((fb, ev))
+        # the pipeline of the run (a rank with no batches has no labels and
+        # must still take part in the reductions)
+        pipeline = self._pipeline
+        if pipeline is not None and pipeline.world_size > 1:
+            # one event table on every rank (its statistics reduce slot by
+            # slot): rank 0's events in their order of first sight, then
+            # each further rank's new ones in theirs
+            from montreal_forced_aligner_tpu_torch.parallel.multihost import (
+                allgather_ragged_rows,
+            )
+
+            local_keys = (np.array(list(event_ids), np.int64) if event_ids
+                          else np.zeros((0, 4), np.int64))
+            global_ids: Dict[Tuple[int, int, int, int], int] = {}
+            for rows in allgather_ragged_rows(local_keys):
+                for row in rows:
+                    global_ids.setdefault(tuple(int(v) for v in row),
+                                          len(global_ids))
+            remap = np.zeros(max(len(event_ids), 1), np.int32)
+            for k, old in event_ids.items():
+                remap[old] = global_ids[k]
+            batch_events = [(fb, remap[ev]) for fb, ev in batch_events]
+            event_ids = global_ids
         E = len(event_ids)
         counts = np.zeros(E)
         sums = np.zeros((E, dim))
@@ -246,6 +269,8 @@ class TriphoneTrainer(ViterbiEmTrainer):
             counts += c
             sums += s_
             sumsqs += ss
+        if pipeline is not None:
+            counts, sums, sumsqs = pipeline.reduce_host(counts, sums, sumsqs)
         for key, eid in event_ids.items():
             l, c, r, cls = key
             stats.add_event(

@@ -267,10 +267,21 @@ def test_emission_rule():
     ids=lambda k: next(iter(k)),
 )
 def test_unserved_settings_raise(mono, kwargs):
-    """``transfer_mode="features"`` and ``distributed`` raise; ``language``
-    (ported since the host extras) builds the JAX package's composed
-    tokenizer (``tests/test_torch_tokenization.py`` holds every language)."""
-    _tmp, _corpus_dir, model_path, dict_path = mono
+    """``transfer_mode="features"`` raises; ``language`` (ported since the
+    host extras) builds the JAX package's composed tokenizer
+    (``tests/test_torch_tokenization.py`` holds every language);
+    ``distributed`` (ported with multi-GPU) runs, in one process on the
+    CPU a mesh of one device, to the plain run's intervals
+    (``tests/test_torch_distributed.py`` holds the ranks)."""
+    _tmp, corpus_dir, model_path, dict_path = mono
+    if "distributed" in kwargs:
+        pal = PA.PretrainedAligner(model_path, dict_path, PA.AlignerConfig(**kwargs),
+                                   device="cpu")
+        assert pal.mesh is not None and pal.mesh.world_size == 1
+        plain = PA.PretrainedAligner(model_path, dict_path, device="cpu")
+        assert _intervals(pal.align_corpus(PCorpus.load(corpus_dir))) == \
+            _intervals(plain.align_corpus(PCorpus.load(corpus_dir)))
+        return
     if "language" in kwargs:
         pal = PA.PretrainedAligner(model_path, dict_path, PA.AlignerConfig(**kwargs),
                                    device="cpu")
@@ -284,18 +295,18 @@ def test_unserved_settings_raise(mono, kwargs):
 
 
 def test_g2p_and_rules_raise(mono, tmp_path):
-    """``--distributed`` and ``--transfer_mode features`` raise naming their
-    item; ``--g2p_model_path``, ``--rules_path`` and ``--language`` (the host
-    extras) align as the JAX package's CLI does
-    (``tests/test_torch_align_g2p.py`` holds the paths in full)."""
+    """``--transfer_mode features`` raises naming its reason;
+    ``--g2p_model_path``, ``--rules_path`` and ``--language`` (the host
+    extras) and ``--distributed`` (multi-GPU; one process here) align as
+    the JAX package's CLI does (``tests/test_torch_align_g2p.py`` holds the
+    host extras in full, ``tests/test_torch_distributed.py`` the ranks)."""
     from click.testing import CliRunner
 
     import montreal_forced_aligner_tpu.cli as JCLI
     from montreal_forced_aligner_tpu_torch.g2p.trainer import G2PTrainer
 
     _tmp, corpus_dir, model_path, dict_path = mono
-    for extra, item in ((["--distributed"], "item 15"),
-                        (["--transfer_mode", "features"], "waves")):
+    for extra, item in ((["--transfer_mode", "features"], "waves"),):
         with pytest.raises(NotImplementedError, match=item):
             cli_main(["align", "c", str(dict_path), str(model_path), "o",
                       "--device", "cpu", *extra])
@@ -307,7 +318,8 @@ def test_g2p_and_rules_raise(mono, tmp_path):
                      "    replacement: aa\n")
     for i, extra in enumerate((["--language", "english"],
                                ["--g2p_model_path", str(g2p)],
-                               ["--rules_path", str(rules)])):
+                               ["--rules_path", str(rules)],
+                               ["--distributed"])):
         got, want = tmp_path / f"port{i}", tmp_path / f"jax{i}"
         assert cli_main(["align", str(corpus_dir), str(dict_path), str(model_path),
                          str(got), "--device", "cpu", *extra]) == 0
@@ -473,7 +485,8 @@ def test_cuda_default_raises_without_card(mono):
 
 
 def _port_files():
-    return sorted(PORT.rglob("*.py")) + [REPO / "chip_smoke.py"]
+    return (sorted(PORT.rglob("*.py")) + [REPO / "chip_smoke.py"]
+            + sorted((REPO / "mfa_tpu_torch").rglob("*.py")))
 
 
 def test_port_names_no_jax_in_any_import():
@@ -500,8 +513,14 @@ def test_port_names_no_jax_in_any_import():
                    "dictionary/rules.py", "g2p/trainer.py", "g2p/generator.py",
                    "g2p/pair_ngram.py", "g2p/openfst_model.py",
                    "g2p/export_openfst.py", "tokenization/languages.py",
-                   "tokenization/trainer.py", "tokenization_surface.py"):
+                   "tokenization/trainer.py", "tokenization_surface.py",
+                   "parallel/multihost.py", "parallel/mesh.py",
+                   "parallel/data_parallel.py", "parallel/scaling.py",
+                   "parallel/dryrun.py", "wrapper.py",
+                   "parity/reference_decoder.py", "parity/harness.py",
+                   "parity/accuracy.py"):
         assert f"montreal_forced_aligner_tpu_torch/{module}" in names
+    assert "mfa_tpu_torch/__init__.py" in names
     for path in _port_files():
         tree = ast.parse(path.read_text(), filename=str(path))
         for node in ast.walk(tree):
@@ -524,6 +543,7 @@ def test_importing_the_port_loads_no_jax():
         "mods = [m.name for m in pkgutil.walk_packages(p.__path__, p.__name__ + '.')]\n"
         "for m in mods: importlib.import_module(m)\n"
         "import chip_smoke\n"
+        "import mfa_tpu_torch\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'montreal_forced_aligner_tpu')]\n"
         "assert not bad, bad\n"
@@ -537,7 +557,10 @@ def test_importing_the_port_loads_no_jax():
         "'online.transcription', 'io.flac', 'io.codecs', 'dictionary.rules', "
         "'g2p.trainer', 'g2p.generator', 'g2p.pair_ngram', 'g2p.openfst_model', "
         "'g2p.export_openfst', 'tokenization.languages', 'tokenization.trainer', "
-        "'tokenization_surface'):\n"
+        "'tokenization_surface', 'parallel.multihost', 'parallel.mesh', "
+        "'parallel.data_parallel', 'parallel.scaling', 'parallel.dryrun', "
+        "'wrapper', 'parity.reference_decoder', 'parity.harness', "
+        "'parity.accuracy'):\n"
         "    assert p.__name__ + '.' + m in mods, m\n"
         "print('ok', len(mods))\n"
     )

@@ -274,3 +274,37 @@ def test_version_configure_history(tmp_path, capsys):
     assert cli_main(["history", "--depth", "1"]) == 0
     out = capsys.readouterr().out.strip().splitlines()
     assert len(out) == 1 and out[0].endswith("(exit 1)  train c")
+
+
+def test_history_store_survives_concurrent_and_broken_writes(tmp_path, monkeypatch):
+    """The ranks of one launch record their command at once: each rename
+    leaves a whole store, and a store left unreadable starts anew."""
+    import threading
+
+    import yaml
+
+    from montreal_forced_aligner_tpu_torch import config as PC
+
+    monkeypatch.setenv("MFA_TPU_TEMP_DIR", str(tmp_path / "store"))
+    PC.history_path().parent.mkdir(parents=True)
+    PC.history_path().write_text("- command: [align]\nbroken: [\n")
+    PC.record_history(["align", "x"])
+    assert [e["command"] for e in PC.load_history()] == [["align", "x"]]
+
+    seen, errors, stop = [], [], threading.Event()
+
+    def read():
+        while not stop.is_set():
+            try:
+                seen.append(len(yaml.safe_load(PC.history_path().read_text())))
+            except Exception as e:  # a partial store: None, or a YAML error
+                errors.append(e)
+
+    reader = threading.Thread(target=read)
+    reader.start()
+    for i in range(50):
+        PC.record_history(["train", str(i)])
+    stop.set()
+    reader.join()
+    assert len(PC.load_history()) == 51 and seen and not errors
+    assert not list(PC.history_path().parent.glob("*.tmp"))

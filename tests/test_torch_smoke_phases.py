@@ -1,5 +1,6 @@
 """``chip_smoke.py``'s adapt, graph-compile, pitch, fine-tune,
-transcription, segmentation and G2P phases at a tiny size on the CPU, where
+transcription, segmentation, G2P and multi-GPU (with ``MFA`` and the parity
+harness) phases at a tiny size on the CPU, where
 every kernel wrapper takes its plain version (so no launches are counted):
 their reports, checks and the kernels line with adapt's, the dense
 decode's and g2p-align's launches and checks."""
@@ -272,3 +273,43 @@ def test_g2p_phases_run_on_cpu(fixture, tmp_path, monkeypatch):
     train = chip_smoke.train_g2p_phase(tmp_path / "tone", cpu, n_utts=4)
     assert train["card_runs_identical"] and train["card_cpu_lexicon_identical"]
     assert 0.0 < train["g2p_share_of_stage"] <= 1.0
+
+
+def test_distributed_phases_run_on_cpu(fixture, tmp_path):
+    """The multi-GPU phases with the CPU for the card: one gloo rank for
+    NCCL's (NCCL carries card tensors only), two spawned gloo ranks, the
+    CLI under ``torch.distributed.run``, the dry run; then MFA and the
+    parity harness; and the kernels line's multi-GPU launches by rank."""
+    (_tmp, model_path, dict_path, corpus_dir, _audio_s, small_dir, *_) = fixture
+    cpu = torch.device("cpu")
+    zero = {"band_forward": 0, "band_backtrace": 0, "state_emission": 0}
+    nccl = chip_smoke.nccl_one_rank_phase(model_path, dict_path, corpus_dir,
+                                          tmp_path, cpu)
+    assert nccl["sat-2pass"]["identical"] and nccl["sat-si"]["identical"]
+    assert nccl["train-mono"]["bit_identical"]
+    assert nccl["train-mono"]["launches"] == zero
+    gloo = chip_smoke.gloo_two_ranks_phase(model_path, dict_path, corpus_dir, cpu)
+    assert gloo["train-mono"]["two_runs_bit_identical"]
+    assert gloo["sat-si"]["utterances"] == 6
+    assert gloo["sat-2pass"]["frame_agreement"] >= 0.999
+    assert [r["rank"] for r in gloo["ranks"]] == [0, 1]
+    assert sum(r["train_utterances"] for r in gloo["ranks"]) == 6
+    trun = chip_smoke.torchrun_align_phase(model_path, dict_path, corpus_dir,
+                                           tmp_path / "torchrun", cpu)
+    assert trun["files"] == 6 and trun["frame_agreement"] >= 0.999
+    assert [r["launches"] for r in trun["ranks"]] == [zero, zero]
+    dry = chip_smoke.dryrun_phase(cpu)
+    assert [r["rank"] for r in dry["ranks"]] == [0, 1]
+    mfa = chip_smoke.mfa_phase(model_path, dict_path, small_dir, cpu,
+                               chip_smoke.mfa_run(model_path, dict_path, small_dir,
+                                                  "cpu"))
+    assert mfa["records"] == 4 and mfa["frame_agreement"] == 1.0
+    harness = chip_smoke.parity_harness_phase(model_path, dict_path, corpus_dir, cpu)
+    assert harness["utterances"] == 4 and harness["frames"] > 0
+    assert 0.0 <= harness["frame_agreement"] <= 1.0
+    checks = {n: {"max_abs_err": 0.0, "ms": 1.0, "plain_ms": 1.0, "bound_ms": 1.0,
+                  "bound_by": "bytes", "library_ms": None} for n in zero}
+    by_rank = {k: [0, 0] for k in zero}
+    line = chip_smoke.kernels_line(checks, zero, {"dryrun": by_rank})
+    for row in line["kernels"]:
+        assert row["launches_by_path"] == {"dryrun": [0, 0]}

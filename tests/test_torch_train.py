@@ -441,11 +441,13 @@ def test_cli_train_writes_a_loadable_archive(tmp_path, capsys):
     (["--distributed"], "item 15"),
 ])
 def test_cli_train_unported_options_raise(tmp_path, monkeypatch, args, item):
-    """``--distributed`` (item 15) raises. The item-16 options are ported:
-    ``train`` with each of them runs a monophone and a pron_prob stage and
-    regenerates the dictionary as the JAX package's ``TrainableAligner``
-    does with the same option (``--language thai`` without its engine takes
-    the dictionary max-match fallback in both packages)."""
+    """The item-16 options and ``--distributed`` (item 15, multi-GPU; one
+    process here) are ported: ``train`` with each of them runs a monophone
+    and a pron_prob stage and regenerates the dictionary as the JAX
+    package's ``TrainableAligner`` does with the same option (``--language
+    thai`` without its engine takes the dictionary max-match fallback in
+    both packages; ``distributed`` runs the JAX package on its 8-device
+    CPU mesh). ``tests/test_torch_distributed.py`` holds the ranks."""
     from montreal_forced_aligner_tpu.training.base import TrainerConfig as JCfg
     from montreal_forced_aligner_tpu.training.trainer import StageConfig as JStage
     from montreal_forced_aligner_tpu.training.trainer import (
@@ -460,10 +462,6 @@ def test_cli_train_unported_options_raise(tmp_path, monkeypatch, args, item):
     monkeypatch.chdir(tmp_path)
     argv = ["train", str(tmp_path / "train_corpus"), str(dict_path),
             str(tmp_path / "m.zip"), "--device", "cpu"]
-    if item == "item 15":
-        with pytest.raises(NotImplementedError, match=item):
-            cli_main(argv + args)
-        return
     cfg = tmp_path / "recipe.yaml"
     cfg.write_text("training:\n  - monophone:\n      num_iterations: 2\n"
                    "      max_gaussians: 20\n  - pronunciation_probabilities:\n"
@@ -477,7 +475,8 @@ def test_cli_train_unported_options_raise(tmp_path, monkeypatch, args, item):
                             "--chain_topology", *args]) == 0
     (port,) = trained
     option = {"--language": {"language": "thai"},
-              "--rules_path": {"rules_path": "rules.yaml"}}.get(args[0], {})
+              "--rules_path": {"rules_path": "rules.yaml"},
+              "--distributed": {"distributed": True}}.get(args[0], {})
     jax = JTrainable(tmp_path / "train_corpus", dict_path,
                      recipe=[JStage("monophone", "mono", 2, 20),
                              JStage("pronunciation_probabilities", "pron_prob", 0, 0,
