@@ -207,6 +207,7 @@ It imports nothing of JAX and nothing of the JAX package.
 
 from __future__ import annotations
 
+import contextlib
 import json
 import os
 import pickle
@@ -381,6 +382,83 @@ def build_corpus(tmp: Path, words, num_utts: int, min_s=2.0, max_s=30.0,
         n_words = max(2, int(seconds * 2.5))
         (d / f"utt{u}.lab").write_text(" ".join(rng.choice(words, n_words)))
         total += seconds
+    return corp, total
+
+
+def build_voiced_corpus(tmp: Path, dict_path, num_utts: int, min_s=2.0, max_s=30.0,
+                        seed=0, name="voiced", sr=16000, num_speakers=8):
+    """Utterances that say their transcripts, for pitch models: every phone
+    of the lexicon a sound of its own (made from a fixed seed, so corpora
+    of one lexicon share them), 50-150 ms of it a phone. Four phones in
+    five are voiced, a harmonic complex under two formants; the others
+    are coloured noise. The voice's pitch glides over each word around its
+    speaker's own (90-260 Hz), and quiet noise pauses lie at both ends and
+    between some words. Over the stationary tones of :func:`build_corpus`
+    the normalized log-pitch and delta-pitch are 0 and the voicing
+    probability nearly constant, so the pitch columns carry nothing and a
+    per-speaker fMLLR on them is ill-posed. Returns (dir, seconds)."""
+    from montreal_forced_aligner_tpu_torch.io.wav import write_wave
+
+    lexicon = [line.split("\t") for line in Path(dict_path).read_text().splitlines()]
+    lexicon = [(w, p.split()) for w, p in lexicon]
+    inventory = sorted({p for _w, ps in lexicon for p in ps})
+    prng = np.random.RandomState(12345)
+    sounds = {}
+    for k, p in enumerate(inventory):
+        if k % 5 == 4:
+            sounds[p] = ("noise", float(prng.uniform(-0.9, 0.9)))
+        else:
+            sounds[p] = ("voiced", float(prng.uniform(300, 900)),
+                         float(prng.uniform(900, 2500)))
+    rng = np.random.RandomState(seed)
+    spk_f0 = rng.uniform(90.0, 260.0, num_speakers)
+    corp = tmp / name
+    total = 0.0
+
+    def pause(lo, hi):
+        return (rng.randn(int(rng.uniform(lo, hi) * sr)) * 30.0).astype(np.float32)
+
+    for u in range(num_utts):
+        spk = u % num_speakers
+        d = corp / f"spk{spk}"
+        d.mkdir(parents=True, exist_ok=True)
+        target = float(rng.uniform(min_s, max_s))
+        pieces, said = [pause(0.15, 0.3)], []
+        t = len(pieces[0]) / sr
+        while t < target - 0.3 or len(said) < 2:
+            word, phones = lexicon[rng.randint(len(lexicon))]
+            said.append(word)
+            lens = [int(rng.uniform(0.05, 0.15) * sr) for _ in phones]
+            n = sum(lens)
+            glide = np.linspace(*rng.uniform(0.85, 1.15, 2), n)
+            f0 = spk_f0[spk] * glide
+            phase = 2 * np.pi * np.cumsum(f0) / sr + rng.rand() * 2 * np.pi
+            at = 0
+            for p, m in zip(phones, lens):
+                sound = sounds[p]
+                if sound[0] == "noise":
+                    e = rng.randn(m + 1)
+                    x = (e[1:] + sound[1] * e[:-1]) * 1200.0
+                else:
+                    ph, f = phase[at : at + m], float(f0[at : at + m].mean())
+                    x = np.zeros(m)
+                    for h in range(1, int(6000 / f) + 1):
+                        amp = (np.exp(-(((h * f - sound[1]) / 150.0) ** 2))
+                               + np.exp(-(((h * f - sound[2]) / 200.0) ** 2)) + 0.05)
+                        x += amp * np.sin(h * ph)
+                    x = x * (3000.0 / max(np.sqrt(np.mean(x * x)), 1e-9))
+                    x += rng.randn(m) * 30.0
+                pieces.append(x.astype(np.float32))
+                at += m
+            t += n / sr
+            if rng.rand() < 0.3:
+                pieces.append(pause(0.05, 0.2))
+                t += len(pieces[-1]) / sr
+        pieces.append(pause(0.15, 0.3))
+        wave = np.concatenate(pieces)
+        write_wave(d / f"utt{u}.wav", wave, sr)
+        (d / f"utt{u}.lab").write_text(" ".join(said))
+        total += len(wave) / sr
     return corp, total
 
 
@@ -756,10 +834,10 @@ def _frame_labels(aln, frame_shift):
     return labels, starts
 
 
-def parity(got, want, frame_shift):
-    """The JAX package's parity bar (tests/test_parity_sweep.py): >= 99.9%
-    of frames agree, >= 99.5% of boundaries within one frame, scores within
-    5 nats."""
+def agreement(got, want, frame_shift):
+    """Two alignments' agreement: frames with the same phone, boundaries
+    within one frame, the largest score difference, and the utterances
+    whose phone sequences are equal."""
     frames = mismatched = b_total = b_within = 0
     worst_score = 0.0
     for key, ref in want.items():
@@ -775,17 +853,27 @@ def parity(got, want, frame_shift):
         worst_score = max(
             worst_score, abs(got[key].log_likelihood - ref.log_likelihood)
         )
-    agreement = 1.0 - mismatched / max(frames, 1)
-    out = {
+    return {
         "frames": frames,
-        "frame_agreement": agreement,
+        "frame_agreement": 1.0 - mismatched / max(frames, 1),
         "boundaries_within_1": b_within,
         "boundaries": b_total,
         "max_score_diff": worst_score,
+        "same_phone_sequences": sum(
+            [p.label for p in got[k].phones] == [p.label for p in a.phones]
+            for k, a in want.items()),
     }
-    _check(agreement >= 0.999, f"frame agreement {out}")
-    _check(b_within >= 0.995 * b_total, f"boundaries {out}")
-    _check(worst_score < 5.0, f"scores {out}")
+
+
+def parity(got, want, frame_shift):
+    """The JAX package's parity bar (tests/test_parity_sweep.py): >= 99.9%
+    of frames agree, >= 99.5% of boundaries within one frame, scores within
+    5 nats."""
+    out = agreement(got, want, frame_shift)
+    _check(out["frame_agreement"] >= 0.999, f"frame agreement {out}")
+    _check(out["boundaries_within_1"] >= 0.995 * out["boundaries"],
+           f"boundaries {out}")
+    _check(out["max_score_diff"] < 5.0, f"scores {out}")
     return out
 
 
@@ -1992,6 +2080,142 @@ def _means_rel_err(got, want):
     return float(np.abs(a[fin] - b[fin]).max() / np.abs(b[fin]).max())
 
 
+class PitchCompare:
+    """The pitch features of a card run against the CPU run of the same
+    work, call by call: ``record()`` keeps what each call of
+    ``ops.pitch.pitch_for_mfcc_frames`` returns on the card, ``compare()``
+    measures the CPU's calls against those in the same order. Each run
+    uses its own pitch (``pitch_phase`` holds pitch itself). No-op for a
+    model without pitch."""
+
+    def __init__(self):
+        self.outputs = []
+        self.max_abs_diff = 0.0
+
+    @contextlib.contextmanager
+    def _patched(self, fn):
+        import montreal_forced_aligner_tpu_torch.align.fine_tune as FT
+        import montreal_forced_aligner_tpu_torch.ops.pitch as PP
+
+        real = PP.pitch_for_mfcc_frames
+        PP.pitch_for_mfcc_frames = FT.pitch_for_mfcc_frames = fn(real)
+        try:
+            yield self
+        finally:
+            PP.pitch_for_mfcc_frames = FT.pitch_for_mfcc_frames = real
+
+    def record(self):
+        def wrap(real):
+            def recorded(*a, **k):
+                out = real(*a, **k)
+                self.outputs.append(out)
+                return out
+            return recorded
+        return self._patched(wrap)
+
+    def compare(self):
+        calls = iter(self.outputs)
+
+        def wrap(real):
+            def compared(*a, **k):
+                own = real(*a, **k)
+                self.max_abs_diff = max(self.max_abs_diff,
+                                        float(np.abs(own - next(calls)).max()))
+                return own
+            return compared
+        return self._patched(wrap)
+
+    def report(self):
+        return {"pitch_calls": len(self.outputs),
+                "pitch_cpu_max_abs_diff": self.max_abs_diff}
+
+
+def _map_adapter(model_path, dict_path, batch_size, device):
+    """A ``MapAdapter`` that keeps its fMLLR transforms (``transforms``)
+    and, with ``forced`` set, aligns pass 2 with those instead."""
+    from montreal_forced_aligner_tpu_torch.align.aligner import AlignerConfig
+    from montreal_forced_aligner_tpu_torch.training.adapt import MapAdapter
+
+    class Adapter(MapAdapter):
+        forced = None
+
+        def _estimate_fmllr(self, pipeline, gmm):
+            self.transforms = super()._estimate_fmllr(pipeline, gmm)
+            return self.transforms if self.forced is None else self.forced
+
+    return Adapter(model_path, dict_path, 20.0,
+                   AlignerConfig(batch_size=batch_size), device=device)
+
+
+@contextlib.contextmanager
+def _fmllr_statistics(out):
+    """Keep the (K, G, beta) each ``ops.transforms.estimate_speaker_fmllr``
+    call solves in ``out``."""
+    import montreal_forced_aligner_tpu_torch.ops.transforms as TR
+
+    real = TR.estimate_speaker_fmllr
+
+    def kept(K, G, beta, *a, **k):
+        out.append((np.array(K), np.array(G), np.array(beta)))
+        return real(K, G, beta, *a, **k)
+
+    TR.estimate_speaker_fmllr = kept
+    try:
+        yield out
+    finally:
+        TR.estimate_speaker_fmllr = real
+
+
+def adapt_card_vs_cpu(model_path, dict_path, subset_dir, device, batch_size=32):
+    """``MapAdapter`` of a SAT model on the card against the CPU on
+    ``subset_dir``, each run with its own pitch (a pitch model's, compared
+    call by call, :class:`PitchCompare`) and its own alignments; the CPU
+    run aligns pass 2 with the card's fMLLR transforms, so the means
+    compare the MAP update under one alignment (within 1e-5 of each
+    tensor's largest value, ``tests/test_torch_adapt.py``'s bar); the
+    pass-2 paths equal, the CPU's own transforms within 1e-3 of the
+    card's. Reports the fMLLR statistics' difference over their largest
+    entry and the largest condition number of a row's statistics ``G``
+    (how far the solve amplifies that difference)."""
+    import torch
+
+    from montreal_forced_aligner_tpu_torch.corpus.corpus import Corpus
+
+    pitch = PitchCompare()
+    card = _map_adapter(model_path, dict_path, batch_size, device)
+    stats = {"card": [], "cpu": []}
+    with pitch.record(), _fmllr_statistics(stats["card"]):
+        card_model = card.adapt(subset_dir)
+    cpu = _map_adapter(model_path, dict_path, batch_size, torch.device("cpu"))
+    cpu.forced = card.transforms
+    t0 = time.perf_counter()
+    with pitch.compare(), _fmllr_statistics(stats["cpu"]):
+        cpu_model = cpu.adapt(subset_dir)
+    cpu_s = time.perf_counter() - t0
+    stats_rel = max(float(np.abs(a - b).max() / max(np.abs(b).max(), 1e-30))
+                    for x, y in zip(stats["card"], stats["cpu"])
+                    for a, b in zip(x, y))
+    g_cond = max(float(np.linalg.cond(G.astype(np.float64)).max())
+                 for _K, G, _b in stats["card"])
+    paths_equal = all(
+        np.array_equal(a.host_state_path(), b.host_state_path())
+        for a, b in zip(card.pipeline.batches, cpu.pipeline.batches))
+    _check(paths_equal, "adapt: pass-2 paths on the card and the CPU differ")
+    rel = {"final": _means_rel_err(card_model.gmm, cpu_model.gmm),
+           "speaker_independent": _means_rel_err(card_model.alignment_model[1],
+                                                 cpu_model.alignment_model[1])}
+    _check(max(rel.values()) <= 1e-5, f"adapt: card against CPU means {rel}")
+    t_err = float(np.abs(card.transforms - cpu.transforms).max())
+    _check(t_err <= 1e-3, f"adapt: fMLLR transforms differ by {t_err} "
+           f"(statistics {stats_rel} apart, G's condition up to {g_cond})")
+    return {"utterances": Corpus.load(subset_dir).num_utterances,
+            "means_rel_err": rel, "fmllr_stats_rel_err": stats_rel,
+            "fmllr_G_cond_max": g_cond, "transforms_max_abs_diff": t_err,
+            "transforms_max_abs": float(np.abs(card.transforms).max()),
+            "pass2_paths_equal": paths_equal, "cpu_wall_s": cpu_s,
+            **pitch.report()}
+
+
 def adapt_phase(model_path, dict_path, corpus_dir, subset_dir, out_dir, audio_s,
                 device, warm_runs=3, batch_size=32, sm_clock_mhz=None):
     """Main path **adapt**: ``MapAdapter.adapt`` (the fMLLR two-pass with
@@ -2005,8 +2229,6 @@ def adapt_phase(model_path, dict_path, corpus_dir, subset_dir, out_dir, audio_s,
     two-pass. Returns (report, the kernels held on adapt's first batch)."""
     import contextlib
 
-    import torch
-
     from montreal_forced_aligner_tpu_torch.align.aligner import (
         AlignerConfig,
         PretrainedAligner,
@@ -2015,21 +2237,9 @@ def adapt_phase(model_path, dict_path, corpus_dir, subset_dir, out_dir, audio_s,
     from montreal_forced_aligner_tpu_torch.corpus.corpus import Corpus
     from montreal_forced_aligner_tpu_torch.ops import cuda_build
     from montreal_forced_aligner_tpu_torch.params import gmm_params_from_numpy
-    from montreal_forced_aligner_tpu_torch.training.adapt import MapAdapter
 
-    class Adapter(MapAdapter):
-        """Keeps its fMLLR transforms; with ``forced``, aligns pass 2 with
-        those instead."""
-
-        forced = None
-
-        def _estimate_fmllr(self, pipeline, gmm):
-            self.transforms = super()._estimate_fmllr(pipeline, gmm)
-            return self.transforms if self.forced is None else self.forced
-
-    def make(dev=device):
-        return Adapter(model_path, dict_path, 20.0,
-                       AlignerConfig(batch_size=batch_size), device=dev)
+    def make():
+        return _map_adapter(model_path, dict_path, batch_size, device)
 
     adapter = make()
     model = adapter.aligner.model
@@ -2086,24 +2296,8 @@ def adapt_phase(model_path, dict_path, corpus_dir, subset_dir, out_dir, audio_s,
     phases = dict(synced.phase_seconds)
     del synced
     # the card against the CPU on the subset, under the card's transforms
-    card = make()
-    card_model = card.adapt(subset_dir)
-    cpu = make(torch.device("cpu"))
-    cpu.forced = card.transforms
-    t0 = time.perf_counter()
-    cpu_model = cpu.adapt(subset_dir)
-    cpu_s = time.perf_counter() - t0
-    paths_equal = all(
-        np.array_equal(a.host_state_path(), b.host_state_path())
-        for a, b in zip(card.pipeline.batches, cpu.pipeline.batches))
-    _check(paths_equal, "adapt: pass-2 paths on the card and the CPU differ")
-    rel = {"final": _means_rel_err(card_model.gmm, cpu_model.gmm),
-           "speaker_independent": _means_rel_err(card_model.alignment_model[1],
-                                                 cpu_model.alignment_model[1])}
-    _check(max(rel.values()) <= 1e-5, f"adapt: card against CPU means {rel}")
-    t_err = float(np.abs(card.transforms - cpu.transforms).max())
-    _check(t_err <= 1e-3, f"adapt: fMLLR transforms differ by {t_err}")
-    del card, cpu, card_model, cpu_model
+    card_vs_cpu = adapt_card_vs_cpu(model_path, dict_path, subset_dir, device,
+                                    batch_size)
     # the adapted archive aligns two-pass
     path = out_dir / "adapted.zip"
     first.save(path)
@@ -2136,9 +2330,7 @@ def adapt_phase(model_path, dict_path, corpus_dir, subset_dir, out_dir, audio_s,
         "two_runs_identical": identical,
         "synced_wall_s": synced_wall,
         "phases_synced_s": phases,
-        "card_vs_cpu": {"utterances": Corpus.load(subset_dir).num_utterances,
-                        "means_rel_err": rel, "transforms_max_abs_diff": t_err,
-                        "pass2_paths_equal": paths_equal, "cpu_wall_s": cpu_s},
+        "card_vs_cpu": card_vs_cpu,
         "adapted_align_two_pass_s": align_s,
         "aligned_utterances": len(results),
     }, checks
@@ -2321,13 +2513,10 @@ def pitch_phase(corpus_dir, dict_path, small_dir, audio_s, device, batch_size=32
     }
 
 
-def fine_tune_phase(model_path, dict_path, corpus_dir, small_dir, device,
-                    batch_size=32):
-    """sat-si with ``--fine_tune``: the corpus aligned single-pass and its
-    boundaries refined at 1 ms, timed; on ``small_dir`` the card against the
-    CPU: the same 10 ms alignment, then fine-tuned boundaries within 1 ms."""
-    import torch
-
+def _fine_tune_run(model_path, dict_path, dev, corpus_path, batch_size):
+    """A single-pass alignment and its fine-tune: (the 10 ms phones' labels
+    and begins by utterance, the fine-tuned results, the fine-tune's
+    seconds)."""
     from montreal_forced_aligner_tpu_torch.align.aligner import (
         AlignerConfig,
         PretrainedAligner,
@@ -2337,30 +2526,34 @@ def fine_tune_phase(model_path, dict_path, corpus_dir, small_dir, device,
     )
     from montreal_forced_aligner_tpu_torch.corpus.corpus import Corpus
 
-    def run(dev, corpus_path, bs):
-        aligner = PretrainedAligner(
-            model_path, dict_path,
-            AlignerConfig(batch_size=bs, uses_speaker_adaptation=False), device=dev)
-        corpus = Corpus.load(corpus_path)
-        results = aligner.align_corpus(corpus)
-        base = {k: [(p.label, p.begin) for p in a.phones] for k, a in results.items()}
-        _sync(dev)
-        t0 = time.perf_counter()
-        tuned = fine_tune_alignments(aligner, corpus, results)
-        _sync(dev)
-        return base, tuned, time.perf_counter() - t0
+    aligner = PretrainedAligner(
+        model_path, dict_path,
+        AlignerConfig(batch_size=batch_size, uses_speaker_adaptation=False),
+        device=dev)
+    corpus = Corpus.load(corpus_path)
+    results = aligner.align_corpus(corpus)
+    base = {k: [(p.label, p.begin) for p in a.phones] for k, a in results.items()}
+    _sync(dev)
+    t0 = time.perf_counter()
+    tuned = fine_tune_alignments(aligner, corpus, results)
+    _sync(dev)
+    return base, tuned, time.perf_counter() - t0
 
-    base, tuned, seconds = run(device, corpus_dir, batch_size)
-    boundaries = sum(len(v) - 1 for v in base.values())
-    moved = sum(int(round(p.begin * 1000)) % 10 != 0
-                for a in tuned.values() for p in a.phones)
-    for key, aln in tuned.items():
-        _check(aln.phones and all(np.isfinite(p.begin) and p.end > p.begin
-                                  for p in aln.phones),
-               f"utterance {key}: an empty or non-finite fine-tuned phone")
-    _check(moved > 0, "fine-tune moved no boundary off the 10 ms grid")
-    got = run(device, small_dir, 4)
-    want = run(torch.device("cpu"), small_dir, 4)
+
+def _fine_tune_card_vs_cpu(model_path, dict_path, small_dir, device):
+    """The fine-tune on the card against the CPU on ``small_dir``, each
+    with its own pitch (a pitch model's, compared call by call,
+    :class:`PitchCompare`): the same 10 ms alignment, then fine-tuned
+    boundaries within 1 ms. Returns (the card's run, the largest boundary
+    difference in seconds, the pitch comparison)."""
+    import torch
+
+    pitch = PitchCompare()
+    with pitch.record():
+        got = _fine_tune_run(model_path, dict_path, device, small_dir, 4)
+    with pitch.compare():
+        want = _fine_tune_run(model_path, dict_path, torch.device("cpu"), small_dir,
+                              4)
     _check(got[0] == want[0], "fine-tune: the card's 10 ms alignment differs")
     worst = 0.0
     for key, aln in want[1].items():
@@ -2369,9 +2562,29 @@ def fine_tune_phase(model_path, dict_path, corpus_dir, small_dir, device,
         _check(len(g) == len(w), f"utterance {key}: fine-tuned phone counts differ")
         worst = max(worst, float(np.abs(np.array(g) - np.array(w)).max()))
     _check(worst <= 0.001 + 1e-9, f"fine-tune: boundaries differ by {worst} s")
+    return got, worst, pitch.report()
+
+
+def fine_tune_phase(model_path, dict_path, corpus_dir, small_dir, device,
+                    batch_size=32):
+    """sat-si with ``--fine_tune``: the corpus aligned single-pass and its
+    boundaries refined at 1 ms, timed; on ``small_dir`` the card against the
+    CPU: the same 10 ms alignment, then fine-tuned boundaries within 1 ms."""
+    base, tuned, seconds = _fine_tune_run(model_path, dict_path, device, corpus_dir,
+                                          batch_size)
+    boundaries = sum(len(v) - 1 for v in base.values())
+    moved = sum(int(round(p.begin * 1000)) % 10 != 0
+                for a in tuned.values() for p in a.phones)
+    for key, aln in tuned.items():
+        _check(aln.phones and all(np.isfinite(p.begin) and p.end > p.begin
+                                  for p in aln.phones),
+               f"utterance {key}: an empty or non-finite fine-tuned phone")
+    _check(moved > 0, "fine-tune moved no boundary off the 10 ms grid")
+    got, worst, _pitch = _fine_tune_card_vs_cpu(model_path, dict_path, small_dir,
+                                                device)
     return {"utterances": len(tuned), "boundaries": boundaries,
             "moved_off_grid": moved, "fine_tune_s": seconds,
-            "card_vs_cpu": {"utterances": len(want[1]),
+            "card_vs_cpu": {"utterances": len(got[1]),
                             "max_boundary_diff_s": worst}}
 
 
@@ -4288,6 +4501,669 @@ def parity_harness_phase(model_path, dict_path, corpus_dir, device, n=4):
     }
 
 
+# -- the features transfer mode, pitch models on every path, and the
+# chain-major LVCSR decoders ---------------------------------------------------
+
+
+def transfer_bar(r_w, r_f):
+    """The JAX package's bar for shipping host features against waves
+    (``tests/test_transfer_mode.py``), on a trained model: the same
+    utterances and phone labels, every boundary within one frame (0.011 s),
+    at least 90% of each utterance's phones exact. Returns the counts."""
+    _check(set(r_w) == set(r_f), "features and waves aligned other utterances")
+    phones = exact = 0
+    worst = 0.0
+    for i in r_w:
+        pw, pf = r_w[i].phones, r_f[i].phones
+        _check([p.label for p in pw] == [p.label for p in pf],
+               f"utterance {i}: phone labels differ between features and waves")
+        diffs = [max(abs(a.begin - b.begin), abs(a.end - b.end))
+                 for a, b in zip(pw, pf)]
+        worst = max([worst, *diffs])
+        n_exact = sum(d == 0.0 for d in diffs)
+        _check(max(diffs, default=0.0) <= 0.011 and n_exact >= int(0.9 * len(pw)),
+               f"utterance {i}: {n_exact} of {len(pw)} phones exact, worst "
+               f"{max(diffs, default=0.0)} s")
+        phones += len(pw)
+        exact += n_exact
+    return {"utterances": len(r_w), "phones": phones,
+            "exact_share": exact / max(phones, 1), "max_boundary_diff_s": worst}
+
+
+def _set_env(name, value):
+    """Set (or, with None, remove) an environment variable; returns the old
+    value."""
+    old = os.environ.get(name)
+    if value is None:
+        os.environ.pop(name, None)
+    else:
+        os.environ[name] = value
+    return old
+
+
+def _transfer_align(mode, model_path, dict_path, corpus_path, dev, batch_size):
+    """One counted ``align_corpus`` shipping ``mode``: (results, wall,
+    launches, aligner)."""
+    import montreal_forced_aligner_tpu_torch.align.aligner as A
+    from montreal_forced_aligner_tpu_torch.corpus.corpus import Corpus
+    from montreal_forced_aligner_tpu_torch.ops import cuda_build
+
+    al = A.PretrainedAligner(model_path, dict_path, A.AlignerConfig(
+        batch_size=batch_size, transfer_mode=mode), device=dev)
+    corpus = Corpus.load(corpus_path)
+    _sync(dev)
+    cuda_build.reset_launch_counts()
+    t0 = time.perf_counter()
+    res = al.align_corpus(corpus)
+    _sync(dev)
+    wall = time.perf_counter() - t0
+    _check(al.last_transfer_mode == mode, f"{al.last_transfer_mode} shipped")
+    _check(len(res) == corpus.num_utterances, "not every utterance aligned")
+    return res, wall, dict(cuda_build.LAUNCHES), al
+
+
+def _transfer_transcribe(mode, model_path, dict_path, corpus_path, lm, dev):
+    """One counted ``transcribe_corpus`` under ``MFA_TPU_TRANSFER_MODE=mode``:
+    (results, wall, launches)."""
+    from montreal_forced_aligner_tpu_torch.transcription.transcriber import (
+        Transcriber,
+    )
+
+    prev = _set_env("MFA_TPU_TRANSFER_MODE", mode)
+    try:
+        tr = Transcriber(model_path, dict_path, lm=lm, batch_size=16, device=dev)
+        res, wall, launches, _peak, _r = _counted_transcribe(tr, corpus_path, dev)
+    finally:
+        _set_env("MFA_TPU_TRANSFER_MODE", prev)
+    _check(tr.last_transfer_mode == mode, f"transcribe shipped {tr.last_transfer_mode}")
+    return res, wall, launches
+
+
+def transfer_cpu_references(model_path, dict_path, small_dir, small2_dir, lm):
+    """The CPU half of transfer-features' card-against-CPU checks (a worker
+    beside the card's phases): sat-2pass shipping features on
+    ``small2_dir``, transcribe-dense with features on ``small_dir``."""
+    import torch
+
+    cpu = torch.device("cpu")
+    return {"align": _transfer_align("features", model_path, dict_path, small2_dir,
+                                     cpu, 4)[0],
+            "transcribe": _transfer_transcribe("features", model_path, dict_path,
+                                               small_dir, lm, cpu)[0]}
+
+
+def transfer_features_phase(model_path, dict_path, corpus_dir, small_dir,
+                            small2_dir, lm, out_dir, device, batch_size=32,
+                            cpu_refs=None):
+    """**transfer-features**: phase A ships float16 MFCCs computed on the
+    host (``ops.mfcc.mfcc_host_batch``) in place of int16 waves. The link
+    probe's MB/s and what "auto" resolves to; the bytes a batch ships each
+    way and the host MFCC's seconds a batch; sat-2pass and train-mono
+    shipping features (``AlignerConfig(transfer_mode="features")`` and
+    ``MFA_TPU_TRANSFER_MODE=features``; one cold run, counted from 0, and
+    one warm run each), every batch's shipped features within float16
+    rounding of the card's own MFCCs, the same launches as waves, the
+    agreement with the waves run at 98% of frames and 80% of phone
+    sequences (the random-weight model's near ties move with the rounding;
+    train: the same Gaussian counts, log-likelihoods within 1e-3
+    relative); a monophone trained on the tone corpus aligns it with
+    features at the JAX package's transfer bar, as the JAX test holds its
+    trained model; sat-2pass features on the card against features on the
+    CPU on ``small2_dir`` at the parity bar; transcribe-dense on
+    ``small_dir`` with ``MFA_TPU_TRANSFER_MODE=features``: on the card
+    against the CPU the same transcripts; against waves scores within 1e-3
+    relative, the transcripts that agree reported."""
+    import torch
+
+    import montreal_forced_aligner_tpu_torch.align.aligner as A
+    from montreal_forced_aligner_tpu_torch.corpus.corpus import Corpus
+    from montreal_forced_aligner_tpu_torch.ops import cuda_build
+    from montreal_forced_aligner_tpu_torch.ops.mfcc import (
+        MfccConfig,
+        _mfcc_device,
+        mfcc_host_batch,
+        pad_waves_for_mfcc,
+    )
+    from montreal_forced_aligner_tpu_torch.training.trainer import (
+        StageConfig,
+        TrainableAligner,
+    )
+
+    on_card = device.type == "cuda"
+    old = _set_env("MFA_TPU_TRANSFER_MODE", None)
+    try:
+        auto = A.resolve_transfer_mode("auto", ttl_s=0.0, device=device)
+    finally:
+        _set_env("MFA_TPU_TRANSFER_MODE", old)
+    probe = A._transfer_probe_cache["rate"] if on_card else None
+    _check(auto == "waves", f'"auto" resolved to {auto} ({probe} MB/s)')
+
+    # what a batch ships either way, and the host's MFCC time a batch
+    cfg = MfccConfig()
+    waves = Corpus.load(corpus_dir).load_audio_parallel(cfg.sample_rate)
+    order = np.argsort([len(w) for w in waves], kind="stable")
+    shipped = []
+    for i in range(0, len(order), batch_size):
+        batch = [waves[j] for j in order[i : i + batch_size]]
+        L = -(-max(len(w) for w in batch) // 16000) * 16000
+        padded, lens = pad_waves_for_mfcc(batch, cfg, L)
+        t0 = time.perf_counter()
+        feats16 = mfcc_host_batch(padded, cfg, cfg.num_frames(L)).astype(np.float16)
+        host_s = time.perf_counter() - t0
+        # what the mode ships is the card's own MFCC up to float16 rounding
+        # (2**-11 of a value) and the float32 bar of the two MFCC programs
+        # (rtol 1e-5, atol 1e-4)
+        dev = _mfcc_device(torch.from_numpy(padded).to(device), cfg,
+                           cfg.num_frames(L)).cpu().numpy()
+        ratio = 0.0
+        for r, n in enumerate(lens):
+            nf = cfg.num_frames(int(n))
+            x, y = feats16[r, :nf].astype(np.float64), dev[r, :nf]
+            bound = 1e-4 + (2.0**-11 + 1e-5) * np.abs(y)
+            ratio = max(ratio, float((np.abs(x - y) / bound).max()))
+        _check(ratio <= 1.0, f"shipped features off the card's MFCC by {ratio} "
+               "of the float16 bound")
+        shipped.append({"B": len(batch), "T": int(feats16.shape[1]),
+                        "waves_bytes": int(padded.nbytes),
+                        "waves_dtype": str(padded.dtype),
+                        "features_bytes": int(feats16.nbytes),
+                        "host_mfcc_s": host_s,
+                        "max_err_over_f16_bound": ratio})
+
+    if cpu_refs is None:
+        cpu_refs = transfer_cpu_references(model_path, dict_path, small_dir,
+                                           small2_dir, lm)
+
+    def align(mode, corpus_path, bs=batch_size):
+        return _transfer_align(mode, model_path, dict_path, corpus_path, device, bs)
+
+    feats, cold, launches, al = align("features", corpus_dir)
+    _check(al.two_pass, "transfer-features: sat-2pass needs the two-pass")
+    t0 = time.perf_counter()
+    al.align_corpus(Corpus.load(corpus_dir))
+    _sync(device)
+    warm = time.perf_counter() - t0
+    plain, plain_wall, plain_launches, _al = align("waves", corpus_dir)
+    n_batches = -(-len(feats) // batch_size)
+    want = {k: 2 * n_batches * on_card for k in launches}
+    _check(launches == plain_launches == want,
+           f"sat-2pass launches: features {launches}, waves {plain_launches}")
+    sat = {"launches": launches, "cold_wall_s": cold, "warm_wall_s": warm,
+           "waves_wall_s": plain_wall,
+           "against_waves": agreement(feats, plain, 0.01),
+           "card_vs_cpu": parity(align("features", small2_dir, 4)[0],
+                                 cpu_refs["align"], 0.01)}
+    # a floor that a wrong features path breaks: on the random-weight
+    # model near ties move with float16's rounding of the features (99.12%
+    # of frames and 57 of 64 phone sequences the same on the H100), where a
+    # wrong feature moves most frames
+    aw = sat["against_waves"]
+    _check(aw["frame_agreement"] >= 0.98
+           and aw["same_phone_sequences"] >= 0.8 * len(feats),
+           f"sat-2pass features against waves: {aw}")
+
+    # the JAX test's own setting: a trained model on the tone corpus, each
+    # utterance at the bar
+    tone_dir, _truths = make_tone_corpus(Path(out_dir) / "transfer_tone")
+    tone_dict = Path(out_dir) / "transfer_tone.dict"
+    tone_dict.write_text("".join(f"{w}\t{' '.join(p)}\n"
+                                 for w, p in WORD_PHONES.items()))
+    tone_model = TrainableAligner(
+        tone_dir, tone_dict, recipe=[StageConfig("monophone", "mono", 8, 40)],
+        batch_size=4, variable_length_topology=False, device=device).train()
+    tone_model.save(Path(out_dir) / "transfer_tone.zip")
+    tone = {}
+    for mode in ("waves", "features"):
+        al = A.PretrainedAligner(Path(out_dir) / "transfer_tone.zip", tone_dict,
+                                 A.AlignerConfig(batch_size=4, transfer_mode=mode),
+                                 device=device)
+        tone[mode] = al.align_corpus(Corpus.load(tone_dir))
+        _check(al.last_transfer_mode == mode, f"tone: {al.last_transfer_mode}")
+    sat["tone_mono_against_waves"] = transfer_bar(tone["waves"], tone["features"])
+
+    def train(mode):
+        ta = TrainableAligner(
+            corpus_dir, dict_path, recipe=[StageConfig("monophone", "mono", 4, 64)],
+            batch_size=batch_size, variable_length_topology=False, device=device)
+        prev = _set_env("MFA_TPU_TRANSFER_MODE", mode)
+        try:
+            _sync(device)
+            cuda_build.reset_launch_counts()
+            t0 = time.perf_counter()
+            ta.train()
+            _sync(device)
+            wall = time.perf_counter() - t0
+        finally:
+            _set_env("MFA_TPU_TRANSFER_MODE", prev)
+        _check(ta.pipeline.last_transfer_mode == mode, "train-mono shipped "
+               f"{ta.pipeline.last_transfer_mode}")
+        log = ta.trainers["monophone"].iteration_log
+        return (wall, dict(cuda_build.LAUNCHES),
+                [e["loglike_per_frame"] for e in log], [e["num_gaussians"] for e in log])
+
+    t_cold, t_launches, ll_f, n_f = train("features")
+    t_warm = train("features")[0]
+    _w, w_launches, ll_w, n_w = train("waves")
+    _check(t_launches == w_launches, f"train-mono launches {t_launches}, waves "
+           f"{w_launches}")
+    _require_kernels("train-mono (features)", t_launches, on_card,
+                     ("band_forward", "band_backtrace"))
+    # float16 rounds each feature by up to 2**-11 = 4.9e-4 of its value:
+    # log-likelihoods per frame within twice that, relative
+    ll_rel = float(np.max(np.abs(np.subtract(ll_f, ll_w)) / np.abs(ll_w)))
+    _check(n_f == n_w and ll_rel <= 1e-3,
+           f"train-mono features against waves: Gaussians {n_f} / {n_w}, "
+           f"log-likelihoods {ll_rel} apart")
+    mono = {"launches": t_launches, "cold_wall_s": t_cold, "warm_wall_s": t_warm,
+            "loglike_per_frame": ll_f, "loglike_rel_diff_to_waves": ll_rel}
+
+    def transcribe(mode):
+        return _transfer_transcribe(mode, model_path, dict_path, small_dir, lm,
+                                    device)
+
+    r_f, d_wall, d_launches = transcribe("features")
+    r_w, _dw, dw_launches = transcribe("waves")
+    r_c = cpu_refs["transcribe"]
+    _check(d_launches == dw_launches, f"transcribe-dense launches {d_launches}")
+    _require_kernels("transcribe-dense (features)", d_launches, on_card,
+                     ("state_emission",))
+    # the card and the CPU decode the same float16 features: the same
+    # transcripts, scores within the parity bar's 5 nats
+    card_cpu = max(abs(r_f[i].log_likelihood - c.log_likelihood)
+                   for i, c in r_c.items())
+    _check(all(r_f[i].text == c.text for i, c in r_c.items()) and card_cpu <= 5.0,
+           f"transcribe features: card against CPU, scores {card_cpu} apart")
+    # against waves the random-weight model's decode is a near tie, so the
+    # words are reported; each score within 1e-3 relative (float16 rounds a
+    # feature by up to 4.9e-4 of its value)
+    same_text = sum(r_f[i].text == w.text for i, w in r_w.items())
+    rel = max(abs(r_f[i].log_likelihood - w.log_likelihood) / abs(w.log_likelihood)
+              for i, w in r_w.items())
+    _check(rel <= 1e-3, f"transcribe: features against waves, scores {rel} apart")
+    walls = [b["host_mfcc_s"] for b in shipped]
+    return {
+        "path": "transfer-features",
+        "probe_MBps": probe, "auto_resolves_to": auto,
+        "batches": shipped,
+        "bytes_per_batch_median": {
+            "waves": statistics.median(b["waves_bytes"] for b in shipped),
+            "features_f16": statistics.median(b["features_bytes"] for b in shipped)},
+        "host_mfcc_s_per_batch": {"median": statistics.median(walls),
+                                  "max": max(walls), "sum": sum(walls)},
+        "sat-2pass": sat, "train-mono": mono,
+        "transcribe-dense": {"utterances": len(r_f), "launches": d_launches,
+                             "cold_wall_s": d_wall,
+                             "card_vs_cpu_max_score_diff": card_cpu,
+                             "same_text_as_waves": same_text,
+                             "score_rel_diff_to_waves": rel,
+                             "texts": [r_f[i].text for i in sorted(r_f)]},
+    }
+
+
+# the pitch recipe mono -> tri -> LDA -> SAT, cut for the time budget:
+# iterations 2 / 4 / 4 / 4 (LDA estimates MLLT at 2 and 4, SAT fMLLR at 2
+# and 4), 500 leaves a stage (the default recipe's 2000-2500 leaves took
+# 60 s of host tree building) with 16000 Gaussians, so that the stages
+# and the archive's paths are large enough for K3
+PITCH_RECIPE = [
+    ("monophone", "mono", 2, 1000, 0),
+    ("triphone", "tri", 4, 16000, 500),
+    ("lda", "lda", 4, 16000, 500),
+    ("sat", "sat", 4, 16000, 500),
+]
+
+
+def _rising(trainer) -> bool:
+    """Finite log-likelihoods that rise (or hold) at every iteration that
+    does not change the features (MLLT, fMLLR)."""
+    ll = _loglikes(trainer)
+    changes = set(getattr(trainer, "mllt_iterations", ())) | set(
+        getattr(trainer, "fmllr_iterations", ()))
+    return bool(np.isfinite(ll).all()) and all(
+        ll[i] >= ll[i - 1] - 1e-6 * abs(ll[i - 1])
+        for i in range(1, len(ll)) if i not in changes)
+
+
+def pitch_paths_phase(dict_path, out_dir, device, recipe=PITCH_RECIPE, batch_size=32,
+                      require_k3=True, corpus_size=(64, 2.0, 30.0)):
+    """**pitch-paths**: a pitch model on every path that takes one, on
+    corpora that say their transcripts with a moving pitch
+    (:func:`build_voiced_corpus`: ``corpus_size`` utterances of the lexicon
+    at ``dict_path`` for the recipe, 4, 8 and 4 more for the checks). The
+    recipe mono -> tri -> LDA -> SAT with ``use_pitch`` (with
+    ``require_k3`` large enough for K3; ``lda.mat`` 40 x 112: 13 MFCCs and
+    3 pitch columns spliced +-3; log-likelihoods finite and rising at every
+    iteration that does not change the features); its archive aligns the
+    corpus two-pass, every utterance, counted from 0; ``MapAdapter`` of it
+    on the card against the CPU on 8 utterances of 2 speakers at the adapt
+    cell's bars (``adapt_card_vs_cpu``, counted from 0 on the card);
+    ``--fine_tune`` of the corpus, timed with its pitch's share, every
+    boundary within the fine-tune window of the 10 ms one, and on 4
+    utterances the card against the CPU within 1 ms; the long path on 4
+    utterances of one speaker each (so both paths estimate CMVN and fMLLR
+    from the same frames) with ``LONG_UTTERANCE_FRAMES`` lowered, against
+    the corpus path at one utterance a batch, single- and two-pass at the
+    parity bar; launches by the long path's formula."""
+    import montreal_forced_aligner_tpu_torch.align.fine_tune as FT
+    import montreal_forced_aligner_tpu_torch.online.alignment as online_mod
+    from montreal_forced_aligner_tpu_torch.align.aligner import (
+        AlignerConfig,
+        PretrainedAligner,
+        _emission_kernel_eligible,
+    )
+    from montreal_forced_aligner_tpu_torch.corpus.corpus import Corpus
+    from montreal_forced_aligner_tpu_torch.models.acoustic_model import AcousticModel
+    from montreal_forced_aligner_tpu_torch.ops import cuda_build
+    from montreal_forced_aligner_tpu_torch.ops import long_viterbi as LV
+    from montreal_forced_aligner_tpu_torch.training.trainer import (
+        StageConfig,
+        TrainableAligner,
+    )
+
+    on_card = device.type == "cuda"
+    out = Path(out_dir)
+    n_utts, min_s, max_s = corpus_size
+    corpus_dir, audio_s = build_voiced_corpus(out, dict_path, n_utts, min_s, max_s,
+                                              name="pitch_corpus")
+    small_dir, _ = build_voiced_corpus(out, dict_path, 4, 2.0, 4.0, seed=1,
+                                       name="pitch_small")
+    small2_dir, _ = build_voiced_corpus(out, dict_path, 8, 3.0, 6.0, seed=2,
+                                        name="pitch_small2", num_speakers=2)
+    single_dir, _ = build_voiced_corpus(out, dict_path, 4, 2.0, 4.0, seed=7,
+                                        name="pitch_single", num_speakers=4)
+    ta = TrainableAligner(
+        corpus_dir, dict_path,
+        recipe=[StageConfig(n, k, it, g, num_leaves=lv) for n, k, it, g, lv in recipe],
+        batch_size=batch_size, variable_length_topology=False, use_pitch=True,
+        device=device)
+    _sync(device)
+    cuda_build.reset_launch_counts()
+    t0 = time.perf_counter()
+    final = ta.train()
+    _sync(device)
+    train_wall = time.perf_counter() - t0
+    train_launches = dict(cuda_build.LAUNCHES)
+    lda_name = next(n for n, k, *_ in recipe if k == "lda")
+    lda_shape = list(ta.models[lda_name].lda_mat.shape)
+    _check(lda_shape == [40, 112], f"pitch recipe: lda.mat {lda_shape}")
+    lls = {n: _loglikes(t) for n, t in ta.trainers.items()}
+    for name, trainer in ta.trainers.items():
+        _check(_rising(trainer), f"pitch recipe {name}: log-likelihoods {lls[name]}")
+    path = out / "pitch_sat.zip"
+    final.save(path)
+    model = AcousticModel.load(path)
+    _check(model.lda_mat.shape == (40, 112) and model.meta["features"]["pitch"],
+           "the pitch archive lost its pitch or its LDA")
+
+    aligner = PretrainedAligner(path, dict_path, AlignerConfig(batch_size=batch_size),
+                                device=device)
+    _check(aligner.use_pitch and aligner.two_pass, "the pitch archive: no two-pass")
+    corpus = Corpus.load(corpus_dir)
+    _sync(device)
+    cuda_build.reset_launch_counts()
+    t0 = time.perf_counter()
+    results = aligner.align_corpus(corpus)
+    _sync(device)
+    align_wall = time.perf_counter() - t0
+    align_launches = dict(cuda_build.LAUNCHES)
+    _check(len(results) == corpus.num_utterances,
+           f"pitch archive aligned {len(results)} of {corpus.num_utterances}")
+    for key, aln in results.items():
+        _check(aln.words and aln.phones and np.isfinite(aln.log_likelihood)
+               and aln.log_likelihood > -1e29, f"utterance {key}: bad alignment")
+    n_batches = -(-corpus.num_utterances // batch_size)
+    use_k = [_emission_kernel_eligible(g.num_pdfs, g.max_gauss)
+             for g in (model.alignment_model[1], model.gmm)]
+    _check(not require_k3 or all(use_k), "the pitch archive's models are below "
+           f"K3's threshold ({model.gmm.num_pdfs} pdfs x {model.gmm.max_gauss})")
+    want = {"band_forward": 2 * n_batches * on_card,
+            "band_backtrace": 2 * n_batches * on_card,
+            "state_emission": sum(use_k) * n_batches * on_card}
+    _check(align_launches == want, f"pitch align launches {align_launches}, "
+           f"expected {want}")
+
+    _sync(device)
+    cuda_build.reset_launch_counts()
+    t0 = time.perf_counter()
+    adapt = adapt_card_vs_cpu(path, dict_path, small2_dir, device, batch_size)
+    adapt["card_and_cpu_wall_s"] = time.perf_counter() - t0
+    adapt["launches"] = dict(cuda_build.LAUNCHES)
+    _require_kernels("pitch adapt", adapt["launches"], on_card,
+                     ("band_forward", "band_backtrace"))
+
+    # the fine-tune of the corpus, and the share of it that computes pitch
+    pitch_s = [0.0]
+    real_pitch = FT.pitch_for_mfcc_frames
+
+    def timed_pitch(*a, **k):
+        t1 = time.perf_counter()
+        got = real_pitch(*a, **k)
+        pitch_s[0] += time.perf_counter() - t1
+        return got
+
+    FT.pitch_for_mfcc_frames = timed_pitch
+    try:
+        base, tuned, tune_s = _fine_tune_run(path, dict_path, device, corpus_dir,
+                                             batch_size)
+    finally:
+        FT.pitch_for_mfcc_frames = real_pitch
+    window = 0.015 + 1e-9  # the fine-tune's window: 1.5 frames either side
+    moved = worst = 0
+    for key, aln in tuned.items():
+        _check([p.label for p in aln.phones] == [lab for lab, _b in base[key]],
+               f"utterance {key}: fine-tune changed the phones")
+        d = np.abs(np.array([p.begin for p in aln.phones])
+                   - np.array([b for _lab, b in base[key]]))
+        worst = max(worst, float(d.max()))
+        moved += int((np.round(np.array([p.begin for p in aln.phones]) * 1000)
+                      % 10 != 0).sum())
+    _check(worst <= window and moved > 0,
+           f"pitch fine-tune: boundaries moved up to {worst} s, {moved} off the grid")
+    _got, tune_diff, tune_pitch = _fine_tune_card_vs_cpu(path, dict_path, small_dir,
+                                                        device)
+
+    # one utterance a batch: a row's pitch depends on its batch (the lag
+    # Viterbi backtraces every row from the batch's last frame, in both
+    # packages, ROADMAP Queue 3), and the long path computes each
+    # utterance's alone
+    long_path = {}
+    n_single = Corpus.load(single_dir).num_utterances
+    for label, adaptation in (("single_pass", False), ("two_pass", True)):
+        single = PretrainedAligner(path, dict_path, AlignerConfig(
+            batch_size=1, uses_speaker_adaptation=adaptation), device=device)
+        want_res = single.align_corpus(Corpus.load(single_dir))
+        rec = CallRecorder(online_mod, "viterbi_align_long", device)
+        limit, chunk = online_mod.LONG_UTTERANCE_FRAMES, LV.CHUNK_FRAMES
+        online_mod.LONG_UTTERANCE_FRAMES, LV.CHUNK_FRAMES = 50, 128
+        try:
+            with rec:
+                _sync(device)
+                cuda_build.reset_launch_counts()
+                t0 = time.perf_counter()
+                got_res = single.align_corpus(Corpus.load(single_dir))
+                _sync(device)
+                long_wall = time.perf_counter() - t0
+                long_launches = dict(cuda_build.LAUNCHES)
+            long_want = _long_path_launches(rec, device)
+        finally:
+            online_mod.LONG_UTTERANCE_FRAMES, LV.CHUNK_FRAMES = limit, chunk
+        passes = 2 if adaptation else 1
+        _check(rec.calls == passes * n_single,
+               f"pitch long path: {rec.calls} chunked decodes")
+        _check(long_launches == long_want,
+               f"pitch long path launches {long_launches}, expected {long_want}")
+        long_path[label] = {"wall_s": long_wall, "launches": long_launches,
+                            "against_corpus_path": parity(got_res, want_res, 0.01)}
+    return {
+        "path": "pitch-paths",
+        "corpus": {"utterances": n_utts, "audio_s": audio_s},
+        "recipe": {"stages": [list(r) for r in recipe], "wall_s": train_wall,
+                   "launches": train_launches, "lda_mat": lda_shape,
+                   "loglike_per_frame": lls,
+                   "pdfs_x_gauss": [int(final.gmm.num_pdfs), int(final.gmm.max_gauss)]},
+        "align": {"utterances": len(results), "wall_s": align_wall,
+                  "launches": align_launches},
+        "adapt": adapt,
+        "fine_tune": {"utterances": len(tuned),
+                      "boundaries": sum(len(v) - 1 for v in base.values()),
+                      "fine_tune_s": tune_s, "pitch_s": pitch_s[0],
+                      "max_move_from_10ms_s": worst, "moved_off_grid": moved,
+                      "card_vs_cpu_max_boundary_diff_s": tune_diff, **tune_pitch},
+        "long_path": {"utterances": n_single, **long_path},
+    }
+
+
+# the graph arrays of the chain-major decoders, and their arguments after
+# (emit_pdf, state_pdf, frame_lengths)
+FLAT_NAMES = ("state_pdf", "band", "start", "exit_idx", "exit_w", "entry_idx",
+              "entry_word", "entry_w", "p1", "bo", "big_pred", "big_w", "eos",
+              "entry_slot_of_state", "state_word", "state0_hash")
+FLAT_DECODE = ("band", "start", "exit_idx", "exit_w", "entry_idx", "entry_word",
+               "entry_w", "p1", "bo", "big_pred", "big_w")
+
+
+def _rows_equal(label, dev, host, flens, pron=None):
+    """A device backtrace (path, word_at, score) against host rows (path,
+    score, events): paths and entered words exact, scores within 1e-4;
+    with ``pron`` (word -> pronunciation) the words compare by it and the
+    paths not (another graph's numbering)."""
+    path, word, score = (x.cpu().numpy() for x in dev)
+    worst = 0.0
+    for b, (hp, hs, he) in enumerate(host):
+        L = int(flens[b])
+        events = [(t, int(w)) for t, w in enumerate(word[b, :L]) if w >= 0]
+        if pron is None:
+            _check(np.array_equal(path[b], hp) and events == he,
+                   f"{label}: row {b} path or words differ")
+        else:
+            _check([(t, pron[w]) for t, w in events]
+                   == [(t, pron[w]) for t, w in he], f"{label}: row {b} words differ")
+        worst = max(worst, abs(float(score[b]) - hs))
+    _check(worst <= 1e-4, f"{label}: scores {worst} apart")
+    return worst
+
+
+def lvcsr_chain_major_phase(model_path, dict_path, small_dir, lm, device,
+                            batch_size=4):
+    """**lvcsr-chain-major**: transcribe ``small_dir`` (4 utterances) with
+    transcribe-lvcsr's LM (cross-word, two-pass) and keep pass 2's
+    emissions; on them, the production routes against the reference
+    decoders, on the card: the checkpointed cross-word pair against the
+    record-based pair with its device and host backtraces (paths, words
+    exact, scores within 1e-4); the word-internal position-major pair
+    against the chain-major pairs (record-based with its device and host
+    backtraces, checkpointed) on the same LM's graphs (scores within 1e-4,
+    the same words at the same frames; the chain-major backtraces equal
+    each other exactly). No kernel: these decoders are plain PyTorch."""
+    import montreal_forced_aligner_tpu_torch.transcription.transcriber as T
+    from montreal_forced_aligner_tpu_torch.corpus.corpus import Corpus
+    from montreal_forced_aligner_tpu_torch.ops import cuda_build
+    from montreal_forced_aligner_tpu_torch.transcription import lvcsr as LV
+    from montreal_forced_aligner_tpu_torch.transcription import lvcsr_pm as PM
+
+    tr = T.Transcriber(model_path, dict_path, lm=lm, batch_size=batch_size,
+                       device=device)
+    captured = []
+    real = T.Transcriber._lvcsr_decode_device
+
+    def spy(self, ff, flens_dev, gmm):
+        handle = real(self, ff, flens_dev, gmm)
+        captured.append((handle, ff, flens_dev, gmm))
+        return handle
+
+    T.Transcriber._lvcsr_decode_device = spy
+    try:
+        results = tr.transcribe_corpus(Corpus.load(small_dir))
+    finally:
+        T.Transcriber._lvcsr_decode_device = real
+    g = tr._lvcsr
+    _check(isinstance(g, LV.LvcsrXwGraph) and tr.aligner.two_pass,
+           f"lvcsr-chain-major: {type(g).__name__}")
+    handle, ff, flens_dev, gmm = captured[-1]  # pass 2, the final model
+    flens = flens_dev.cpu().numpy()
+    Tn = int(ff.shape[1])
+    emit = T._lvcsr_emissions(ff, gmm, tr.acoustic_scale)
+    seconds = {}
+
+    def timed(name, fn):
+        _sync(device)
+        t0 = time.perf_counter()
+        out = fn()
+        _sync(device)
+        seconds[name] = time.perf_counter() - t0
+        return out
+
+    cuda_build.reset_launch_counts()
+    d = tr._lvcsr_dev()
+    prod = timed("xw_ckpt_backtrace", lambda: tr._lvcsr_backtrace_device_dispatch(
+        handle, flens_dev, Tn))
+    a_T, recs = timed("xw_record_decode", lambda: LV.lvcsr_xw_decode_device(
+        emit, d, flens_dev, g.lb, g.ub, g.num_p))
+    xw_dev = timed("xw_record_backtrace", lambda: LV.lvcsr_xw_backtrace_device(
+        a_T, recs, d, flens_dev, g.lb, Tn))
+    xw_host = timed("xw_host_backtrace", lambda: LV.lvcsr_xw_backtrace_host(
+        g, a_T.cpu().numpy(), [r.cpu().numpy() for r in recs], flens, T=Tn))
+    del a_T, recs
+    xw = {"S": int(g.num_states),
+          "ckpt_vs_host_score_diff": _rows_equal("cross-word checkpointed", prod,
+                                                 xw_host, flens),
+          "record_vs_host_score_diff": _rows_equal("cross-word record-based",
+                                                   xw_dev, xw_host, flens)}
+
+    comp = LV.LvcsrGraphCompiler(tr.aligner.compiler, tr.aligner.lexicon, lm,
+                                 cross_word=False)
+    pg, lg = comp.build(), comp.build_word_internal_legacy()
+    _check(isinstance(pg, PM.LvcsrPmGraph), f"word-internal: {type(pg).__name__}")
+    pd = LV.graph_tensors(pg, PM.PM_DEVICE_NAMES, device)
+    e0, ep = LV.split_emissions(emit, PM._PM_TC)
+    pm_a, pm_ck = timed("pm_ckpt_decode", lambda: PM.lvcsr_pm_decode_ckpt_device(
+        e0, ep, pd, flens_dev, pg.lbp, pg.ubp))
+    pm_bt = timed("pm_ckpt_backtrace", lambda: PM.lvcsr_pm_backtrace_ckpt_device(
+        pm_a, pm_ck, ep, pd, flens_dev, pg.lbp, pg.ubp, Tn))
+    del e0, ep, pm_a, pm_ck
+    ld = LV.graph_tensors(lg, FLAT_NAMES, device)
+    args = [ld[k] for k in FLAT_DECODE]
+    fa, frecs = timed("chain_record_decode", lambda: LV.lvcsr_decode_device(
+        emit, ld["state_pdf"], flens_dev, *args, lg.lb, lg.ub))
+    f_dev = timed("chain_record_backtrace", lambda: LV.lvcsr_backtrace_device(
+        fa, frecs, flens_dev, ld["exit_idx"], ld["exit_w"], ld["eos"],
+        ld["entry_word"], ld["entry_slot_of_state"], ld["big_pred"],
+        ld["state_word"], lg.lb, Tn))
+    f_host = timed("chain_host_backtrace", lambda: LV.lvcsr_backtrace_host(
+        lg, fa.cpu().numpy(), [r.cpu().numpy() for r in frecs], flens, T=Tn))
+    del fa, frecs
+    ca, cck, crecs = timed("chain_ckpt_decode", lambda: LV.lvcsr_decode_ckpt_device(
+        emit, ld["state_pdf"], flens_dev, *args, lg.lb, lg.ub, cache=ld))
+    c_bt = timed("chain_ckpt_backtrace", lambda: LV.lvcsr_backtrace_ckpt_device(
+        ca, cck, crecs, emit, ld["state_pdf"], flens_dev, ld["band"],
+        ld["exit_idx"], ld["exit_w"], ld["eos"], ld["entry_idx"], ld["entry_word"],
+        ld["entry_w"], ld["p1"], ld["bo"], ld["big_pred"], ld["big_w"],
+        ld["entry_slot_of_state"], ld["state_word"], lg.lb, lg.ub, Tn, cache=ld))
+    _check(list(pg.words) == list(lg.words), "the word-internal graphs' words differ")
+    lex = tr.aligner.lexicon
+    pron = {v: tuple(lex.words[w][0].phones) for v, w in enumerate(pg.words)}
+    chain = {"S_position_major": int(pg.Pmax * pg.C), "S_chain_major": int(lg.num_states),
+             "Kb": int(lg.big_pred.shape[1]),
+             "record_vs_host_score_diff": _rows_equal("chain-major record-based",
+                                                      f_dev, f_host, flens),
+             "ckpt_vs_host_score_diff": _rows_equal("chain-major checkpointed",
+                                                    c_bt, f_host, flens),
+             "position_major_vs_host_score_diff": _rows_equal(
+                 "position-major", pm_bt, f_host, flens, pron)}
+    path, _w, _s = (x.cpu().numpy() for x in pm_bt)
+    for b, (hp, _hs, _he) in enumerate(f_host):
+        L = int(flens[b])
+        _check([pron.get(int(v)) for v in pg.state_word[path[b, :L]]]
+               == [pron.get(int(v)) for v in lg.state_word[hp[:L]]],
+               f"position-major: row {b} per-frame words differ")
+    launches = dict(cuda_build.LAUNCHES)
+    _check(sum(launches.values()) == 0, f"the LVCSR decoders launched {launches}")
+    return {"path": "lvcsr-chain-major", "utterances": len(results),
+            "words": len(g.words), "T": Tn, "rows": len(flens),
+            "launches": launches, "cross_word": xw, "word_internal": chain,
+            "seconds": seconds}
+
+
 def read_duration(path) -> float:
     from montreal_forced_aligner_tpu_torch.io.wav import read_wave
 
@@ -4522,9 +5398,13 @@ def main() -> int:
         _emit({"g2p_card_vs_cpu": g2p_card_vs_cpu(g2p_small, cpu_ref.result())})
         _emit({"flac_plain_decode": flac_plain_check(
             g2p_fx, {k: v for task in plain for k, v in task.result().items()})})
-        # multi-GPU on the one card; MFA's CPU half in a worker beside it
+        # multi-GPU on the one card; MFA's and transfer-features' CPU halves
+        # in workers beside it
         mfa_cpu = CpuTask("mfa_run", (model_path, dict_path, small_dir, "cpu"),
                           tmp / "mfa_cpu.pkl")
+        transfer_cpu = CpuTask("transfer_cpu_references",
+                               (model_path, dict_path, small_dir, small2_dir, lms[0]),
+                               tmp / "transfer_cpu.pkl")
         nccl = nccl_one_rank_phase(model_path, dict_path, corpus_dir, tmp, device)
         _emit({"main_path": {"path": "distributed (W = 1, NCCL)", **nccl}})
         gloo = gloo_two_ranks_phase(model_path, dict_path, corpus_dir, device)
@@ -4539,6 +5419,17 @@ def main() -> int:
                                 mfa_cpu.result())})
         _emit({"parity_harness": parity_harness_phase(model_path, dict_path,
                                                       corpus_dir, device)})
+        # host features in place of waves, pitch models on every path, and
+        # the chain-major LVCSR decoders against the production routes
+        transfer = transfer_features_phase(model_path, dict_path, corpus_dir,
+                                           small_dir, small2_dir, lms[0], tmp,
+                                           device, cpu_refs=transfer_cpu.result())
+        _emit({"main_path": transfer})
+        pitch_paths = pitch_paths_phase(dict_path, tmp, device)
+        _emit({"main_path": pitch_paths})
+        chain = lvcsr_chain_major_phase(model_path, dict_path, small_dir, lvcsr_lm,
+                                        device)
+        _emit({"main_path": chain})
 
         def by_rank(launches):
             return {k: [l[k] for l in launches] for k in launches[0]}
@@ -4561,7 +5452,17 @@ def main() -> int:
                    "train-distributed (W = 2, gloo, ranks 0 and 1)": by_rank(
                        [r["train_launches"] for r in gloo["ranks"]]),
                    "dryrun (W = 2, gloo, ranks 0 and 1)": by_rank(
-                       [r["launches"] for r in dry["ranks"]])}
+                       [r["launches"] for r in dry["ranks"]]),
+                   "transfer-features sat-2pass": transfer["sat-2pass"]["launches"],
+                   "transfer-features train-mono": transfer["train-mono"]["launches"],
+                   "transfer-features transcribe-dense":
+                       transfer["transcribe-dense"]["launches"],
+                   "pitch-recipe": pitch_paths["recipe"]["launches"],
+                   "pitch-align (sat-2pass)": pitch_paths["align"]["launches"],
+                   "pitch-adapt": pitch_paths["adapt"]["launches"],
+                   "pitch-long-path (two-pass)":
+                       pitch_paths["long_path"]["two_pass"]["launches"],
+                   "lvcsr-chain-major": chain["launches"]}
         extra = {**mono_checks, "train_recipe": recipe_checks,
                  "adapt": adapt_checks, "transcribe_dense": dense_checks,
                  "g2p_align": g2p_checks}

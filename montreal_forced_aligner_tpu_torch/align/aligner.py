@@ -3,7 +3,8 @@
 Counterpart of ``montreal_forced_aligner_tpu/align/aligner.py``
 (``PretrainedAligner._align_corpus_impl``): corpus load → audio load →
 phase A, MFCC plus per-speaker CMVN sums, and pitch for pitch models
-(device) → host graph compile (native C++ for monophone trees, else Python,
+(device; in the "features" transfer mode the MFCCs are computed on the
+host and shipped as float16) → host graph compile (native C++ for monophone trees, else Python,
 in a worker pool with ``num_graph_workers``) → graph ship → final
 features, CMVN then deltas or splice+LDA (device) →
 graph-state emissions and band Viterbi (device: kernels K3, K1, K2) → one
@@ -29,6 +30,7 @@ from __future__ import annotations
 
 import copy
 import logging
+import os
 import time
 from dataclasses import dataclass
 from pathlib import Path
@@ -72,6 +74,7 @@ from montreal_forced_aligner_tpu_torch.ops.feats import (
     frame_mask,
     nonsilence_weight,
     silence_pdf_mask,
+    speaker_sums,
     splice_frames,
 )
 from montreal_forced_aligner_tpu_torch.ops.gmm_loglikes import (
@@ -81,6 +84,7 @@ from montreal_forced_aligner_tpu_torch.ops.gmm_loglikes import (
 from montreal_forced_aligner_tpu_torch.ops.mfcc import (
     MfccConfig,
     _mfcc_device,
+    mfcc_host_batch,
     pad_waves_for_mfcc,
 )
 from montreal_forced_aligner_tpu_torch.ops.transforms import (
@@ -144,9 +148,30 @@ def _mfcc_and_spk_stats(
     run and its one-rank distributed twin, would differ in the last bits):
     returns (feats (B, T, D), spk_sum (N, D))."""
     feats, sums = _mfcc_and_sums(padded_waves, frame_lengths, cfg, max_frames)
-    onehot = (torch.arange(num_speakers, device=feats.device)[:, None]
-              == spk_idx[None, :]).to(sums.dtype)
-    return feats, onehot @ sums
+    return feats, speaker_sums(sums, spk_idx, num_speakers)
+
+
+def _feats_and_sums(feats16: torch.Tensor, frame_lengths: torch.Tensor):
+    """Phase A for features computed on the host (``ops.mfcc.
+    mfcc_host_batch``) and shipped as float16: float32 on the device, and
+    the masked per-utterance sums of :func:`_mfcc_and_sums`: (feats (B, T,
+    D), sums (B, D))."""
+    feats = feats16.to(torch.float32)
+    mask = frame_mask(frame_lengths, feats.shape[1])[..., None]
+    return feats, torch.where(mask, feats, 0.0).sum(dim=1)
+
+
+def _feats_and_spk_stats(
+    feats16: torch.Tensor,  # (B, T, D) float16
+    frame_lengths: torch.Tensor,  # (B,) int32
+    spk_idx: torch.Tensor,  # (B,) int64 dense speaker index
+    num_speakers: int,
+):
+    """:func:`_mfcc_and_spk_stats` for host features shipped as float16:
+    the same per-speaker sums, by the same fixed-order product with the
+    speaker indicator."""
+    feats, sums = _feats_and_sums(feats16, frame_lengths)
+    return feats, speaker_sums(sums, spk_idx, num_speakers)
 
 
 def _final_feats(feats, frame_lengths, mean_rows, lda=None, pitch=None):
@@ -230,8 +255,7 @@ class _Batch(NamedTuple):
 @dataclass
 class AlignerConfig:
     """Alignment parameters (the reference package's fields; defaults from
-    reference ``alignment/mixins.py:68-95``). Fields this port does not
-    serve yet raise when set: see :meth:`unsupported`."""
+    reference ``alignment/mixins.py:68-95``)."""
 
     acoustic_scale: float = 0.1
     transition_scale: float = 1.0
@@ -255,32 +279,81 @@ class AlignerConfig:
     # results; in one process, batches round-robin over every local card
     distributed: bool = False
     language: Optional[str] = None
-    # "auto" resolves to "waves" (see resolve_transfer_mode)
+    # what phase A ships to the device: "waves", "features" (float16 MFCCs
+    # computed on the host) or "auto" (see resolve_transfer_mode)
     transfer_mode: str = "auto"
     num_loader_threads: int = 8
     # graph-compile processes for context-dependent trees (0 = in-process);
     # monophone graphs take the native core whatever the setting
     num_graph_workers: int = 0
 
-    def unsupported(self) -> List[str]:
-        """Settings that name work not ported yet, with its ROADMAP item."""
-        out = []
-        if self.transfer_mode not in ("auto", "waves"):
-            out.append(f"transfer_mode={self.transfer_mode!r} (only 'waves' "
-                       "exists on a local card)")
-        return out
+
+# -- what phase A ships: waves or host features ------------------------------
+# int16 waves are about 32 KB an audio second, (T, 13) float16 MFCCs about
+# 2.6 KB: 12 times fewer bytes. Where the host-to-device link reads slow,
+# phase A computes the MFCCs on the host and ships those. A local card over
+# PCIe reads far above the threshold, so "auto" ships waves there.
+
+# the last probe: when, what it chose, its MB/s
+_transfer_probe_cache = {"t": 0.0, "mode": None, "rate": None}
 
 
-def resolve_transfer_mode(requested: str = "auto") -> str:
-    """What phase A ships to the device. The reference package probes its
-    host-to-device link and ships float16 host-computed features below a
-    threshold rate; a local card over PCIe is far above it, as the CPU has no
-    link at all, so "auto" is "waves" here. "features" is not served."""
-    if requested in ("auto", "waves"):
+def _probe_h2d_MBps(device="cuda") -> float:
+    """Marginal host-to-device rate in MB/s: a 4 MB copy from pageable
+    numpy timed against a 4 KB one, each synchronised, so the fixed cost
+    of a copy cancels out (a link whose every call is slow is not helped by
+    fewer bytes)."""
+    dev = resolve_device(device)
+    small = np.zeros(2 * 1024, np.int16)  # 4 KB
+    big = np.zeros(2 * 1024 * 1024, np.int16)  # 4 MB
+
+    def timed(a):
+        t0 = time.perf_counter()
+        torch.from_numpy(a).to(dev)
+        torch.cuda.synchronize(dev)
+        return time.perf_counter() - t0
+
+    timed(small[:16])  # the copy path warm
+    t_small = timed(small)
+    t_big = timed(big)
+    return (big.nbytes - small.nbytes) / 1e6 / max(t_big - t_small, 1e-9)
+
+
+def resolve_transfer_mode(requested: str = "auto", ttl_s: float = 120.0,
+                          device="cuda") -> str:
+    """Pick "waves" or "features" for phase A.
+
+    The variable ``MFA_TPU_TRANSFER_MODE`` forces a mode, then
+    ``requested``. "auto" is "waves" on the CPU, which has no link; on a
+    card it probes the link (the reading is kept ``ttl_s`` seconds) and
+    ships features below ``MFA_TPU_TRANSFER_THRESHOLD_MBPS`` (default 25).
+    Callers record the choice: float16 features quantize (about 1e-3
+    relative), so alignments can differ from wave shipping at exact ties.
+    """
+    env = os.environ.get("MFA_TPU_TRANSFER_MODE")
+    if env in ("waves", "features"):
+        return env
+    if requested in ("waves", "features"):
+        return requested
+    if resolve_device(device).type != "cuda":
         return "waves"
-    raise NotImplementedError(
-        f"transfer_mode={requested!r}: only 'waves' exists on a local card"
-    )
+    now = time.monotonic()
+    if (_transfer_probe_cache["mode"] is not None
+            and now - _transfer_probe_cache["t"] < ttl_s):
+        return _transfer_probe_cache["mode"]
+    rate = _probe_h2d_MBps(device)
+    threshold = float(os.environ.get("MFA_TPU_TRANSFER_THRESHOLD_MBPS", 25.0))
+    mode = "features" if rate < threshold else "waves"
+    _transfer_probe_cache.update(t=now, mode=mode, rate=rate)
+    if mode == "features":
+        _logger.warning(
+            "host->device link slow (%.0f MB/s < %.0f): shipping float16 "
+            "MFCC features computed on the host instead of waves",
+            rate, threshold,
+        )
+    else:
+        _logger.debug("h2d probe %.0f MB/s: shipping waves", rate)
+    return mode
 
 
 _SILENCE_INVENTORIES = {1: ["sil"], 2: ["sil", "spn"], 3: ["sil", "sp", "spn"]}
@@ -372,9 +445,6 @@ class PretrainedAligner:
         device="cuda",
     ):
         self.config = config or AlignerConfig()
-        bad = self.config.unsupported()
-        if bad:
-            raise NotImplementedError("not ported yet: " + "; ".join(bad))
         self.mesh, self.devices = _aligner_layout(self.config, device)
         self.device = self.devices[0]
         self.model_path = acoustic_model_path
@@ -676,7 +746,9 @@ class PretrainedAligner:
 
         cfg = self.config
         dev = self.device
-        self.last_transfer_mode = resolve_transfer_mode(cfg.transfer_mode)
+        transfer_mode = resolve_transfer_mode(cfg.transfer_mode,
+                                              device=self.device)
+        self.last_transfer_mode = transfer_mode
         phase = {}
         t_phase = time.perf_counter()
 
@@ -748,14 +820,23 @@ class PretrainedAligner:
             )
             flens_dev = torch.from_numpy(flens).to(bdev)
             spk_dev = torch.from_numpy(spk_idx).to(bdev)
-            feats_dev, bsum = _mfcc_and_spk_stats(
-                torch.from_numpy(padded).to(bdev),
-                flens_dev,
-                spk_dev,
-                self.mfcc_config,
-                max_frames,
-                num_speakers,
-            )
+            if transfer_mode == "features":
+                feats16 = mfcc_host_batch(
+                    padded, self.mfcc_config, max_frames
+                ).astype(np.float16)
+                feats_dev, bsum = _feats_and_spk_stats(
+                    torch.from_numpy(feats16).to(bdev), flens_dev, spk_dev,
+                    num_speakers,
+                )
+            else:
+                feats_dev, bsum = _mfcc_and_spk_stats(
+                    torch.from_numpy(padded).to(bdev),
+                    flens_dev,
+                    spk_dev,
+                    self.mfcc_config,
+                    max_frames,
+                    num_speakers,
+                )
             spk_total += bsum.to(dev)
             # frame counts accumulate on the host in float64
             np.add.at(spk_count, spk_idx, flens.astype(np.float64))

@@ -35,6 +35,7 @@ from montreal_forced_aligner_tpu_torch.graph.compiler import (
 )
 from montreal_forced_aligner_tpu_torch.ops.feats import compute_deltas, splice_frames, apply_transform
 from montreal_forced_aligner_tpu_torch.ops.mfcc import MfccConfig, compute_mfcc_batch
+from montreal_forced_aligner_tpu_torch.ops.pitch import PitchConfig, pitch_for_mfcc_frames
 
 
 @dataclass
@@ -188,6 +189,26 @@ def _fine_tune_local(
     )
 
     dev = aligner.device
+    # a pitch model's pitch at the fine-tune's 1 ms grid, each window's
+    # computed on its own samples as the reference computes each segment's
+    # features; windows go through pitch in batches of one wave length, so
+    # no row is padded and none depends on its batch (ROADMAP Queue 3)
+    window_pitch: Dict[int, np.ndarray] = {}
+    if aligner.use_pitch:
+        pitch_cfg = PitchConfig(frame_shift_ms=1.0)
+        by_len: Dict[int, List[int]] = {}
+        for j in jobs:
+            by_len.setdefault(len(waves[j.graph_index]), []).append(j.graph_index)
+        for n, idx in sorted(by_len.items()):
+            T = fine_cfg.num_frames(n)
+            for lo in range(0, len(idx), batch_size):
+                part = idx[lo : lo + batch_size]
+                out = pitch_for_mfcc_frames(
+                    np.stack([waves[g] for g in part]).astype(np.float32),
+                    np.full(len(part), n, np.int32), np.full(len(part), T, np.int32),
+                    T, pitch_cfg, device=dev,
+                )
+                window_pitch.update(zip(part, out))
     # the final model with the aligner's silence boost, whichever model
     # aligned the corpus (the reference package's fine-tune reads it too)
     gmm = aligner._prepare_gmm()
@@ -206,6 +227,15 @@ def _fine_tune_local(
         mean_stack = np.stack([spk_means[j.graph_index] for j in chunk])
         mean_rows = torch.from_numpy(mean_stack).to(dev)
         x = feats - mean_rows[:, None, :]
+        if window_pitch:
+            # pasted after CMVN and before deltas or splice+LDA, as phase A
+            # pastes it at 10 ms
+            T = int(x.shape[1])
+            pitch = np.zeros((len(chunk), T, pitch_cfg.num_feature_dims), np.float32)
+            for r, j in enumerate(chunk):
+                rows = window_pitch[j.graph_index][:T]
+                pitch[r, : len(rows)] = rows
+            x = torch.cat([x, torch.from_numpy(pitch).to(dev)], dim=-1)
         flens_j = torch.from_numpy(flens).to(dev)
         if lda is None:
             ff = compute_deltas(x, flens_j)

@@ -117,8 +117,11 @@ def _align_parser(sub) -> None:
     _flag(a, "fine_tune", None, "Refine boundaries at 1 ms resolution")
     a.add_argument("--transfer_mode", default="auto",
                    choices=["auto", "waves", "features"],
-                   help="Host->device payload of phase A: auto resolves to "
-                        "waves on a local card; features raises")
+                   help="Host->device payload of phase A: waves, or float16 "
+                        "MFCC features computed on the host; auto probes the "
+                        "link and ships features below "
+                        "MFA_TPU_TRANSFER_THRESHOLD_MBPS (default 25), waves "
+                        "on the CPU (MFA_TPU_TRANSFER_MODE overrides)")
     a.add_argument("--single_speaker", action="store_true",
                    help="Disable speaker adaptation (SAT models align "
                         "single-pass with the speaker-independent model "

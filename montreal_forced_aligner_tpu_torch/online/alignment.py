@@ -81,9 +81,21 @@ def align_utterance_online(
         aligner.mfcc_config,
         aligner.mfcc_config.num_frames(L),
     )
-    # single-utterance CMVN (reference ``online/alignment.py:86-88``)
+    # single-utterance CMVN (reference ``online/alignment.py:86-88``); a
+    # pitch model's pitch is pasted after it, as phase A pastes it
     mean = sums[0] / max(int(flens[0]), 1)
-    ff = _final_feats(feats, flens_dev, mean[None], aligner.gmm.lda)
+    pitch = None
+    if aligner.use_pitch:
+        from montreal_forced_aligner_tpu_torch.ops.pitch import (
+            pitch_for_mfcc_frames,
+        )
+
+        pitch = torch.from_numpy(pitch_for_mfcc_frames(
+            np.asarray(samples, np.float32)[None],
+            np.array([len(samples)], np.int32), flens, int(feats.shape[1]),
+            device=dev,
+        )).to(dev)
+    ff = _final_feats(feats, flens_dev, mean[None], aligner.gmm.lda, pitch)
     garrs = batch_graphs([graph])
     Lf0 = int(flens[0])
     is_long = Lf0 > LONG_UTTERANCE_FRAMES

@@ -210,6 +210,43 @@ def split_schedule_host(
 
 
 
+def apply_split_schedule_device(
+    miv: torch.Tensor,  # (P, G, D)
+    iv: torch.Tensor,  # (P, G, D)
+    weights: torch.Tensor,  # (P, G_new) post-split weights (host-computed)
+    num_gauss: torch.Tensor,  # (P,) post-split counts
+    pdf_idx: torch.Tensor,  # (M,) pdf of each write
+    dst_idx: torch.Tensor,  # (M,) slot written
+    origin_idx: torch.Tensor,  # (M,) slot whose pre-split mean/var is read
+    delta: torch.Tensor,  # (M, D) float32 mean offset (0 rows = pure copies)
+    new_max_gauss: int,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Apply a host-computed mixing-up schedule given as mean offsets:
+    every affected slot is an independent write ``mean[dst] = mean[origin]
+    + delta; var[dst] = var[origin]`` (the host resolved split chains into
+    origin + summed offsets, so writes commute). Returns (miv, iv, gconsts)
+    grown to ``new_max_gauss``. The training update runs
+    :func:`apply_split_schedule_scaled_device`, which scales the draws by
+    the origin's deviation on the device."""
+    P, G, D = miv.shape
+    if new_max_gauss > G:
+        pad = new_max_gauss - G
+        miv = torch.nn.functional.pad(miv, (0, 0, 0, pad))
+        iv = torch.nn.functional.pad(iv, (0, 0, 0, pad), value=1.0)
+    ivc = torch.clamp(iv, min=1e-37)
+    means = miv / ivc
+    variances = 1.0 / ivc
+    pdf_idx, dst_idx, origin_idx = (a.long() for a in (pdf_idx, dst_idx, origin_idx))
+    src_mean = means[pdf_idx, origin_idx]  # (M, D)
+    src_var = variances[pdf_idx, origin_idx]
+    means[pdf_idx, dst_idx] = src_mean + delta
+    variances[pdf_idx, dst_idx] = src_var
+    new_iv = (1.0 / variances).to(torch.float32)
+    new_miv = (means * new_iv).to(torch.float32)
+    gc = gconsts_device(weights, new_miv, new_iv, num_gauss)
+    return new_miv, new_iv, gc
+
+
 def apply_split_schedule_scaled_device(
     miv: torch.Tensor,
     iv: torch.Tensor,

@@ -29,6 +29,56 @@ def frame_mask(frame_lengths: torch.Tensor, T: int) -> torch.Tensor:
     return t[None, :] < frame_lengths[:, None]
 
 
+def speaker_sums(x: torch.Tensor, speaker_ids: torch.Tensor, num_speakers: int):
+    """Per-speaker sums of (B, ...) rows, by one product with the (N, B)
+    speaker indicator in a fixed order (no float atomics): (N, ...)."""
+    onehot = (torch.arange(num_speakers, device=x.device)[:, None]
+              == speaker_ids.long()[None, :]).to(x.dtype)
+    return (onehot @ x.reshape(x.shape[0], -1)).reshape((num_speakers,) + x.shape[1:])
+
+
+def accumulate_cmvn_stats(
+    feats: torch.Tensor,  # (B, T, D)
+    frame_lengths: torch.Tensor,  # (B,)
+    speaker_ids: torch.Tensor,  # (B,) dense speaker index
+    num_speakers: int,
+):
+    """Per-speaker (sum (N, D), sum of squares (N, D), count (N,)) over the
+    valid frames: the segment reduce of the reference's per-speaker
+    ``CmvnComputer`` (``acoustic_corpus.py:1315``), summed over rows in a
+    fixed order."""
+    mask = frame_mask(frame_lengths, feats.shape[1])[..., None]
+    masked = torch.where(mask, feats, 0.0)
+    per_utt_sum = masked.sum(dim=1)  # (B, D)
+    per_utt_sumsq = (masked * masked).sum(dim=1)
+    counts = frame_lengths.to(feats.dtype)
+    return (
+        speaker_sums(per_utt_sum, speaker_ids, num_speakers),
+        speaker_sums(per_utt_sumsq, speaker_ids, num_speakers),
+        speaker_sums(counts, speaker_ids, num_speakers),
+    )
+
+
+def apply_cmvn(
+    feats: torch.Tensor,  # (B, T, D)
+    speaker_ids: torch.Tensor,  # (B,)
+    spk_sum: torch.Tensor,  # (N, D)
+    spk_sumsq: torch.Tensor,  # (N, D)
+    spk_count: torch.Tensor,  # (N,)
+    norm_vars: bool = False,
+) -> torch.Tensor:
+    """Per-speaker cepstral mean (and optionally variance) normalization
+    (Kaldi ``apply-cmvn`` defaults: mean only)."""
+    count = torch.clamp(spk_count, min=1.0)[:, None]
+    mean = spk_sum / count  # (N, D)
+    ids = speaker_ids.long()
+    out = feats - mean[ids][:, None, :]
+    if norm_vars:
+        var = torch.clamp(spk_sumsq / count - mean**2, min=1e-10)
+        out = out * torch.rsqrt(var)[ids][:, None, :]
+    return out
+
+
 def edge_fill(feats: torch.Tensor, frame_lengths: torch.Tensor) -> torch.Tensor:
     """Replace frames past each utterance's true length with its last valid
     frame, so static shifted views implement Kaldi's clamp-to-[0, T_true-1]

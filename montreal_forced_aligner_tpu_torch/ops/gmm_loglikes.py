@@ -39,3 +39,32 @@ def select_state_emissions(ll: torch.Tensor, state_pdf: torch.Tensor) -> torch.T
     S = state_pdf.shape[1]
     idx = state_pdf.long()[:, None, :].expand(B, T, S)
     return torch.gather(ll, 2, idx)
+
+
+def gmm_state_loglikes(
+    feats: torch.Tensor,  # (B, T, D)
+    state_miv: torch.Tensor,  # (B, S, G, D) means*invvars gathered per graph state
+    state_iv: torch.Tensor,  # (B, S, G, D) invvars
+    state_gconst: torch.Tensor,  # (B, S, G) with -inf padding
+) -> torch.Tensor:
+    """Per-graph-state emission log-likelihoods from gathered parameters:
+    (B, T, S). The JAX package's gathered form of the state emissions;
+    the port's alignment path runs kernel K3 (``ops/cuda_emission.py``)
+    on packed rows instead."""
+    xx = torch.cat([feats, feats * feats], dim=-1)  # (B, T, 2D)
+    Wg = torch.cat([state_miv, -0.5 * state_iv], dim=-1)  # (B, S, G, 2D)
+    B, S, G, D2 = Wg.shape
+    quad = torch.matmul(xx, Wg.reshape(B, S * G, D2).transpose(1, 2))
+    quad = quad.reshape(B, -1, S, G) + state_gconst[:, None, :, :]
+    return torch.logsumexp(quad, dim=-1)
+
+
+def gather_state_params(gmm_weights_arrays, state_pdf: torch.Tensor):
+    """Per-state GMM parameters for :func:`gmm_state_loglikes`.
+
+    gmm_weights_arrays: (means_invvars (P,G,D), inv_vars (P,G,D), gconsts (P,G))
+    state_pdf: (B, S) pdf-id per graph state (padding states may use 0).
+    """
+    miv, iv, gconst = gmm_weights_arrays
+    idx = state_pdf.long()
+    return miv[idx], iv[idx], gconst[idx]

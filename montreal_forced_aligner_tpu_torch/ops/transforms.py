@@ -33,7 +33,7 @@ from __future__ import annotations
 
 import ctypes
 import os
-from typing import NamedTuple
+from typing import NamedTuple, Optional
 
 import numpy as np
 import torch
@@ -94,8 +94,19 @@ def estimate_lda(
     )
     total_covar = total_second / total - np.outer(mean, mean)
     within = total_covar - between
-    # symmetrize + floor
-    within = (within + within.T) / 2 + within_floor * np.eye(len(mean))
+    within = (within + within.T) / 2
+    # Kaldi ``LdaEstimate::Estimate`` adds 1e-3 of the mean variance to the
+    # diagonal of a within-class covariance that is not positive definite,
+    # as a column constant over the data makes it (the pitch of a
+    # stationary tone: normalized log-pitch and delta-pitch are 0). The
+    # statistics are float32 sums, so "singular" is an eigenvalue under
+    # 1e-7 of the mean variance; a tiny floor would scale such a direction
+    # by up to 1e3 and leave the fMLLR solve after it ill-conditioned
+    mean_var = np.trace(within) / len(mean)
+    if np.linalg.eigvalsh(within)[0] <= 1e-7 * mean_var:
+        within = within + 1e-3 * mean_var * np.eye(len(mean))
+    else:
+        within = within + within_floor * np.eye(len(mean))
     between = (between + between.T) / 2
     eigvals, eigvecs = scipy.linalg.eigh(between, within)
     order = np.argsort(eigvals)[::-1][:target_dim]
@@ -306,6 +317,50 @@ def solve_fmllr_batched(
     )
     if rc != 0:
         raise RuntimeError(f"fmllr_solve_batched returned {rc}")
+    return W.astype(np.float32)
+
+
+def solve_fmllr(
+    K: np.ndarray,  # (D, D+1)
+    G_mats: np.ndarray,  # (D, D+1, D+1)
+    beta: float,
+    num_iters: int = 40,
+    min_count: float = 500.0,
+) -> Optional[np.ndarray]:
+    """Row-wise full fMLLR solve for one speaker (Kaldi ``FmllrOptions``
+    defaults), in float64 numpy: (D, D+1) float32, or None under
+    ``min_count`` frames. The corpus paths solve many speakers at once
+    (:func:`solve_fmllr_batched`); this is the one-speaker form of the same
+    row sweeps, recomputing the cofactor row from scratch each step."""
+    if beta < min_count:
+        return None
+    D = K.shape[0]
+    E = D + 1
+    W = np.hstack([np.eye(D), np.zeros((D, 1))])  # init = identity
+    inv_G = [np.linalg.inv(G_mats[d] + 1e-6 * np.eye(E)) for d in range(D)]
+    for _ in range(num_iters):
+        for d in range(D):
+            A = W[:, :D]
+            cof = np.linalg.inv(A).T * np.linalg.det(A)
+            c = np.concatenate([cof[d], [0.0]])  # extended cofactor row
+            cG = c @ inv_G[d]
+            a = cG @ c  # quadratic coefficient
+            b = cG @ K[d]
+            # the row's optimum scales the cofactor direction by a root of
+            # alpha^2 * a + alpha * b - beta = 0
+            disc = b * b + 4 * a * beta
+            if a <= 0 or disc < 0:
+                continue
+            alpha1 = (-b + np.sqrt(disc)) / (2 * a)
+            alpha2 = (-b - np.sqrt(disc)) / (2 * a)
+
+            def objf(alpha):
+                w = (K[d] + alpha * c) @ inv_G[d]
+                lin = np.abs(w @ c)
+                return beta * np.log(max(lin, 1e-20)) - 0.5 * w @ G_mats[d] @ w + w @ K[d]
+
+            alpha = alpha1 if objf(alpha1) >= objf(alpha2) else alpha2
+            W[d] = (K[d] + alpha * c) @ inv_G[d]
     return W.astype(np.float32)
 
 

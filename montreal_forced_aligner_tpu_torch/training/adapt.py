@@ -200,6 +200,7 @@ class MapAdapter:
             batch_size=self.aligner.config.batch_size,
             uses_deltas=model.uses_deltas,
             lda_mat=model.lda_mat,
+            use_pitch=self.aligner.use_pitch,
             mesh=mesh,
             device=self.device,
         )

@@ -28,6 +28,7 @@ import torch
 from montreal_forced_aligner_tpu_torch.align.aligner import (
     _emission_kernel_eligible,
     _emit_and_align,
+    _feats_and_sums,
     _mfcc_and_sums,
     _round_up,
 )
@@ -47,7 +48,11 @@ from montreal_forced_aligner_tpu_torch.ops.feats import (
     compute_deltas,
     splice_frames,
 )
-from montreal_forced_aligner_tpu_torch.ops.mfcc import MfccConfig, pad_waves_for_mfcc
+from montreal_forced_aligner_tpu_torch.ops.mfcc import (
+    MfccConfig,
+    mfcc_host_batch,
+    pad_waves_for_mfcc,
+)
 from montreal_forced_aligner_tpu_torch.ops.stats import (
     SegmentLayout,
     frame_layout,
@@ -312,6 +317,7 @@ class TrainingPipeline:
         # stages (made at first use)
         self.num_graph_workers = num_graph_workers
         self._graph_pool = None
+        # what the features phase shipped: align.aligner.resolve_transfer_mode
         self.last_transfer_mode: Optional[str] = None
         self.tokenizer = compose_tokenizer(
             SimpleTokenizer(word_set=set(lexicon.words)),
@@ -381,10 +387,19 @@ class TrainingPipeline:
         return x.pin_memory() if self.device.type == "cuda" else x
 
     @property
-    def feature_dim(self) -> int:
+    def raw_dim(self) -> int:
+        """Width of the raw features: the CMVN'd MFCCs, then the pasted
+        pitch columns of a pitch model."""
         base = self.mfcc_config.num_coefficients
         if self.use_pitch:
-            base += 3
+            from montreal_forced_aligner_tpu_torch.ops.pitch import PitchConfig
+
+            base += PitchConfig().num_feature_dims
+        return base
+
+    @property
+    def feature_dim(self) -> int:
+        base = self.raw_dim
         if self.lda_mat is not None:
             return self.lda_mat.shape[0]
         return base * 3 if self.uses_deltas else base
@@ -412,7 +427,9 @@ class TrainingPipeline:
             resolve_transfer_mode,
         )
 
-        self.last_transfer_mode = resolve_transfer_mode()
+        # MFA_TPU_TRANSFER_MODE forces the mode; "auto" probes the link
+        transfer_mode = resolve_transfer_mode(device=self.device)
+        self.last_transfer_mode = transfer_mode
         stash = []
         for batch in batch_lists:
             wave_list = [waves[i] for i in batch]
@@ -421,12 +438,19 @@ class TrainingPipeline:
             flens = np.array(
                 [self.mfcc_config.num_frames(int(n)) for n in lens], np.int32
             )
-            feats_dev, sums = _mfcc_and_sums(
-                self.put_b(padded),
-                self.put_b(flens),
-                self.mfcc_config,
-                self.mfcc_config.num_frames(L),
-            )
+            if transfer_mode == "features":
+                feats16 = mfcc_host_batch(
+                    padded, self.mfcc_config, self.mfcc_config.num_frames(L)
+                ).astype(np.float16)
+                feats_dev, sums = _feats_and_sums(
+                    self.put_b(feats16), self.put_b(flens))
+            else:
+                feats_dev, sums = _mfcc_and_sums(
+                    self.put_b(padded),
+                    self.put_b(flens),
+                    self.mfcc_config,
+                    self.mfcc_config.num_frames(L),
+                )
             stash.append((batch, self._store(feats_dev), flens, sums))
         # every batch is queued before any sum is fetched
         for (batch, _f, flens, _s), sums in zip(

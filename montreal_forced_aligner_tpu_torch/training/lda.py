@@ -57,7 +57,10 @@ class LdaTrainer(TriphoneTrainer):
         self.lda_mat: Optional[np.ndarray] = None
 
     def _estimate_lda(self, pipeline: TrainingPipeline, num_classes: int) -> None:
-        D_spliced = pipeline.mfcc_config.num_coefficients * (
+        # the spliced width of the raw features: pitch models paste their
+        # pitch columns after CMVN and splice the pasted width (reference
+        # ``FinalFeatureFunction``, ``corpus/features.py:254``)
+        D_spliced = pipeline.raw_dim * (
             self.splice_left + 1 + self.splice_right
         )
         counts = np.zeros(num_classes)

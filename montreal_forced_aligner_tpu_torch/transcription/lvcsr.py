@@ -26,13 +26,11 @@ no arc are skipped in the 1-best band step; they can never win its strict
 ``>`` (an arc weight of NEG_INF absorbs any finite score), so the result is
 the same.
 
-The chain-major 1-best decoders of the JAX package
-(``lvcsr_decode_device``, ``lvcsr_backtrace_device``,
-``lvcsr_decode_ckpt_device``, ``lvcsr_backtrace_ckpt_device``,
-``lvcsr_backtrace_host``) and the record-based cross-word 1-best pair are
-not ported: no ``Transcriber`` route reaches them (1-best runs the
-position-major and checkpointed cross-word pairs); only the JAX package's
-own tests do.
+The chain-major 1-best pairs (record-based and checkpointed, with device
+and host backtraces) and the record-based cross-word pair are the
+reference forms the production routes (position-major, checkpointed
+cross-word) are held to; ``Transcriber`` decodes a plain chain-major graph
+through the checkpointed chain-major pair.
 """
 
 from __future__ import annotations
@@ -527,6 +525,291 @@ def run_graphed(cache: dict, key, fn, *args):
         dst.copy_(src)
     graph.replay()
     return tuple(o.clone() for o in static_out)
+
+
+# ---------------------------------------------------------------------------
+# Chain-major word-internal 1-best: the record-based and checkpointed pairs
+# ---------------------------------------------------------------------------
+# The JAX package's reference decoders for its production routes, on the
+# word-internal chain-major graph (``build_word_internal_legacy``): every
+# production 1-best route (position-major, checkpointed cross-word) is held
+# to them by the tests. The record-based pair keeps per-frame records for
+# all T frames; the checkpointed pair keeps one alpha a 32-frame chunk plus
+# the junction records and recomputes each chunk's band backpointers from
+# its checkpoint in the backtrace. A record's ``ent_src`` (the winning
+# seen-bigram index, -1 for the backoff) is int32: the JAX package's int8
+# wraps past 127 predecessors.
+
+
+def _flat_junction(alpha_prev, exit_flat, exit_w, bo, big_pred, big_w, p1,
+                   with_args: bool):
+    """Backoff-LM junction of the chain-major graph: each word's entry
+    score (B, V) and, ``with_args``, the argmax records (ent_src (B, V)
+    int32, exit_arg (B, U) uint8, bo_arg (B,) int32)."""
+    B = alpha_prev.shape[0]
+    U, E = exit_w.shape
+    V, Kb = big_pred.shape
+    ex = alpha_prev[:, exit_flat].reshape(B, U, E) + exit_w
+    exit_u = ex.amax(dim=2)  # (B, U)
+    bo_sc = exit_u + bo
+    BO = bo_sc.amax(dim=1)
+    big = exit_u[:, big_pred.reshape(-1)].reshape(B, V, Kb) + big_w
+    big_best = big.amax(dim=2)
+    bo_path = BO[:, None] + p1
+    ent_v = torch.maximum(bo_path, big_best)  # (B, V)
+    if not with_args:
+        return ent_v, None
+    exit_arg = torch.argmax(ex, dim=2).to(torch.uint8)
+    bo_arg = torch.argmax(bo_sc, dim=1).to(torch.int32)
+    big_arg = torch.argmax(big, dim=2)
+    ent_src = torch.where(bo_path >= big_best, -1, big_arg).to(torch.int32)
+    return ent_v, (ent_src, exit_arg, bo_arg)
+
+
+class _FlatStep:
+    """One chain-major forward step, the only copy of the recursion for
+    its three uses: ``mode="records"`` returns the full per-frame records
+    (the record-based decode), ``"ckpt"`` the junction records only (the
+    checkpointed decode), ``"bp_only"`` the packed band backpointers only
+    (the checkpointed backtrace's chunk recompute). A packed backpointer
+    holds the band offset index in its low 7 bits and sets bit 7 where the
+    LM junction won the state."""
+
+    def __init__(self, band, exit_idx, exit_w, bo, big_pred, big_w, p1,
+                 entry_word, entry_w, entry_idx, lb, ub, mode: str):
+        D = lb + ub + 1
+        assert D <= 127, "band width must fit 7 bits of the packed backpointer"
+        self.cols = [band[:, j] for j in range(D)]
+        self.live = live_band_columns(band, 1)
+        self.exit_flat = exit_idx.reshape(-1)
+        self.exit_w, self.bo, self.p1 = exit_w, bo, p1
+        self.big_pred, self.big_w = big_pred, big_w
+        self.entry_word, self.entry_w = entry_word, entry_w
+        self.entry_idx = entry_idx
+        self.lb, self.ub, self.mode = lb, ub, mode
+
+    def __call__(self, alpha_prev, emit_t, t, frame_lengths):
+        S = alpha_prev.shape[1]
+        ap = torch.nn.functional.pad(alpha_prev, (self.ub, self.lb),
+                                     value=NEG_INF)
+        m, bp = band_max(ap, self.cols, self.live, self.lb, self.ub, S, 1)
+        ent_v, args = _flat_junction(
+            alpha_prev, self.exit_flat, self.exit_w, self.bo, self.big_pred,
+            self.big_w, self.p1, self.mode != "bp_only")
+        entry_cand = ent_v[:, self.entry_word] + self.entry_w
+        m2 = m.index_copy(1, self.entry_idx,
+                          torch.maximum(m[:, self.entry_idx], entry_cand))
+        alpha_out = torch.where(_active(t, frame_lengths, 2), m2 + emit_t,
+                                alpha_prev)
+        if self.mode == "ckpt":
+            return alpha_out, args
+        bp_packed = torch.where(m2 > m, bp | 0x80, bp)
+        if self.mode == "bp_only":
+            return alpha_out, bp_packed
+        return alpha_out, (bp_packed,) + args
+
+
+def lvcsr_decode_device(emit_pdf, state_pdf, frame_lengths, band, start,
+                        exit_idx, exit_w, entry_idx, entry_word, entry_w, p1,
+                        bo, big_pred, big_w, lb, ub):
+    """Record-based chain-major forward pass on (B, T, P) pdf emissions
+    (each frame's (B, S) state emissions gathered per ``_EMIT_TC``-frame
+    chunk). Returns (alpha_T (B, S), records stacked over the frames 1..T-1
+    plus inert chunk padding: bp_packed (B, S) uint8, ent_src (B, V) int32,
+    exit_arg (B, U) uint8, bo_arg (B,) int32)."""
+    step = _FlatStep(band, exit_idx, exit_w, bo, big_pred, big_w, p1,
+                     entry_word, entry_w, entry_idx, lb, ub, "records")
+    alpha0 = start[None] + first_state_emissions(emit_pdf, state_pdf)
+    return _scan_chunked(lambda a, e, t: step(a, e, t, frame_lengths), alpha0,
+                         emit_pdf, state_pdf)
+
+
+def _flat_bt_init(alpha_T, exit_idx, exit_w, eos):
+    """Final state and score: the best word exit plus its end-of-sentence
+    LM weight (shared by the chain-major backtraces)."""
+    B = alpha_T.shape[0]
+    U, E = exit_idx.shape
+    ex = alpha_T[:, exit_idx.reshape(-1)].reshape(B, U, E) + exit_w
+    ex_best = ex.amax(dim=2) + eos  # (B, U)
+    u0 = torch.argmax(ex_best, dim=1)
+    score = ex_best.gather(1, u0[:, None])[:, 0]
+    rows = torch.arange(B, device=alpha_T.device)
+    e0 = torch.argmax(ex[rows, u0], dim=1)
+    return exit_idx[u0, e0], score
+
+
+def _flat_bstep(frame_lengths, entry_slot_of_state, entry_word, big_pred,
+                exit_idx, lb, s, recs, r):
+    """One step of the chain-major reverse walk: the state at frame r from
+    the state at frame r + 1 and frame r + 1's records, and the word
+    entered at r + 1 (-1 for none)."""
+    bp_r, ent_r, exarg_r, boarg_r = recs
+    rows = torch.arange(s.shape[0], device=s.device)
+    t = r + 1
+    packed = bp_r[rows, s]
+    slot = entry_slot_of_state[s]
+    is_junc = ((packed & 0x80) != 0) & (slot >= 0)
+    v = entry_word[torch.clamp(slot, min=0)]
+    k = ent_r[rows, v].long()
+    src_u = torch.where(k < 0, boarg_r.long(), big_pred[v, torch.clamp(k, min=0)])
+    s_j = exit_idx[src_u, exarg_r[rows, src_u].long()]
+    s_band = s - ((packed & 0x7F).long() - lb)
+    active = t < frame_lengths
+    s_out = torch.where(active, torch.where(is_junc, s_j, s_band), s)
+    word = torch.where(active & is_junc, v, -1)
+    return s_out, word
+
+
+def lvcsr_backtrace_device(alpha_T, recs, frame_lengths, exit_idx, exit_w, eos,
+                           entry_word, entry_slot_of_state, big_pred,
+                           state_word, lb, T: int = 0):
+    """Backtrace of :func:`lvcsr_decode_device` on the device, a reverse
+    walk over its records that gathers one state's record a frame: (state
+    path (B, T) int32, word entered at each frame (B, T) int32 (-1 = none),
+    score (B,)). ``T`` cuts the records' chunk padding."""
+    bp_packed, ent_src, exit_arg, bo_arg = recs
+    Tp = bp_packed.shape[0] + 1
+    T = T or Tp
+    s_final, score = _flat_bt_init(alpha_T, exit_idx, exit_w, eos)
+    path_prev = torch.empty((Tp - 1, alpha_T.shape[0]), dtype=torch.int64,
+                            device=alpha_T.device)
+    word_at = torch.empty_like(path_prev)
+    s = s_final
+    for r in range(Tp - 2, -1, -1):
+        s, w = _flat_bstep(frame_lengths, entry_slot_of_state, entry_word,
+                           big_pred, exit_idx, lb, s,
+                           (bp_packed[r], ent_src[r], exit_arg[r], bo_arg[r]), r)
+        path_prev[r], word_at[r] = s, w
+    path, word = _bt_outputs(path_prev, word_at, s_final, state_word, T)
+    return path, word, score
+
+
+def lvcsr_decode_ckpt_device(emit_pdf, state_pdf, frame_lengths, band, start,
+                             exit_idx, exit_w, entry_idx, entry_word, entry_w,
+                             p1, bo, big_pred, big_w, lb, ub, cache=None):
+    """Checkpointed chain-major forward pass: the alpha entering each
+    ``_EMIT_TC``-frame chunk and the per-frame junction records, not the
+    (B, S) band backpointers, so a row's memory has no O(T*S) term.
+    Returns (alpha_T (B, S), ckpts (NC, B, S), records (ent_src, exit_arg,
+    bo_arg) with leaves (NC, TC, B, ...)). ``cache`` (a graph's
+    device-tensor dict) keeps each chunk's CUDA graph on the card."""
+    step = _FlatStep(band, exit_idx, exit_w, bo, big_pred, big_w, p1,
+                     entry_word, entry_w, entry_idx, lb, ub, "ckpt")
+    mat = _emit_chunker(state_pdf)
+    ep, NC = _chunk_pdf_frames(emit_pdf, _EMIT_TC)
+
+    def chunk(alpha, echunk, t0, flens):
+        e = mat(echunk)
+        recs = []
+        for i in range(e.shape[0]):
+            alpha, rec = step(alpha, e[i], t0 + i, flens)
+            recs.append(rec)
+        return (alpha,) + tuple(torch.stack(x) for x in zip(*recs))
+
+    alpha = start[None] + first_state_emissions(emit_pdf, state_pdf)
+    ckpts = torch.empty((NC,) + tuple(alpha.shape), dtype=torch.float32,
+                        device=alpha.device)
+    out = []
+    for c in range(NC):
+        ckpts[c] = alpha
+        alpha, *recs = run_graphed(
+            {} if cache is None else cache, ("flat_decode", lb, ub), chunk,
+            alpha, ep[c], _t0(1 + c * _EMIT_TC, alpha.device), frame_lengths)
+        out.append(recs)
+    return alpha, ckpts, tuple(torch.stack(x) for x in zip(*out))
+
+
+def lvcsr_backtrace_ckpt_device(alpha_T, ckpts, recs, emit_pdf, state_pdf,
+                                frame_lengths, band, exit_idx, exit_w, eos,
+                                entry_idx, entry_word, entry_w, p1, bo,
+                                big_pred, big_w, entry_slot_of_state,
+                                state_word, lb, ub, T: int, cache=None):
+    """Backtrace of :func:`lvcsr_decode_ckpt_device`: chunks last to first,
+    each re-running its forward from the stored checkpoint for its packed
+    band backpointers (TC frames only), then walking them back with the
+    chunk's junction records, decision for decision as
+    :func:`lvcsr_backtrace_device`. Returns (state path (B, T) int32, word
+    entered at each frame (B, T) int32, score (B,))."""
+    fstep = _FlatStep(band, exit_idx, exit_w, bo, big_pred, big_w, p1,
+                      entry_word, entry_w, entry_idx, lb, ub, "bp_only")
+    mat = _emit_chunker(state_pdf)
+    ep, NC = _chunk_pdf_frames(emit_pdf, _EMIT_TC)
+    ent_src, exit_arg, bo_arg = recs
+
+    def chunk(ck, echunk, entr, exar, boar, t0, flens, s):
+        e = mat(echunk)
+        alpha, bps = ck, []
+        for i in range(e.shape[0]):
+            alpha, bp = fstep(alpha, e[i], t0 + i, flens)
+            bps.append(bp)
+        states, words = [], []
+        for i in range(e.shape[0] - 1, -1, -1):
+            s, w = _flat_bstep(flens, entry_slot_of_state, entry_word,
+                               big_pred, exit_idx, lb, s,
+                               (bps[i], entr[i], exar[i], boar[i]), t0 - 1 + i)
+            states.append(s)
+            words.append(w)
+        return torch.stack(states[::-1]), torch.stack(words[::-1]), s
+
+    B = alpha_T.shape[0]
+    s_final, score = _flat_bt_init(alpha_T, exit_idx, exit_w, eos)
+    path_prev = torch.empty((NC * _EMIT_TC, B), dtype=torch.int64,
+                            device=alpha_T.device)
+    word_at = torch.empty_like(path_prev)
+    s = s_final
+    for c in range(NC - 1, -1, -1):
+        sl = slice(c * _EMIT_TC, (c + 1) * _EMIT_TC)
+        path_prev[sl], word_at[sl], s = run_graphed(
+            {} if cache is None else cache, ("flat_backtrace", lb, ub), chunk,
+            ckpts[c], ep[c], ent_src[c], exit_arg[c], bo_arg[c],
+            _t0(1 + c * _EMIT_TC, alpha_T.device), frame_lengths, s)
+    path, word = _bt_outputs(path_prev, word_at, s_final, state_word, T)
+    return path, word, score
+
+
+def lvcsr_backtrace_host(graph: LvcsrGraph, alpha_T: np.ndarray, recs,
+                         frame_lengths: np.ndarray, T: int = 0
+                         ) -> List[Tuple[np.ndarray, float, List[Tuple[int, int]]]]:
+    """Per-utterance (state path (T,), score, word events) from the
+    record-based decode's records fetched to the host: the reference form
+    of :func:`lvcsr_backtrace_device`, decision for decision. Word events
+    are (frame, word) pairs, one a junction crossing, so consecutive
+    repeats of a word stay apart."""
+    bp_packed, ent_src, exit_arg, bo_arg = [np.asarray(r) for r in recs]
+    B, S = alpha_T.shape
+    T = T or bp_packed.shape[0] + 1
+    entry_slot = {int(s): i for i, s in enumerate(graph.entry_idx)}
+    out = []
+    for b in range(B):
+        L = int(frame_lengths[b])
+        # final: best word exit + eos
+        ex = alpha_T[b][graph.exit_idx] + graph.exit_w  # (U, E)
+        ex_best = ex.max(axis=1) + graph.eos
+        u = int(np.argmax(ex_best))
+        score = float(ex_best[u])
+        s = int(graph.exit_idx[u, int(np.argmax(ex[u]))])
+        path = np.zeros(T, np.int32)
+        path[L - 1 :] = s
+        events: List[Tuple[int, int]] = []
+        for t in range(L - 1, 0, -1):
+            r = t - 1  # records index for transition (t-1) -> t
+            packed = int(bp_packed[r, b, s])
+            if (packed & 0x80) and s in entry_slot:
+                slot = entry_slot[s]
+                v = int(graph.entry_word[slot])
+                events.append((t, v))
+                k = int(ent_src[r, b, v])
+                src_u = int(bo_arg[r, b]) if k < 0 else int(graph.big_pred[v, k])
+                s = int(graph.exit_idx[src_u, int(exit_arg[r, b, src_u])])
+            else:
+                s = s - ((packed & 0x7F) - graph.lb)
+            path[t - 1] = s
+        w0 = int(graph.state_word[path[0]])
+        if w0 >= 0:
+            events.append((0, w0))
+        events.reverse()
+        out.append((path, score, events))
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -1085,6 +1368,90 @@ def lvcsr_xw_backtrace_ckpt_device(alpha_T, ckpts, ep, d, frame_lengths,
             _t0(1 + c * TC, alpha_T.device), frame_lengths, s)
     path, word = _bt_outputs(path_prev, word_at, s_final, d["state_word"], T)
     return path, word, score
+
+
+def lvcsr_xw_decode_device(emit_pdf, d, frame_lengths, lb, ub, P):
+    """Record-based cross-word forward pass, the reference form of the
+    checkpointed pair: (alpha_T (B, S), per-frame records stacked over the
+    frames 1..T-1 plus inert chunk padding: bp (B, S) uint8, jwin (B, Ne)
+    bool, ent_src (B, Ne) int32, ent_l (B, Ne) uint8, cell_arg (B, Nc)
+    uint8, BOFarg (B, P, F) int16, BO2arg (B, P*RG) int32). ``d`` is the
+    graph's device tensors (:func:`graph_tensors`)."""
+    _step, fstep = _xw_steps(d, lb, ub, P)
+    alpha0 = d["start"][None] + first_state_emissions(emit_pdf, d["state_pdf"])
+    return _scan_chunked(lambda a, e, t: fstep(a, e, t, frame_lengths), alpha0,
+                         emit_pdf, d["state_pdf"])
+
+
+def lvcsr_xw_backtrace_device(alpha_T, recs, d, frame_lengths, lb, T: int = 0):
+    """Backtrace of :func:`lvcsr_xw_decode_device` on the device, a reverse
+    walk over its records with the checkpointed backtrace's step: (state
+    path (B, T) int32, word entered at each frame (B, T) int32, score
+    (B,))."""
+    RG, F = d["rg_mask"].shape
+    Tp = recs[0].shape[0] + 1
+    T = T or Tp
+    s_final, score = _xw_bt_init(alpha_T, d["fin_state"], d["fin_w"])
+    path_prev = torch.empty((Tp - 1, alpha_T.shape[0]), dtype=torch.int64,
+                            device=alpha_T.device)
+    word_at = torch.empty_like(path_prev)
+    s = s_final
+    for r in range(Tp - 2, -1, -1):
+        s, w = _xw_bstep(d, frame_lengths, lb, F, RG, s,
+                         tuple(x[r] for x in recs), r)
+        path_prev[r], word_at[r] = s, w
+    path, word = _bt_outputs(path_prev, word_at, s_final, d["state_word"], T)
+    return path, word, score
+
+
+def lvcsr_xw_backtrace_host(graph: LvcsrXwGraph, alpha_T: np.ndarray, recs,
+                            frame_lengths: np.ndarray, T: int = 0
+                            ) -> List[Tuple[np.ndarray, float, List[Tuple[int, int]]]]:
+    """Per-utterance (state path (T,), score, word events) from the
+    record-based cross-word decode's records fetched to the host: the
+    reference form of :func:`lvcsr_xw_backtrace_device`."""
+    bp_raw, jwin, ent_src, ent_l, cell_arg, BOFarg, BO2arg = [
+        np.asarray(r) for r in recs
+    ]
+    B, S = alpha_T.shape
+    T = T or bp_raw.shape[0] + 1
+    RG, F = graph.rg_mask.shape
+    entry_slot = {int(s): i for i, s in enumerate(graph.entry_state)}
+    out = []
+    for b in range(B):
+        L = int(frame_lengths[b])
+        fin = alpha_T[b][graph.fin_state] + graph.fin_w
+        k = int(np.argmax(fin))
+        score = float(fin[k])
+        s = int(graph.fin_state[k])
+        path = np.zeros(T, np.int32)
+        path[L - 1 :] = s
+        events: List[Tuple[int, int]] = []
+        for t in range(L - 1, 0, -1):
+            r = t - 1
+            e = entry_slot.get(s)
+            if e is not None and jwin[r, b, e]:
+                events.append((t, int(graph.entry_word[e])))
+                q = int(ent_src[r, b, e])
+                if q >= 0:
+                    cell = int(graph.se_cell[e, q])
+                else:
+                    pf = int(graph.ebo_idx[e, int(ent_l[r, b, e])])
+                    p, f = pf // F, pf % F
+                    rg = int(BOFarg[r, b, p, f])
+                    cell = int(BO2arg[r, b, p * RG + rg])
+                s = int(
+                    graph.cell_exit_idx[cell, int(cell_arg[r, b, cell])]
+                )
+            else:
+                s = s - (int(bp_raw[r, b, s]) - graph.lb)
+            path[t - 1] = s
+        w0 = int(graph.state_word[path[0]])
+        if w0 >= 0:
+            events.append((0, w0))
+        events.reverse()
+        out.append((path, score, events))
+    return out
 
 
 # ---------------------------------------------------------------------------

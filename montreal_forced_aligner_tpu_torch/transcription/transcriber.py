@@ -15,7 +15,8 @@ speaker-independent model, per-speaker fMLLR, then the final model on the
 adapted features.
 
 The pipeline: audio load -> phase A (MFCC and per-speaker CMVN sums on the
-device, the aligner's ``_mfcc_and_spk_stats``) -> decoding graph (built
+device, the aligner's ``_mfcc_and_spk_stats``, or float16 MFCCs from the
+host in the "features" transfer mode) -> decoding graph (built
 once per LM) -> final features (``_final_feats``) -> [fMLLR first pass] ->
 decode -> one fetch of every path -> words.
 """
@@ -53,7 +54,10 @@ from montreal_forced_aligner_tpu_torch.ops.gmm_loglikes import (
     gmm_loglikes,
     select_state_emissions,
 )
-from montreal_forced_aligner_tpu_torch.ops.mfcc import pad_waves_for_mfcc
+from montreal_forced_aligner_tpu_torch.ops.mfcc import (
+    mfcc_host_batch,
+    pad_waves_for_mfcc,
+)
 from montreal_forced_aligner_tpu_torch.ops.transforms import (
     FmllrEstimate,
     accumulate_fmllr_stats,
@@ -355,6 +359,8 @@ class Transcriber:
         # the 1-best state path (frames of the utterance) of each utterance
         # of the last 1-best transcribe_corpus
         self.last_state_paths: Dict[int, np.ndarray] = {}
+        # what the last transcribe_corpus's phase A shipped (waves, features)
+        self.last_transfer_mode: Optional[str] = None
 
     def _reset_graph(self):
         self._graph = None
@@ -502,8 +508,12 @@ class Transcriber:
             for i in range(0, len(order), al.config.batch_size)
         ]
 
-        # phase A: MFCC and per-speaker CMVN sums on the device, every batch
+        # phase A: MFCC and per-speaker CMVN sums on the device (or float16
+        # MFCCs from the host in the "features" transfer mode), every batch
         # dispatched before anything is fetched
+        transfer_mode = _al.resolve_transfer_mode(al.config.transfer_mode,
+                                                  device=dev)
+        self.last_transfer_mode = transfer_mode
         D = cfg.num_coefficients
         spk_total = torch.zeros((num_speakers, D), dtype=torch.float32, device=dev)
         spk_count = np.zeros(num_speakers, dtype=np.float64)
@@ -519,10 +529,18 @@ class Transcriber:
             )
             flens_dev = torch.from_numpy(flens).to(dev)
             spk_dev = torch.from_numpy(spk_idx).to(dev)
-            feats, bsum = _al._mfcc_and_spk_stats(
-                torch.from_numpy(padded).to(dev), flens_dev, spk_dev, cfg,
-                cfg.num_frames(L), num_speakers,
-            )
+            if transfer_mode == "features":
+                feats16 = mfcc_host_batch(padded, cfg, cfg.num_frames(L)).astype(
+                    np.float16)
+                feats, bsum = _al._feats_and_spk_stats(
+                    torch.from_numpy(feats16).to(dev), flens_dev, spk_dev,
+                    num_speakers,
+                )
+            else:
+                feats, bsum = _al._mfcc_and_spk_stats(
+                    torch.from_numpy(padded).to(dev), flens_dev, spk_dev, cfg,
+                    cfg.num_frames(L), num_speakers,
+                )
             spk_total += bsum
             np.add.at(spk_count, spk_idx, flens.astype(np.float64))
             stashes.append((batch, flens, feats, flens_dev, spk_dev))
@@ -694,6 +712,15 @@ class Transcriber:
             return lv.xw_ckpt_bytes_per_row(S, Ne, Nc, P_pdf, g.num_p, F, RG, T)
         U = g.exit_idx.shape[0]
         V = g.p1.shape[0]
+        if K == 1:
+            # the checkpointed chain-major decode (the JAX package's route
+            # for a plain graph, which LvcsrGraphCompiler.build never
+            # returns): one float32 alpha checkpoint per _EMIT_TC frames,
+            # the junction records (ent_src i32 (V), exit_arg u8 (U),
+            # bo_arg i32) a frame and the resident pdf emissions its
+            # backtrace recomputes from
+            return T * ((self._F32 * S) // lv._EMIT_TC + self._I32 * V + U
+                        + self._I32 + emit)
         # cand_sel i16 (S,K), ent_sel i32 (V,K), bo_sel i32 (K,), exit_sel
         # i16 (U,K) a frame
         return T * (K * (self._I16 * S + self._I32 * V + self._I32
@@ -784,7 +811,9 @@ class Transcriber:
         return dev
 
     def _lvcsr_decode_device(self, ff, flens_dev, gmm):
-        """The forward pass of one batch: (kind, alpha_T, ckpts, ep)."""
+        """The forward pass of one batch: (kind, alpha_T, ckpts, ep), ``ep``
+        the chunked emissions (a chain-major graph's: its junction records
+        and the emissions)."""
         from montreal_forced_aligner_tpu_torch.transcription import lvcsr_pm as pm
 
         lv = _lvcsr_mod()
@@ -798,11 +827,22 @@ class Transcriber:
             alpha_T, ckpts = pm.lvcsr_pm_decode_ckpt_device(
                 e0, ep, d, flens_dev, g.lbp, g.ubp)
             return ("pm_ckpt", alpha_T, ckpts, ep)
-        e0, ep = lv.split_emissions(emit_pdf, lv._XW_TC)
-        del emit_pdf
-        alpha_T, ckpts = lv.lvcsr_xw_decode_ckpt_device(
-            e0, ep, d, flens_dev, g.lb, g.ub, g.num_p)
-        return ("xw_ckpt", alpha_T, ckpts, ep)
+        if isinstance(g, lv.LvcsrXwGraph):
+            e0, ep = lv.split_emissions(emit_pdf, lv._XW_TC)
+            del emit_pdf
+            alpha_T, ckpts = lv.lvcsr_xw_decode_ckpt_device(
+                e0, ep, d, flens_dev, g.lb, g.ub, g.num_p)
+            return ("xw_ckpt", alpha_T, ckpts, ep)
+        # a plain chain-major graph (the JAX package's route; no graph that
+        # LvcsrGraphCompiler.build returns takes it): the checkpointed
+        # chain-major pair, which keeps the junction records and recomputes
+        # from emit_pdf
+        alpha_T, ckpts, recs = lv.lvcsr_decode_ckpt_device(
+            emit_pdf, d["state_pdf"], flens_dev, d["band"], d["start"],
+            d["exit_idx"], d["exit_w"], d["entry_idx"], d["entry_word"],
+            d["entry_w"], d["p1"], d["bo"], d["big_pred"], d["big_w"],
+            g.lb, g.ub, cache=d)
+        return ("flat_ckpt", alpha_T, ckpts, (recs, emit_pdf))
 
     def _lvcsr_backtrace_device_dispatch(self, handle, flens_dev, T: int):
         """The backtrace of a forward pass: device (path (B, T), word_at
@@ -815,8 +855,16 @@ class Transcriber:
         if kind == "pm_ckpt":
             return pm.lvcsr_pm_backtrace_ckpt_device(
                 alpha_T, ckpts, ep, d, flens_dev, g.lbp, g.ubp, T)
-        return _lvcsr_mod().lvcsr_xw_backtrace_ckpt_device(
-            alpha_T, ckpts, ep, d, flens_dev, g.lb, g.ub, g.num_p, T)
+        if kind == "xw_ckpt":
+            return _lvcsr_mod().lvcsr_xw_backtrace_ckpt_device(
+                alpha_T, ckpts, ep, d, flens_dev, g.lb, g.ub, g.num_p, T)
+        recs, emit_pdf = ep
+        return _lvcsr_mod().lvcsr_backtrace_ckpt_device(
+            alpha_T, ckpts, recs, emit_pdf, d["state_pdf"], flens_dev,
+            d["band"], d["exit_idx"], d["exit_w"], d["eos"], d["entry_idx"],
+            d["entry_word"], d["entry_w"], d["p1"], d["bo"], d["big_pred"],
+            d["big_w"], d["entry_slot_of_state"], d["state_word"], g.lb, g.ub,
+            T, cache=d)
 
     @staticmethod
     def _lvcsr_rows(bt, flens):

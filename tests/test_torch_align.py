@@ -267,8 +267,11 @@ def test_emission_rule():
     ids=lambda k: next(iter(k)),
 )
 def test_unserved_settings_raise(mono, kwargs):
-    """``transfer_mode="features"`` raises; ``language`` (ported since the
-    host extras) builds the JAX package's composed tokenizer
+    """``transfer_mode="features"`` (ported with the transfer mode) aligns
+    at the JAX transfer test's bar against waves
+    (``tests/test_torch_transfer_mode.py`` holds the mode in full);
+    ``language`` (ported since the host extras) builds the JAX package's
+    composed tokenizer
     (``tests/test_torch_tokenization.py`` holds every language);
     ``distributed`` (ported with multi-GPU) runs, in one process on the
     CPU a mesh of one device, to the plain run's intervals
@@ -289,27 +292,47 @@ def test_unserved_settings_raise(mono, kwargs):
         for text in ("Ab a!", "ab's [laughter] ba", "aing b"):
             assert pal.tokenizer.tokenize(text) == jal.tokenizer.tokenize(text)
         return
-    with pytest.raises(NotImplementedError, match="ROADMAP|waves"):
-        PA.PretrainedAligner(model_path, dict_path, PA.AlignerConfig(**kwargs),
-                             device="cpu")
+    from test_torch_transfer_mode import jax_transfer_bar
+
+    pal = PA.PretrainedAligner(model_path, dict_path, PA.AlignerConfig(**kwargs),
+                               device="cpu")
+    got = pal.align_corpus(PCorpus.load(corpus_dir))
+    assert pal.last_transfer_mode == "features"
+    plain = PA.PretrainedAligner(model_path, dict_path, device="cpu")
+    jax_transfer_bar(plain.align_corpus(PCorpus.load(corpus_dir)), got)
 
 
 def test_g2p_and_rules_raise(mono, tmp_path):
-    """``--transfer_mode features`` raises naming its reason;
-    ``--g2p_model_path``, ``--rules_path`` and ``--language`` (the host
-    extras) and ``--distributed`` (multi-GPU; one process here) align as
-    the JAX package's CLI does (``tests/test_torch_align_g2p.py`` holds the
-    host extras in full, ``tests/test_torch_distributed.py`` the ranks)."""
+    """``--transfer_mode features`` aligns, at the JAX transfer test's bar
+    against waves; ``--g2p_model_path``, ``--rules_path`` and
+    ``--language`` (the host extras), ``--distributed`` (multi-GPU; one
+    process here) and ``--transfer_mode features`` align as the JAX
+    package's CLI does (``tests/test_torch_align_g2p.py`` holds the host
+    extras in full, ``tests/test_torch_distributed.py`` the ranks,
+    ``tests/test_torch_transfer_mode.py`` the transfer mode)."""
     from click.testing import CliRunner
 
     import montreal_forced_aligner_tpu.cli as JCLI
     from montreal_forced_aligner_tpu_torch.g2p.trainer import G2PTrainer
 
+    from montreal_forced_aligner_tpu_torch.io.textgrid import TextGrid
+
     _tmp, corpus_dir, model_path, dict_path = mono
-    for extra, item in ((["--transfer_mode", "features"], "waves"),):
-        with pytest.raises(NotImplementedError, match=item):
-            cli_main(["align", "c", str(dict_path), str(model_path), "o",
-                      "--device", "cpu", *extra])
+    for extra in (["--transfer_mode", "features"],):
+        tiers = {}
+        for mode in ("waves", "features"):
+            out = tmp_path / f"transfer_{mode}"
+            assert cli_main(["align", str(corpus_dir), str(dict_path),
+                             str(model_path), str(out), "--device", "cpu",
+                             "--transfer_mode", mode]) == 0
+            (tg,) = list(out.rglob("*.TextGrid"))
+            tiers[mode] = TextGrid.read(tg)
+        phones = {m: [iv for name, iv in g.tiers.items() if "phone" in name][0]
+                  for m, g in tiers.items()}
+        assert [i.label for i in phones["features"]] == [
+            i.label for i in phones["waves"]]
+        for a, b in zip(phones["waves"], phones["features"]):
+            assert abs(a.begin - b.begin) <= 0.011 and abs(a.end - b.end) <= 0.011
     g2p = tmp_path / "g2p.zip"
     G2PTrainer(order=3, num_alignment_iterations=2).train_from_dictionary(
         dict_path).save(g2p)
@@ -319,7 +342,8 @@ def test_g2p_and_rules_raise(mono, tmp_path):
     for i, extra in enumerate((["--language", "english"],
                                ["--g2p_model_path", str(g2p)],
                                ["--rules_path", str(rules)],
-                               ["--distributed"])):
+                               ["--distributed"],
+                               ["--transfer_mode", "features"])):
         got, want = tmp_path / f"port{i}", tmp_path / f"jax{i}"
         assert cli_main(["align", str(corpus_dir), str(dict_path), str(model_path),
                          str(got), "--device", "cpu", *extra]) == 0

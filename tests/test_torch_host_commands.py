@@ -125,14 +125,23 @@ def test_every_jax_align_option_parses():
 
 
 def test_aligner_config_resolves_to_waves(mono):
+    """"auto" resolves to waves on the CPU; "features" (ported with the
+    transfer mode) ships host features and aligns at the JAX transfer
+    test's bar against waves."""
+    from test_torch_transfer_mode import jax_transfer_bar
+
     _tmp, corpus_dir, model_path, dict_path = mono
     assert PA.AlignerConfig().transfer_mode == "auto"
     aligner = PA.PretrainedAligner(model_path, dict_path, device="cpu")
-    aligner.align_corpus(PCorpus.load(corpus_dir))
+    waves = aligner.align_corpus(PCorpus.load(corpus_dir))
     assert aligner.last_transfer_mode == "waves"
     assert PA.resolve_transfer_mode("waves") == "waves"
-    with pytest.raises(NotImplementedError, match="waves"):
-        PA.resolve_transfer_mode("features")
+    assert PA.resolve_transfer_mode("features") == "features"
+    aligner = PA.PretrainedAligner(model_path, dict_path,
+                                   PA.AlignerConfig(transfer_mode="features"),
+                                   device="cpu")
+    jax_transfer_bar(waves, aligner.align_corpus(PCorpus.load(corpus_dir)))
+    assert aligner.last_transfer_mode == "features"
 
 
 def test_evaluate_alignments_matches_jax(mono, tmp_path, capsys):

@@ -460,3 +460,275 @@ def test_longer_corpus_regates_the_cross_word_build(xw, monkeypatch):
     pt._ensure_graph(nominal_frames=long_frames)
     assert isinstance(pt._lvcsr, PPM.LvcsrPmGraph)
     assert pt.cross_word_fallback and pt._gate_frames == long_frames
+
+
+FLAT_NAMES = ("state_pdf", "band", "start", "exit_idx", "exit_w", "entry_idx",
+              "entry_word", "entry_w", "p1", "bo", "big_pred", "big_w", "eos",
+              "entry_slot_of_state", "state_word", "state0_hash")
+# the decoders' graph arguments after (emit_pdf, state_pdf, frame_lengths)
+FLAT_DECODE = ("band", "start", "exit_idx", "exit_w", "entry_idx", "entry_word",
+               "entry_w", "p1", "bo", "big_pred", "big_w")
+
+
+def _flat_pairs(mod, d, emit, flens, g, T, array):
+    """Both chain-major pairs of one package (``mod``) on the same
+    emissions: the record-based decode with its device and host
+    backtraces, the checkpointed decode with its backtrace. Returns
+    (alpha_T, recs, device rows, host rows, checkpointed rows), rows as
+    (path, word_at, score)."""
+    e, fl = array(emit), array(flens)
+    alpha_T, recs = mod.lvcsr_decode_device(
+        e, d["state_pdf"], fl, *[d[k] for k in FLAT_DECODE], g.lb, g.ub)
+    dev = mod.lvcsr_backtrace_device(
+        alpha_T, recs, fl, d["exit_idx"], d["exit_w"], d["eos"], d["entry_word"],
+        d["entry_slot_of_state"], d["big_pred"], d["state_word"], g.lb, T)
+    host = mod.lvcsr_backtrace_host(g, np.asarray(alpha_T), recs, flens, T=T)
+    a2, ck, crecs = mod.lvcsr_decode_ckpt_device(
+        e, d["state_pdf"], fl, *[d[k] for k in FLAT_DECODE], g.lb, g.ub)
+    ckpt = mod.lvcsr_backtrace_ckpt_device(
+        a2, ck, crecs, e, d["state_pdf"], fl, d["band"], d["exit_idx"],
+        d["exit_w"], d["eos"], d["entry_idx"], d["entry_word"], d["entry_w"],
+        d["p1"], d["bo"], d["big_pred"], d["big_w"], d["entry_slot_of_state"],
+        d["state_word"], g.lb, g.ub, T)
+    return alpha_T, recs, dev, host, ckpt
+
+
+def _rows_equal(dev, host, flens):
+    """Device (path, word_at, score) rows against host (path, score,
+    events) rows: paths and entered words exact, scores within 1e-4."""
+    path, word, score = (np.asarray(x) for x in dev)
+    for b, (hp, hs, he) in enumerate(host):
+        L = int(flens[b])
+        np.testing.assert_array_equal(path[b], hp)
+        assert [(t, int(w)) for t, w in enumerate(word[b, :L]) if w >= 0] == he
+        assert abs(float(score[b]) - hs) <= 1e-4
+
+
+def test_chain_major_pairs_match_jax(pm):
+    """The chain-major 1-best pairs (record-based with its device and host
+    backtraces, checkpointed) of both packages on the same pdf emissions:
+    records equal, paths and entered words exact, scores within 1e-4; and
+    within each package the three backtraces agree decision for decision."""
+    _jt, _pt, jc, pc = _compilers(_small_lm_fixture(pm, "pm_small40"),
+                                  cross_word=False)
+    jg, pg = jc.build_word_internal_legacy(), pc.build_word_internal_legacy()
+    assert pg.big_pred.shape[1] <= 127  # the JAX int8 ent_src holds here
+    P = int(pg.state_pdf.max()) + 1
+    emit, flens = _emissions(P, seed=6)
+    T = emit.shape[1]
+    pd = PL.graph_tensors(pg, FLAT_NAMES, CPU)
+    jd = {k: jnp.asarray(getattr(jg, k)) for k in FLAT_NAMES}
+    pa, precs, pdev, phost, pck = _flat_pairs(
+        PL, pd, emit, flens, pg, T, torch.from_numpy)
+    ja, jrecs, jdev, jhost, jck = _flat_pairs(
+        JL, jd, emit, flens, jg, T, jnp.asarray)
+    fin = np.asarray(ja) > -1e29
+    np.testing.assert_allclose(pa.numpy()[fin], np.asarray(ja)[fin], atol=1e-4,
+                               rtol=0)
+    for p, j in zip(precs, jrecs):
+        np.testing.assert_array_equal(p.numpy()[: T - 1],
+                                      np.asarray(j)[: T - 1].astype(p.numpy().dtype))
+    for rows in (pdev, pck, jdev, jck):
+        _rows_equal(rows, phost, flens)
+        _rows_equal(rows, jhost, flens)
+    assert sum(len(e) for _p, _s, e in phost) > 4  # the paths cross junctions
+
+
+def test_record_cross_word_pair_matches_jax(xw):
+    """The record-based cross-word pair of both packages on the same pdf
+    emissions: records equal, device and host backtraces exact against
+    each other and across packages (scores within 1e-4), and equal to the
+    port's checkpointed pair."""
+    _jt, _pt, jc, pc = _compilers(xw)
+    jg, pg = jc.build(), pc.build()
+    assert isinstance(pg, PL.LvcsrXwGraph)
+    P = int(pg.state_pdf.max()) + 1
+    emit, flens = _emissions(P, seed=7)
+    T = emit.shape[1]
+    d = PL.graph_tensors(pg, PL.XW_DEVICE_NAMES, CPU)
+    fl = torch.from_numpy(flens)
+    pa, precs = PL.lvcsr_xw_decode_device(torch.from_numpy(emit), d, fl, pg.lb,
+                                          pg.ub, pg.num_p)
+    pdev = PL.lvcsr_xw_backtrace_device(pa, precs, d, fl, pg.lb, T)
+    phost = PL.lvcsr_xw_backtrace_host(pg, pa.numpy(), [r.numpy() for r in precs],
+                                       flens, T=T)
+    jd = {k: jnp.asarray(getattr(jg, k)) for k in PL.XW_DEVICE_NAMES}
+    jfl = jnp.asarray(flens)
+    RG, F = jg.rg_mask.shape
+    ja, jrecs = JL.lvcsr_xw_decode_device(
+        jnp.asarray(emit), jd["state_pdf"], jfl, jd["band"], jd["start"],
+        jd["cell_exit_idx"], jd["cell_exit_w"], jd["bo_cell"], jd["cell_seg"],
+        jd["rg_mask"], jd["entry_state"], jd["entry_w"], jd["ebo_idx"],
+        jd["ebo_pad"], jd["p1e"], jd["se_cell"], jd["se_w"], jg.lb, jg.ub,
+        jg.num_p)
+    jdev = JL.lvcsr_xw_backtrace_device(
+        ja, jrecs, jfl, jd["fin_state"], jd["fin_w"], jd["entry_word"],
+        jd["entry_slot_of_state"], jd["se_cell"], jd["ebo_idx"],
+        jd["cell_exit_idx"], jd["state_word"], jg.lb, F, RG, T)
+    jhost = JL.lvcsr_xw_backtrace_host(jg, np.asarray(ja), jrecs, flens, T=T)
+    fin = np.asarray(ja) > -1e29
+    np.testing.assert_allclose(pa.numpy()[fin], np.asarray(ja)[fin], atol=1e-4,
+                               rtol=0)
+    for p, j in zip(precs, jrecs):
+        np.testing.assert_array_equal(p.numpy()[: T - 1], np.asarray(j)[: T - 1])
+    e0, ep = PL.split_emissions(torch.from_numpy(emit), PL._XW_TC)
+    a_T, ck = PL.lvcsr_xw_decode_ckpt_device(e0, ep, d, fl, pg.lb, pg.ub, pg.num_p)
+    pck = PL.lvcsr_xw_backtrace_ckpt_device(a_T, ck, ep, d, fl, pg.lb, pg.ub,
+                                            pg.num_p, T)
+    for rows in (pdev, pck, jdev):
+        _rows_equal(rows, phost, flens)
+        _rows_equal(rows, jhost, flens)
+    assert sum(len(e) for _p, _s, e in phost) > 4
+
+
+def _capture_decodes(monkeypatch):
+    """Record each ``Transcriber._lvcsr_decode_device`` call of the port:
+    (handle, final features, frame lengths, model)."""
+    captured = []
+    real = PT.Transcriber._lvcsr_decode_device
+
+    def spy(self, ff, flens_dev, gmm):
+        handle = real(self, ff, flens_dev, gmm)
+        captured.append((handle, ff, flens_dev, gmm))
+        return handle
+
+    monkeypatch.setattr(PT.Transcriber, "_lvcsr_decode_device", spy)
+    return captured
+
+
+@pytest.mark.parametrize("kind", ["pm", "xw"])
+def test_production_routes_match_the_reference_decoders(kind, pm, xw, monkeypatch):
+    """The port's production 1-best routes against its reference decoders
+    on the emissions of every decode of a ``transcribe`` (both passes of
+    the SAT two-pass), as the JAX package's ``test_transcription.py`` and
+    ``test_triphone.py`` hold its own: the position-major pair against the
+    chain-major pairs (scores within 1e-4, the same words at the same
+    frames; paths number states differently, so the per-frame words are
+    compared), the checkpointed cross-word pair against the record-based
+    one (paths exact). Junk words share pronunciations, and a tie between
+    homophones may break another way in the two layouts, so words compare
+    by pronunciation."""
+    fx = pm if kind == "pm" else xw
+    _tmp, corpus_dir, model_path, dict_path, _jlm, plm, _t = fx
+    captured = _capture_decodes(monkeypatch)
+    pt = PT.Transcriber(model_path, dict_path, lm=plm, batch_size=2, device="cpu")
+    pt.transcribe_corpus(PCorpus.load(corpus_dir))
+    g = pt._lvcsr
+    want = PPM.LvcsrPmGraph if kind == "pm" else PL.LvcsrXwGraph
+    assert isinstance(g, want) and len(captured) >= (1 if kind == "pm" else 2)
+    lex = pt.aligner.lexicon
+    for handle, ff, flens_dev, gmm in captured:
+        T = int(ff.shape[1])
+        flens = flens_dev.numpy()
+        prod = pt._lvcsr_backtrace_device_dispatch(handle, flens_dev, T)
+        emit = PT._lvcsr_emissions(ff, gmm, pt.acoustic_scale).numpy()
+        if kind == "pm":
+            lg = pt._legacy_flat_graph()
+            d = PL.graph_tensors(lg, FLAT_NAMES, CPU)
+            _a, _r, dev, host, ck = _flat_pairs(PL, d, emit, flens, lg, T,
+                                                torch.from_numpy)
+            _rows_equal(dev, host, flens)
+            _rows_equal(ck, host, flens)
+            pron = {v: tuple(lex.words[w][0].phones) for v, w in enumerate(g.words)}
+            path, word, score = (x.numpy() for x in prod)
+            for b, (hp, hs, he) in enumerate(host):
+                L = int(flens[b])
+                assert abs(float(score[b]) - hs) <= 1e-4
+                assert [(t, pron[int(v)]) for t, v in enumerate(word[b, :L])
+                        if v >= 0] == [(t, pron[v]) for t, v in he]
+                pw = [pron.get(int(v)) for v in g.state_word[path[b, :L]]]
+                hw = [pron.get(int(v)) for v in lg.state_word[hp[:L]]]
+                assert pw == hw
+        else:
+            d = pt._lvcsr_dev()
+            fl = torch.from_numpy(flens)
+            a_T, recs = PL.lvcsr_xw_decode_device(torch.from_numpy(emit), d, fl,
+                                                  g.lb, g.ub, g.num_p)
+            dev = PL.lvcsr_xw_backtrace_device(a_T, recs, d, fl, g.lb, T)
+            host = PL.lvcsr_xw_backtrace_host(g, a_T.numpy(),
+                                              [r.numpy() for r in recs], flens, T=T)
+            for rows in (dev, prod):
+                _rows_equal(rows, host, flens)
+
+
+def test_transcriber_chain_major_route_matches_jax(pm, monkeypatch):
+    """A plain chain-major graph decodes through the checkpointed
+    chain-major pair in both packages' ``Transcriber``: on the same final
+    features, the same transcripts, words and scores (atol 1e-3)."""
+    _tmp, corpus_dir, model_path, dict_path, jlm, plm, _t = pm
+    seed_final_feats(monkeypatch, 39)
+    jt = JT.Transcriber(model_path, dict_path, lm=jlm, batch_size=2)
+    pt = PT.Transcriber(model_path, dict_path, lm=plm, batch_size=2, device="cpu")
+    for tr, mod in ((jt, JL), (pt, PL)):
+        tr._lvcsr = mod.LvcsrGraphCompiler(
+            tr.aligner.compiler, tr.aligner.lexicon, tr.lm,
+            cross_word=False).build_word_internal_legacy()
+        tr._vocab = tr._lvcsr.words
+    captured = _capture_decodes(monkeypatch)
+    jr = jt.transcribe_corpus(JCorpus.load(corpus_dir))
+    pr = pt.transcribe_corpus(PCorpus.load(corpus_dir))
+    assert captured and all(h[0][0] == "flat_ckpt" for h in captured)
+    assert type(pt._lvcsr) is PL.LvcsrGraph
+    _same_results(jr, pr)
+
+
+def test_wide_chain_major_junction_keeps_the_source(pm):
+    """Kb > 127 on the chain-major junction: the winning seen-bigram index
+    (``ent_src``) at 199 stays 199 in the port's int32 record, and one
+    reverse step lands on that source's exit. The JAX package's int8
+    record wraps it to -57, which reads as the backoff, and its step lands
+    on the backoff's source, another word, instead (ROADMAP.md Queue 3)."""
+    tmp, _cd, model_path, dict_path, _jlm, _plm, _t = pm
+    words = [f"junk{j}" for j in range(200)]
+    texts = [f"{w} ab" for w in words] + ["ab a"] * 5
+    jlm, plm = shared_lm(tmp, texts, 2, "fanout_flat")
+    jt = JT.Transcriber(model_path, dict_path, lm=jlm)
+    pt = PT.Transcriber(model_path, dict_path, lm=plm, device="cpu")
+    jg = JL.LvcsrGraphCompiler(jt.aligner.compiler, jt.aligner.lexicon, jlm,
+                               cross_word=False).build_word_internal_legacy()
+    pg = PL.LvcsrGraphCompiler(pt.aligner.compiler, pt.aligner.lexicon, plm,
+                               cross_word=False).build_word_internal_legacy()
+    _same_graph(jg, pg)
+    v = pg.words.index("ab")
+    k_star = int(np.flatnonzero(pg.big_w[v] > -1e29).max())
+    assert pg.big_pred.shape[1] > 127 and k_star > 127
+    src_u = int(pg.big_pred[v, k_star])
+    u2 = pg.words.index("a")  # never precedes "ab": no seen bigram to it
+    assert u2 not in set(pg.big_pred[v][pg.big_w[v] > -1e29].tolist())
+    # two live exits: the source at k_star's (its word scores 0) and "a",
+    # which scores just enough to win the backoff maximum; the seen bigram
+    # from the source still beats the backoff path into "ab"
+    S = pg.num_states
+    alpha = np.full((1, S), -1.0e30, np.float32)
+    for u, score in ((src_u, 0.0), (u2, float(pg.bo[src_u] - pg.bo[u2]) + 0.01)):
+        e = int(np.flatnonzero(pg.exit_w[u] > -1e29)[0])
+        alpha[0, int(pg.exit_idx[u, e])] = score - pg.exit_w[u, e]
+    assert pg.big_w[v, k_star] > pg.bo[src_u] + 0.01 + pg.p1[v]
+    pd = PL.graph_tensors(pg, FLAT_NAMES, CPU)
+    jd = {k: jnp.asarray(getattr(jg, k)) for k in FLAT_NAMES}
+    args = ("exit_w", "bo", "big_pred", "big_w", "p1")
+    _pv, (p_src, p_exit, p_bo) = PL._flat_junction(
+        torch.from_numpy(alpha), pd["exit_idx"].reshape(-1),
+        *[pd[k] for k in args], True)
+    _jv, j_src, j_exit, j_bo = JL._flat_junction(
+        jnp.asarray(alpha), jd["exit_idx"].reshape(-1), *[jd[k] for k in args],
+        True)
+    assert p_src.dtype == torch.int32 and int(p_src[0, v]) == k_star
+    assert int(np.asarray(j_src)[0, v]) == k_star - 256 < 0
+    # one reverse step from the word's entry state, the junction won there
+    s = torch.tensor([int(pg.entry_idx[int(np.flatnonzero(pg.entry_word == v)[0])])])
+    bp = torch.full((1, S), 0x80, dtype=torch.uint8)
+    p_s, p_w = PL._flat_bstep(torch.tensor([10]), pd["entry_slot_of_state"],
+                              pd["entry_word"], pd["big_pred"], pd["exit_idx"],
+                              pg.lb, s, (bp, p_src, p_exit, p_bo), 3)
+    assert int(p_s[0]) == int(pg.exit_idx[src_u, int(p_exit[0, src_u])])
+    assert int(p_w[0]) == v
+    jstep = JL._make_flat_bstep(jnp.asarray([10]), jd["entry_slot_of_state"],
+                                jd["entry_word"], jd["big_pred"], jd["exit_idx"],
+                                jg.lb, 1)
+    j_s, (_s, j_w) = jstep(jnp.asarray([int(s[0])]), (
+        jnp.asarray(bp.numpy()), j_src, j_exit, j_bo, 3))
+    j_u = int(np.asarray(j_bo)[0])
+    assert j_u == u2 == int(p_bo[0])  # the backoff's source is the other word
+    assert int(j_s[0]) == int(pg.exit_idx[u2, int(np.asarray(j_exit)[0, u2])])
+    assert int(j_s[0]) != int(p_s[0])

@@ -320,3 +320,145 @@ def test_host_label_helpers_match_jax(graph_pair):
     np.testing.assert_array_equal(
         PV.frame_tids_host(pg, path, flens), JV.frame_tids_host(jg, path, flens)
     )
+
+
+# -- the JAX package's ops without a counterpart before: each against the JAX
+# function on the same seeded inputs, rtol 1e-5 --------------------------------
+
+
+def _close(got, want, rtol=1e-5, atol=0.0):
+    np.testing.assert_allclose(np.asarray(got), np.asarray(want), rtol=rtol,
+                               atol=atol)
+
+
+def test_ops_exports_match_jax():
+    import montreal_forced_aligner_tpu.ops as JO
+    import montreal_forced_aligner_tpu_torch.ops as PO
+
+    assert set(JO.__all__) <= set(PO.__all__)
+    assert {"accumulate_cmvn_stats", "apply_cmvn"} <= set(PO.__all__)
+    for name in PO.__all__:
+        assert getattr(PO, name).__module__.startswith(
+            "montreal_forced_aligner_tpu_torch.ops.")
+
+
+@pytest.mark.parametrize("norm_vars", [False, True])
+def test_cmvn_stats_and_apply_match_jax(norm_vars):
+    feats, _fl = _feats(seed=4, B=5, T=23)
+    # every speaker with frames has several: a one-frame speaker's variance
+    # is a cancellation to zero, whose float32 rounding is noise
+    flens = np.array([23, 7, 19, 4, 12], np.int32)
+    spk = np.array([2, 0, 2, 1, 0], np.int32)
+    # the JAX function's body, run eagerly: under its ``jax.jit`` the
+    # speaker count is traced, and ``segment_sum`` needs it static
+    want = JF.accumulate_cmvn_stats.__wrapped__(
+        jnp.asarray(feats), jnp.asarray(flens), jnp.asarray(spk), 4)
+    got = PF.accumulate_cmvn_stats(_t(feats), _t(flens), _t(spk), 4)
+    for g, w in zip(got, want):
+        _close(g, w, atol=1e-4)  # sums of up to 42 frames
+    assert float(got[2][3]) == 0.0  # an idle speaker sums nothing
+    out_j = JF.apply_cmvn(jnp.asarray(feats), jnp.asarray(spk), *want,
+                          norm_vars=norm_vars)
+    out_p = PF.apply_cmvn(_t(feats), _t(spk), *(_t(np.asarray(w)) for w in want),
+                          norm_vars=norm_vars)
+    _close(out_p, out_j, atol=1e-5)
+
+
+def test_gmm_state_loglikes_and_gather_match_jax():
+    from montreal_forced_aligner_tpu.ops.gmm_loglikes import (
+        gather_state_params as j_gather,
+        gmm_state_loglikes as j_state,
+    )
+    from montreal_forced_aligner_tpu_torch.ops.gmm_loglikes import (
+        gather_state_params as p_gather,
+        gmm_state_loglikes as p_state,
+    )
+
+    rng = np.random.RandomState(9)
+    P, G, D, B, S, T = 7, 3, 13, 2, 11, 9
+    miv = rng.randn(P, G, D).astype(np.float32)
+    iv = (0.5 + rng.rand(P, G, D)).astype(np.float32)
+    gc = (-10.0 + rng.randn(P, G)).astype(np.float32)
+    gc[1, 2] = -np.inf  # a padded Gaussian
+    state_pdf = rng.randint(0, P, (B, S)).astype(np.int32)
+    feats = rng.randn(B, T, D).astype(np.float32)
+    jp = j_gather((jnp.asarray(miv), jnp.asarray(iv), jnp.asarray(gc)),
+                  jnp.asarray(state_pdf))
+    pp = p_gather((_t(miv), _t(iv), _t(gc)), _t(state_pdf))
+    for g, w in zip(pp, jp):
+        np.testing.assert_array_equal(g.numpy(), np.asarray(w))
+    want = j_state(jnp.asarray(feats), *jp)
+    got = p_state(_t(feats), *pp)
+    assert got.shape == (B, T, S)
+    _close(got, want)
+
+
+def test_apply_split_schedule_matches_jax():
+    import montreal_forced_aligner_tpu.ops.device_update as JD
+    import montreal_forced_aligner_tpu_torch.ops.device_update as PD
+
+    rng = np.random.RandomState(11)
+    P, G, D, G_new = 4, 2, 5, 4
+    iv = (0.5 + rng.rand(P, G, D)).astype(np.float32)
+    miv = (rng.randn(P, G, D) * iv).astype(np.float32)
+    num_gauss = np.array([2, 3, 4, 1], np.int32)
+    weights = np.zeros((P, G_new), np.float32)
+    for p, n in enumerate(num_gauss):
+        weights[p, :n] = 1.0 / n
+    pdf_idx = np.array([1, 2, 2, 2, 0], np.int32)
+    dst_idx = np.array([2, 2, 3, 0, 1], np.int32)
+    origin_idx = np.array([0, 1, 1, 1, 1], np.int32)
+    delta = (rng.randn(5, D) * 0.1).astype(np.float32)
+    delta[4] = 0.0  # a pure copy
+    args = (miv, iv, weights, num_gauss, pdf_idx, dst_idx, origin_idx, delta)
+    want = JD.apply_split_schedule_device(*(jnp.asarray(a) for a in args),
+                                          new_max_gauss=G_new)
+    got = PD.apply_split_schedule_device(*(_t(a) for a in args),
+                                         new_max_gauss=G_new)
+    for g, w in zip(got, want):
+        assert g.shape == w.shape
+        fin = np.isfinite(np.asarray(w))
+        np.testing.assert_array_equal(np.isfinite(g.numpy()), fin)
+        _close(g.numpy()[fin], np.asarray(w)[fin])
+
+
+def test_solve_fmllr_matches_jax_and_the_batched_sweeps():
+    """The one-speaker solve against the JAX package's (the same float64
+    row sweeps, 1e-5), and the port's batched solve (native and its numpy
+    plain version) against it, at the JAX package's own bar for that pair
+    (``tests/test_components.py``: rtol/atol 2e-4, the batched form updates
+    its cofactors by Sherman-Morrison)."""
+    from montreal_forced_aligner_tpu.ops.transforms import solve_fmllr as j_solve
+    from montreal_forced_aligner_tpu_torch.ops.transforms import (
+        _solve_fmllr_batched_numpy,
+        solve_fmllr,
+        solve_fmllr_batched,
+    )
+
+    rng = np.random.RandomState(7)
+    S, D, NG = 3, 13, 4
+    E = D + 1
+    K = np.zeros((S, D, E))
+    G = np.zeros((S, D, E, E))
+    beta = np.zeros(S)
+    for s in range(S):
+        n = 600 + 50 * s
+        x = rng.randn(n, D) * (1.0 + 0.2 * s) + 0.4 * (s + 1)
+        mus = rng.randn(NG, D) * 2.0
+        ivs = 1.0 / (0.5 + rng.rand(NG, D))
+        xp = np.hstack([x, np.ones((n, 1))])
+        post = rng.rand(n, NG)
+        post /= post.sum(axis=1, keepdims=True)
+        K[s] = np.einsum("ng,gd,ne->de", post, ivs * mus, xp)
+        G[s] = np.einsum("gd,gef->def", ivs, np.einsum("ng,ne,nf->gef", post, xp, xp))
+        beta[s] = post.sum()
+    native = solve_fmllr_batched(K, G, beta)
+    plain = _solve_fmllr_batched_numpy(K, G, beta)
+    for s in range(S):
+        got = solve_fmllr(K[s], G[s], float(beta[s]), min_count=0.0)
+        want = j_solve(K[s], G[s], float(beta[s]), min_count=0.0)
+        assert got.dtype == np.float32
+        _close(got, want, atol=1e-6)
+        for batched in (native, plain):
+            np.testing.assert_allclose(batched[s], got, rtol=2e-4, atol=2e-4)
+    assert solve_fmllr(K[0], G[0], 10.0, min_count=100.0) is None

@@ -1,6 +1,7 @@
 """``chip_smoke.py``'s adapt, graph-compile, pitch, fine-tune,
-transcription, segmentation, G2P and multi-GPU (with ``MFA`` and the parity
-harness) phases at a tiny size on the CPU, where
+transcription, segmentation, G2P, multi-GPU (with ``MFA`` and the parity
+harness), transfer-features, pitch-paths and lvcsr-chain-major phases at a
+tiny size on the CPU, where
 every kernel wrapper takes its plain version (so no launches are counted):
 their reports, checks and the kernels line with adapt's, the dense
 decode's and g2p-align's launches and checks."""
@@ -313,3 +314,57 @@ def test_distributed_phases_run_on_cpu(fixture, tmp_path):
     line = chip_smoke.kernels_line(checks, zero, {"dryrun": by_rank})
     for row in line["kernels"]:
         assert row["launches_by_path"] == {"dryrun": [0, 0]}
+
+
+def test_transfer_pitch_and_chain_major_phases_run_on_cpu(fixture, tmp_path,
+                                                          monkeypatch,
+                                                          one_torch_thread):
+    """transfer-features, pitch-paths and lvcsr-chain-major at a tiny size:
+    features against waves and card (here the CPU) against the CPU, the
+    pitch recipe's 40 x 112 LDA and its paths, the production LVCSR routes
+    against the chain-major and record-based decoders; the LVCSR threshold
+    is lowered so the tiny vocabulary routes there."""
+    import montreal_forced_aligner_tpu_torch.transcription.transcriber as PT
+
+    _tmp, model_path, dict_path, corpus_dir, _audio_s, small_dir, *_ = fixture
+    cpu = torch.device("cpu")
+    words = [l.split()[0] for l in Path(dict_path).read_text().splitlines()]
+    lm = chip_smoke.transcription_lms(words, n_words=8)[0]
+    transfer = chip_smoke.transfer_features_phase(
+        model_path, dict_path, corpus_dir, small_dir, small_dir, lm, tmp_path, cpu,
+        batch_size=4)
+    assert transfer["auto_resolves_to"] == "waves" and transfer["probe_MBps"] is None
+    assert len(transfer["batches"]) == 2
+    b = transfer["batches"][0]
+    assert b["features_bytes"] == b["B"] * b["T"] * 13 * 2
+    assert transfer["sat-2pass"]["against_waves"]["same_phone_sequences"] <= 6
+    assert all(b["max_err_over_f16_bound"] <= 1.0 for b in transfer["batches"])
+    assert transfer["sat-2pass"]["tone_mono_against_waves"]["utterances"] == 14
+    assert transfer["sat-2pass"]["card_vs_cpu"]["frame_agreement"] == 1.0
+    assert transfer["sat-2pass"]["launches"] == {
+        "band_forward": 0, "band_backtrace": 0, "state_emission": 0}
+    assert transfer["transcribe-dense"]["utterances"] == 3
+    recipe = [("monophone", "mono", 2, 40, 0), ("triphone", "tri", 3, 64, 48),
+              ("lda", "lda", 3, 64, 48), ("sat", "sat", 3, 64, 48)]
+    pitch = chip_smoke.pitch_paths_phase(dict_path, tmp_path, cpu, recipe=recipe,
+                                         batch_size=4, require_k3=False,
+                                         corpus_size=(6, 2.0, 3.0))
+    assert pitch["recipe"]["lda_mat"] == [40, 112]
+    assert pitch["align"]["utterances"] == 6
+    assert pitch["adapt"]["means_rel_err"] == {"final": 0.0,
+                                               "speaker_independent": 0.0}
+    assert pitch["adapt"]["transforms_max_abs_diff"] == 0.0
+    assert pitch["adapt"]["pitch_cpu_max_abs_diff"] == 0.0
+    assert pitch["fine_tune"]["card_vs_cpu_max_boundary_diff_s"] == 0.0
+    assert pitch["fine_tune"]["moved_off_grid"] > 0
+    assert pitch["long_path"]["utterances"] == 4
+    for label in ("single_pass", "two_pass"):
+        assert pitch["long_path"][label]["against_corpus_path"][
+            "frame_agreement"] == 1.0
+    monkeypatch.setattr(PT.Transcriber, "LVCSR_WORD_THRESHOLD", 4)
+    corpus_lm = chip_smoke.corpus_lm(model_path, dict_path, corpus_dir)
+    chain = chip_smoke.lvcsr_chain_major_phase(model_path, dict_path, small_dir,
+                                               corpus_lm, cpu)
+    assert chain["utterances"] == 3 and chain["rows"] >= 1
+    assert chain["cross_word"]["ckpt_vs_host_score_diff"] <= 1e-4
+    assert chain["word_internal"]["position_major_vs_host_score_diff"] <= 1e-4
