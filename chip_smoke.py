@@ -2414,6 +2414,16 @@ def graph_compile_phase(mono_trainer, mono_corpus, model_path, dict_path, corpus
     }
 
 
+def padded_waves(waves):
+    """Waves of any lengths in one zero-padded float32 buffer, and their
+    lengths."""
+    lens = np.array([len(w) for w in waves], np.int32)
+    buf = np.zeros((len(waves), int(lens.max())), np.float32)
+    for r, w in enumerate(waves):
+        buf[r, : len(w)] = w
+    return buf, lens
+
+
 def pitch_phase(corpus_dir, dict_path, small_dir, audio_s, device, batch_size=32):
     """One cold train-mono with ``use_pitch`` (synchronised at each phase:
     pitch is part of its features phase), the pitch features of the corpus
@@ -2445,31 +2455,24 @@ def pitch_phase(corpus_dir, dict_path, small_dir, audio_s, device, batch_size=32
     _check(trainer.feature_meta()["pitch"] and ta.pipeline.feature_dim == 48,
            "train-mono with pitch: no pitch in its features")
 
-    def padded(waves):
-        lens = np.array([len(w) for w in waves], np.int32)
-        buf = np.zeros((len(waves), int(lens.max())), np.float32)
-        for r, w in enumerate(waves):
-            buf[r, : len(w)] = w
-        return buf, lens
-
     waves = Corpus.load(corpus_dir).load_audio_parallel(16000)
     order = np.argsort([len(w) for w in waves], kind="stable")
     _sync(device)
     t0 = time.perf_counter()
     for i in range(0, len(order), batch_size):
-        buf, lens = padded([waves[j] for j in order[i : i + batch_size]])
+        buf, lens = padded_waves([waves[j] for j in order[i : i + batch_size]])
         PP.compute_pitch_batch(buf, lens, device=device)
     corpus_pitch_s = time.perf_counter() - t0
 
     cfg = PP.PitchConfig()
-    buf, lens = padded(Corpus.load(small_dir).load_audio_parallel(16000))
+    buf, lens = padded_waves(Corpus.load(small_dir).load_audio_parallel(16000))
     ds, ds_len = PP._resample_batch(buf, lens, cfg)
     shift = int(cfg.resample_rate * cfg.frame_shift_ms / 1000)
     window = int(cfg.resample_rate * cfg.frame_length_ms / 1000)
     T = int(((ds_len - window) // shift + 1).max())
     cpu = torch.device("cpu")
-    nccf = [PP._nccf(torch.from_numpy(ds).to(d), window, shift, T,
-                     int(cfg.lags.max()), cfg.nccf_ballast)
+    nccf = [PP._nccf(torch.from_numpy(ds).to(d), torch.from_numpy(ds_len).to(d),
+                     window, shift, T, int(cfg.lags.max()), cfg.nccf_ballast)
             for d in (device, cpu)]
     nccf_err = float((nccf[0].cpu() - nccf[1]).abs().max())
     _check(nccf_err <= 1e-4, f"pitch: NCCF card against CPU {nccf_err}")
@@ -4842,8 +4845,9 @@ def pitch_paths_phase(dict_path, out_dir, device, recipe=PITCH_RECIPE, batch_siz
     utterances the card against the CPU within 1 ms; the long path on 4
     utterances of one speaker each (so both paths estimate CMVN and fMLLR
     from the same frames) with ``LONG_UTTERANCE_FRAMES`` lowered, against
-    the corpus path at one utterance a batch, single- and two-pass at the
-    parity bar; launches by the long path's formula."""
+    the corpus path at ``batch_size``, single- and two-pass at the parity
+    bar; launches by the long path's formula; and
+    :func:`pitch_batch_invariance` on the corpus and the 8 utterances."""
     import montreal_forced_aligner_tpu_torch.align.fine_tune as FT
     import montreal_forced_aligner_tpu_torch.online.alignment as online_mod
     from montreal_forced_aligner_tpu_torch.align.aligner import (
@@ -4962,15 +4966,11 @@ def pitch_paths_phase(dict_path, out_dir, device, recipe=PITCH_RECIPE, batch_siz
     _got, tune_diff, tune_pitch = _fine_tune_card_vs_cpu(path, dict_path, small_dir,
                                                         device)
 
-    # one utterance a batch: a row's pitch depends on its batch (the lag
-    # Viterbi backtraces every row from the batch's last frame, in both
-    # packages, ROADMAP Queue 3), and the long path computes each
-    # utterance's alone
     long_path = {}
     n_single = Corpus.load(single_dir).num_utterances
     for label, adaptation in (("single_pass", False), ("two_pass", True)):
         single = PretrainedAligner(path, dict_path, AlignerConfig(
-            batch_size=1, uses_speaker_adaptation=adaptation), device=device)
+            batch_size=batch_size, uses_speaker_adaptation=adaptation), device=device)
         want_res = single.align_corpus(Corpus.load(single_dir))
         rec = CallRecorder(online_mod, "viterbi_align_long", device)
         limit, chunk = online_mod.LONG_UTTERANCE_FRAMES, LV.CHUNK_FRAMES
@@ -4994,6 +4994,10 @@ def pitch_paths_phase(dict_path, out_dir, device, recipe=PITCH_RECIPE, batch_siz
                f"pitch long path launches {long_launches}, expected {long_want}")
         long_path[label] = {"wall_s": long_wall, "launches": long_launches,
                             "against_corpus_path": parity(got_res, want_res, 0.01)}
+    t0 = time.perf_counter()
+    invariance = pitch_batch_invariance(path, dict_path, corpus_dir, small2_dir,
+                                        device, batch_size)
+    invariance["wall_s"] = time.perf_counter() - t0
     return {
         "path": "pitch-paths",
         "corpus": {"utterances": n_utts, "audio_s": audio_s},
@@ -5010,7 +5014,122 @@ def pitch_paths_phase(dict_path, out_dir, device, recipe=PITCH_RECIPE, batch_siz
                       "max_move_from_10ms_s": worst, "moved_off_grid": moved,
                       "card_vs_cpu_max_boundary_diff_s": tune_diff, **tune_pitch},
         "long_path": {"utterances": n_single, **long_path},
+        "batch_invariance": invariance,
     }
+
+
+def pitch_batch_invariance(model_path, dict_path, corpus_dir, align_dir, device,
+                           batch_size=32):
+    """**pitch_batch_invariance**: each utterance's pitch is its own,
+    whatever is batched beside it. ``compute_pitch_batch`` of the corpus at
+    ``corpus_dir`` in batches of ``batch_size`` (corpus order, so lengths
+    mix) against one utterance at a time: lag paths equal on every row,
+    features within atol 1e-5, the largest difference reported; and the
+    pitch archive at ``model_path`` aligning the utterances of
+    ``align_dir`` in one batch against one utterance a batch
+    (:func:`batch_size_alignment`): intervals equal, single pass scores
+    within 0.01 nats, two-pass scores within 1e-4 of the largest plus
+    1e-3."""
+    from montreal_forced_aligner_tpu_torch.corpus.corpus import Corpus
+    from montreal_forced_aligner_tpu_torch.ops import pitch as PP
+
+    waves = Corpus.load(corpus_dir).load_audio_parallel(16000)
+    paths = []
+    real = PP._viterbi_lags
+
+    def keep_path(*args):
+        paths.append(real(*args))
+        return paths[-1]
+
+    PP._viterbi_lags = keep_path
+    try:
+        alone = []
+        _sync(device)
+        t0 = time.perf_counter()
+        for w in waves:
+            feats, n = PP.compute_pitch_batch(np.asarray(w, np.float32)[None],
+                                              np.array([len(w)]), device=device)
+            alone.append((feats[0], int(n[0]), paths[-1][0]))
+        alone_s = time.perf_counter() - t0
+        batched = []
+        t0 = time.perf_counter()
+        for lo in range(0, len(waves), batch_size):
+            buf, lens = padded_waves(waves[lo : lo + batch_size])
+            feats, n = PP.compute_pitch_batch(buf, lens, device=device)
+            batched += [(feats[r], int(n[r]), paths[-1][r]) for r in range(len(lens))]
+        batched_s = time.perf_counter() - t0
+    finally:
+        PP._viterbi_lags = real
+    worst = 0.0
+    bad = []
+    for i, ((fa, na, pa), (fb, nb, pb)) in enumerate(zip(alone, batched)):
+        _check(na == nb and not fb[nb:].any(),
+               f"pitch of utterance {i}: {nb} frames in a batch, {na} alone")
+        if not np.array_equal(pb[:na], pa):
+            bad.append(i)
+        worst = max(worst, float(np.abs(fb[:na] - fa).max()))
+    _check(not bad, f"pitch: lag paths of utterances {bad[:5]} depend on the batch")
+    _check(worst <= 1e-5, f"pitch: features {worst} from their features alone")
+
+    aligned = batch_size_alignment(model_path, dict_path, align_dir, device)
+    for label, a in aligned.items():
+        _check(a["intervals_differ"] == 0,
+               f"pitch align {label}: intervals of {a['intervals_differ']} "
+               "utterances depend on the batch")
+    single = aligned["single_pass"]["max_score_diff"]
+    _check(single <= 0.01, f"pitch align single pass: scores {single} nats apart")
+    # the two-pass's fMLLR statistics are float32 sums in batch order: its
+    # scores move with the batches by ~1e-5 of a score, pitch or not
+    # (``align_without_pitch`` beside this line)
+    two = aligned["two_pass"]
+    _check(two["max_score_diff"] <= 1e-4 * two["max_score"] + 1e-3,
+           f"pitch align two-pass: scores {two['max_score_diff']} nats apart")
+    return {
+        "pitch": {"utterances": len(waves), "batch_size": batch_size,
+                  "frames": sum(n for _f, n, _p in alone),
+                  "rows_with_equal_lag_paths": len(alone) - len(bad),
+                  "features_max_abs_diff": worst,
+                  "one_at_a_time_s": alone_s, "batched_s": batched_s},
+        "align": aligned,
+    }
+
+
+def batch_size_alignment(model_path, dict_path, corpus_dir, device):
+    """The archive at ``model_path`` aligning the utterances of
+    ``corpus_dir`` in one batch against one utterance a batch, two-pass and
+    single pass (the speaker-independent model): per mode, the utterances
+    whose intervals differ, the largest score difference and the largest
+    score's magnitude. The two-pass's fMLLR statistics are float32 sums in
+    batch order, so its scores move with the batches in the last bits
+    with or without pitch."""
+    from montreal_forced_aligner_tpu_torch.align.aligner import (
+        AlignerConfig,
+        PretrainedAligner,
+    )
+    from montreal_forced_aligner_tpu_torch.corpus.corpus import Corpus
+
+    def intervals(a):
+        return ([(p.label, p.begin, p.end) for p in a.phones],
+                [(w.label, w.begin, w.end) for w in a.words])
+
+    n = Corpus.load(corpus_dir).num_utterances
+    out = {}
+    for label, adaptation in (("two_pass", True), ("single_pass", False)):
+        runs = {}
+        for bs in (n, 1):
+            aligner = PretrainedAligner(model_path, dict_path, AlignerConfig(
+                batch_size=bs, uses_speaker_adaptation=adaptation), device=device)
+            runs[bs] = aligner.align_corpus(Corpus.load(corpus_dir))
+        got, want = runs[n], runs[1]
+        _check(sorted(got) == sorted(want), "different utterances")
+        out[label] = {
+            "batch_size": n, "against_batch_size": 1, "utterances": len(want),
+            "intervals_differ": sum(intervals(got[i]) != intervals(want[i])
+                                    for i in want),
+            "max_score_diff": max(abs(got[i].log_likelihood - want[i].log_likelihood)
+                                  for i in want),
+            "max_score": max(abs(a.log_likelihood) for a in want.values())}
+    return out
 
 
 # the graph arrays of the chain-major decoders, and their arguments after
@@ -5426,7 +5545,13 @@ def main() -> int:
                                            device, cpu_refs=transfer_cpu.result())
         _emit({"main_path": transfer})
         pitch_paths = pitch_paths_phase(dict_path, tmp, device)
+        invariance = pitch_paths.pop("batch_invariance")
         _emit({"main_path": pitch_paths})
+        # the same batch sizes without pitch: what the two-pass's float32
+        # fMLLR sums move by themselves
+        invariance["align_without_pitch"] = batch_size_alignment(
+            model_path, dict_path, small2_dir, device)
+        _emit({"pitch_batch_invariance": invariance})
         chain = lvcsr_chain_major_phase(model_path, dict_path, small_dir, lvcsr_lm,
                                         device)
         _emit({"main_path": chain})

@@ -191,24 +191,20 @@ def _fine_tune_local(
     dev = aligner.device
     # a pitch model's pitch at the fine-tune's 1 ms grid, each window's
     # computed on its own samples as the reference computes each segment's
-    # features; windows go through pitch in batches of one wave length, so
-    # no row is padded and none depends on its batch (ROADMAP Queue 3)
+    # features (a row's pitch does not depend on the rows batched with it)
     window_pitch: Dict[int, np.ndarray] = {}
     if aligner.use_pitch:
         pitch_cfg = PitchConfig(frame_shift_ms=1.0)
-        by_len: Dict[int, List[int]] = {}
-        for j in jobs:
-            by_len.setdefault(len(waves[j.graph_index]), []).append(j.graph_index)
-        for n, idx in sorted(by_len.items()):
-            T = fine_cfg.num_frames(n)
-            for lo in range(0, len(idx), batch_size):
-                part = idx[lo : lo + batch_size]
-                out = pitch_for_mfcc_frames(
-                    np.stack([waves[g] for g in part]).astype(np.float32),
-                    np.full(len(part), n, np.int32), np.full(len(part), T, np.int32),
-                    T, pitch_cfg, device=dev,
-                )
-                window_pitch.update(zip(part, out))
+        for lo in range(0, len(jobs), batch_size):
+            part = [j.graph_index for j in jobs[lo : lo + batch_size]]
+            lens = np.array([len(waves[g]) for g in part], np.int32)
+            buf = np.zeros((len(part), int(lens.max())), np.float32)
+            for r, g in enumerate(part):
+                buf[r, : lens[r]] = waves[g]
+            counts = np.array([fine_cfg.num_frames(int(n)) for n in lens], np.int32)
+            out = pitch_for_mfcc_frames(buf, lens, counts, int(counts.max()),
+                                        pitch_cfg, device=dev)
+            window_pitch.update((g, out[r, : counts[r]]) for r, g in enumerate(part))
     # the final model with the aligner's silence boost, whichever model
     # aligned the corpus (the reference package's fine-tune reads it too)
     gmm = aligner._prepare_gmm()

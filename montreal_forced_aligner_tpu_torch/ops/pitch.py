@@ -16,6 +16,15 @@ normalized-log-pitch, delta-pitch}). The same four steps:
    ``jnp.argmax`` breaks them), backtraced on the host,
 4. POV (probability-of-voicing) and normalized log-pitch features (host
    numpy).
+
+Each row's pitch is its own: ``compute_pitch_batch`` returns for row
+``b``, over its ``frame_counts[b]`` frames, what it returns for that row
+alone in a batch of one, whatever the other rows and ``max_frames`` are.
+The NCCF clamps a row's samples at its own end, the Viterbi keeps a row's
+scores at its last frame and backtraces it from there, and delta-pitch
+reads nothing past it. (The JAX package clamps at the padded buffer's end
+and backtraces every row from the batch's last frame, so there a row's
+pitch depends on its batch; in a batch of one the two agree.)
 """
 
 from __future__ import annotations
@@ -75,12 +84,13 @@ def _resample_batch(waves: np.ndarray, lengths: np.ndarray, cfg: PitchConfig):
 
 
 def _nccf(
-    waves: torch.Tensor, window: int, shift: int, max_frames: int, max_lag: int,
-    ballast: float,
+    waves: torch.Tensor, lengths: torch.Tensor, window: int, shift: int,
+    max_frames: int, max_lag: int, ballast: float,
 ) -> torch.Tensor:
     """NCCF(t, lag) for all frames/lags: (B, T, max_lag + 1) float32 (lag 0
-    unused). Frame t at lag l reads samples t*shift + l + k, k < window,
-    clamped to the wave."""
+    unused). Frame t at lag l reads samples t*shift + l + k, k < window, of
+    its row, clamped to the row's last sample ``lengths[b] - 1`` (so a row
+    reads what it reads alone, whatever it is padded to)."""
     B, L = waves.shape
     dev = waves.device
     waves = waves.to(torch.float32)
@@ -90,6 +100,9 @@ def _nccf(
         0, L - 1,
     )
     ext = waves[:, idx]  # (B, T, window + max_lag)
+    last = (lengths.to(device=dev, dtype=torch.long) - 1).clamp(min=0)
+    edge = waves.gather(1, last[:, None])  # (B, 1): each row's last sample
+    ext = torch.where(idx[None] > last[:, None, None], edge[:, :, None], ext)
     base = ext[..., :window]
     base = base - base.mean(dim=-1, keepdim=True)
     e1 = torch.sum(base * base, dim=-1)  # (B, T)
@@ -116,20 +129,31 @@ def _first_argmax(x: torch.Tensor, dim: int) -> Tuple[torch.Tensor, torch.Tensor
 
 
 def _viterbi_lags(nccf_sel: torch.Tensor, log_lags: torch.Tensor, penalty: float,
-                  num_lags: int) -> np.ndarray:
+                  num_lags: int, frame_counts: np.ndarray) -> np.ndarray:
     """Max-plus DP over lag candidates with octave-jump penalty:
     score[t, l] = nccf[t, l] - penalty * (log lag_l - log lag_prev)^2.
-    Returns the (B, T) int32 lag-index path on the host."""
+    One step a frame for the whole batch. Each row's alpha is kept at its
+    own last frame ``frame_counts[b] - 1`` and its backtrace starts there
+    (the steps past it run but are never read; the path past it repeats
+    that frame's lag). Returns the (B, T) int32 lag-index path on the
+    host."""
     B, T, D = nccf_sel.shape
+    dev = nccf_sel.device
     trans = -penalty * (log_lags[:, None] - log_lags[None, :]) ** 2  # (D, D)
+    last = np.asarray(frame_counts, np.int64) - 1
+    ending = {int(t): torch.from_numpy(np.flatnonzero(last == t)).to(dev)
+              for t in np.unique(last) if t > 0}
     alpha = nccf_sel[:, 0, :]
+    final = alpha.clone()  # each row's alpha at its last frame
     bps = []
     for t in range(1, T):
         cand = alpha[:, :, None] + trans[None, :, :]
         best, bp = _first_argmax(cand, 1)
         alpha = best + nccf_sel[:, t, :]
         bps.append(bp.to(torch.int32))
-    _, best_T = _first_argmax(alpha, 1)
+        if t in ending:
+            final[ending[t]] = alpha[ending[t]]
+    _, best_T = _first_argmax(final, 1)
     state = best_T.cpu().numpy().astype(np.int32)
     path = np.empty((B, T), np.int32)
     path[:, T - 1] = state
@@ -137,7 +161,7 @@ def _viterbi_lags(nccf_sel: torch.Tensor, log_lags: torch.Tensor, penalty: float
         bp_host = torch.stack(bps).cpu().numpy()  # (T - 1, B, D)
         rows = np.arange(B)
         for t in range(T - 2, -1, -1):
-            state = bp_host[t, rows, state]
+            state = np.where(t < last, bp_host[t, rows, state], state)
             path[:, t] = state
     return path
 
@@ -160,11 +184,14 @@ def compute_pitch_batch(
     shift = int(cfg.resample_rate * cfg.frame_shift_ms / 1000)
     window = int(cfg.resample_rate * cfg.frame_length_ms / 1000)
     frame_counts = np.maximum((ds_len - window) // shift + 1, 1)
-    T = int(frame_counts.max()) if max_frames is None else max_frames
+    # every row runs to its own end, also where ``max_frames`` cuts it
+    T_out = int(frame_counts.max()) if max_frames is None else max_frames
+    T = max(T_out, int(frame_counts.max()))
     lags = cfg.lags
     max_lag = int(lags.max())
     nccf = _nccf(
-        torch.from_numpy(ds).to(dev), window, shift, T, max_lag, cfg.nccf_ballast
+        torch.from_numpy(ds).to(dev), torch.from_numpy(ds_len).to(dev), window,
+        shift, T, max_lag, cfg.nccf_ballast,
     )  # (B, T, max_lag+1)
     nccf_sel = nccf[:, :, torch.from_numpy(lags).long().to(dev)].cpu().numpy()
     # soft-min-f0: discourage long lags so subharmonics (octave-down errors)
@@ -176,7 +203,8 @@ def compute_pitch_batch(
     log_lags = torch.from_numpy(
         np.log(lags.astype(np.float64)).astype(np.float32)
     ).to(dev)
-    path = _viterbi_lags(nccf_adj, log_lags, cfg.penalty_factor, len(lags))
+    path = _viterbi_lags(nccf_adj, log_lags, cfg.penalty_factor, len(lags),
+                         frame_counts)
     nccf_best = np.take_along_axis(nccf_sel, path[:, :, None], axis=2)[:, :, 0]
     f0 = cfg.resample_rate / lags[path]  # (B, T)
 
@@ -195,19 +223,22 @@ def compute_pitch_batch(
         feats.append(pov_feature)
     if cfg.add_normalized_log_pitch:
         # mean-subtracted log pitch weighted by POV (approximates Kaldi's
-        # online POV-weighted mean normalization over the utterance)
-        w = np.where(mask, (pov_feature + 1.0) / 2.0 + 1e-3, 0.0)
-        mean = (log_pitch * w).sum(axis=1, keepdims=True) / w.sum(
-            axis=1, keepdims=True
-        )
-        feats.append(log_pitch - mean)
+        # online POV-weighted mean normalization over the utterance); each
+        # row's sums run over its own frames, in the order they run alone
+        w = (pov_feature + 1.0) / 2.0 + 1e-3
+        mean = np.array([(log_pitch[b, :n] * w[b, :n]).sum() / w[b, :n].sum()
+                         for b, n in enumerate(frame_counts)])
+        feats.append(log_pitch - mean[:, None])
     if cfg.add_delta_pitch:
+        # central difference, 0 at a row's first and last frame: it reads
+        # no frame at or past the row's end
         d = np.zeros_like(log_pitch)
-        d[:, 1:-1] = (log_pitch[:, 2:] - log_pitch[:, :-2]) / 2.0
+        d[:, 1:-1] = np.where(mask[:, 2:],
+                              (log_pitch[:, 2:] - log_pitch[:, :-2]) / 2.0, 0.0)
         feats.append(d)
     out = np.stack(feats, axis=-1).astype(np.float32)
     out[~mask] = 0.0
-    return out, frame_counts.astype(np.int32)
+    return out[:, :T_out], frame_counts.astype(np.int32)
 
 
 def pitch_for_mfcc_frames(

@@ -545,8 +545,8 @@ def test_pitch_on_card_matches_cpu(cuda_device):
     shift = int(cfg.resample_rate * cfg.frame_shift_ms / 1000)
     window = int(cfg.resample_rate * cfg.frame_length_ms / 1000)
     T = int((ds_len[0] - window) // shift + 1)
-    nccf = [PP._nccf(torch.from_numpy(ds).to(d), window, shift, T,
-                     int(cfg.lags.max()), cfg.nccf_ballast)
+    nccf = [PP._nccf(torch.from_numpy(ds).to(d), torch.from_numpy(ds_len).to(d),
+                     window, shift, T, int(cfg.lags.max()), cfg.nccf_ballast)
             for d in (cuda_device, torch.device("cpu"))]
     assert (nccf[0].cpu() - nccf[1]).abs().max().item() <= 1e-4
     got, got_n = PP.compute_pitch_batch(waves, lens, cfg, device=cuda_device)

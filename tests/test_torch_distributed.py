@@ -14,7 +14,8 @@ and its iteration log bit-identical to the non-distributed run's; the two
 ranks' models bit-identical. Alignment at W = 2: speaker-independent
 intervals identical to the single run's and scores within 1e-5 relative
 plus 1e-3 (a rank's batches group a speaker's utterances otherwise, so its
-float32 CMVN sums round otherwise); the SAT
+float32 CMVN sums round otherwise), a pitch model's too (a row's pitch
+does not depend on its batch); the SAT
 two-pass with identical phone sequences and boundaries within 11 ms (one
 frame; fMLLR statistics sum in another order). ``devices=("cpu", "cpu")``:
 intervals and scores identical. CLI: the union of the ranks' exports is
@@ -294,6 +295,47 @@ def test_aligner_two_ranks(sat2, mono):
         for i in want:
             # per-speaker CMVN sums group the utterances into other batches
             assert abs(got0[i][2] - want[i][2]) <= 1e-5 * abs(want[i][2]) + 1e-3
+
+
+@pytest.fixture(scope="module")
+def pitch_mono(train_corpus, tmp_path_factory):
+    """A monophone pitch model trained by the port (8 iterations) on the
+    tone corpus of 10 utterances over 2 speakers."""
+    from montreal_forced_aligner_tpu_torch.corpus.corpus import Corpus
+    from montreal_forced_aligner_tpu_torch.dictionary.lexicon import Lexicon
+    from montreal_forced_aligner_tpu_torch.training.base import (
+        TrainerConfig,
+        TrainingPipeline,
+    )
+    from montreal_forced_aligner_tpu_torch.training.monophone import MonophoneTrainer
+
+    corpus_dir, dict_path = train_corpus
+    lexicon = Lexicon.load(dict_path, position_dependent=False)
+    pipeline = TrainingPipeline(Corpus.load(corpus_dir), lexicon, batch_size=4,
+                                use_pitch=True, device="cpu")
+    pipeline.prepare_features()
+    model = MonophoneTrainer(
+        lexicon, TrainerConfig(num_iterations=8, max_gaussians=40, boost_silence=1.0),
+        variable_length_topology=False,
+    ).train(pipeline)
+    path = tmp_path_factory.mktemp("dist_pitch") / "mono_pitch.zip"
+    model.save(path)
+    return str(path), str(dict_path), str(corpus_dir)
+
+
+def test_aligner_two_ranks_pitch(pitch_mono):
+    """A pitch model at W = 2: each rank batches its own speaker's
+    utterances, and the union of the ranks' intervals is the single
+    run's."""
+    job = (*pitch_mono, dict(batch_size=4))
+    ranks = run_ranks(_align_rank, 2, args=([job],), timeout=RANK_TIMEOUT, threads=2)
+    want = _align_single(*job[:3], **job[3])
+    (got0, shard0), (got1, shard1) = ranks[0][0], ranks[1][0]
+    assert got0 == got1  # every rank returns every utterance
+    assert shard0 and shard1 and sorted(shard0 + shard1) == sorted(want)
+    assert {i: v[:2] for i, v in got0.items()} == {i: v[:2] for i, v in want.items()}
+    for i in want:
+        assert abs(got0[i][2] - want[i][2]) <= 1e-5 * abs(want[i][2]) + 1e-3
 
 
 def test_aligner_devices_round_robin(sat2):

@@ -12,7 +12,8 @@ spliced and LDA-projected (the reference's ``FinalFeatureFunction``).
   archive aligns two-pass at the JAX training test's bar (on its 14
   utterances, as ``test_torch_train_recipe.py`` trains).
 * ``MapAdapter`` of a pitch model: its features' pitch columns within atol
-  1e-4 of the JAX pipeline's (as ``test_torch_pitch.py`` holds them), the
+  1e-4 of the JAX pipeline's at one utterance a batch (as
+  ``test_torch_pitch.py`` holds them), the
   adapted means within rtol 1e-5 of each tensor's largest value of a
   float64 MAP update computed here in numpy from the same features and
   alignment (``test_torch_adapt.py``'s bar), only the means moved, and the
@@ -22,9 +23,9 @@ spliced and LDA-projected (the reference's ``FinalFeatureFunction``).
   grid, and the CLI writes every file's TextGrid.
 * The long path on a pitch model, with ``LONG_UTTERANCE_FRAMES`` lowered so
   every utterance takes it (and ``CHUNK_FRAMES`` so each takes several
-  chunks), against the corpus path at the JAX parity bar; one utterance a
-  speaker and a batch, so both estimate CMVN and pitch from the same
-  frames.
+  chunks), against the corpus path at four utterances a batch at the JAX
+  parity bar; one utterance a speaker, so both estimate CMVN from the same
+  frames (a row's pitch is its own in any batch).
 * ``estimate_lda`` on a singular within-class covariance (constant
   spliced pitch columns) adds Kaldi's 1e-3 of the mean variance; the
   voiced corpus of the chip phase moves every pitch column, where the
@@ -36,13 +37,10 @@ import shutil
 import numpy as np
 import pytest
 
-import montreal_forced_aligner_tpu.training.base as JB
 import montreal_forced_aligner_tpu_torch.ops.long_viterbi as PLV
 import montreal_forced_aligner_tpu_torch.online.alignment as PON
 import montreal_forced_aligner_tpu_torch.training.adapt as PAD
 import montreal_forced_aligner_tpu_torch.training.base as PB
-from montreal_forced_aligner_tpu.corpus.corpus import Corpus as JCorpus
-from montreal_forced_aligner_tpu.dictionary.lexicon import Lexicon as JLexicon
 from montreal_forced_aligner_tpu_torch.align.aligner import (
     AlignerConfig as PConfig,
     PretrainedAligner as PAligner,
@@ -57,6 +55,7 @@ from montreal_forced_aligner_tpu_torch.models.acoustic_model import (
 from montreal_forced_aligner_tpu_torch.training.monophone import MonophoneTrainer
 
 from test_torch_adapt import close_to_scale, same_but_means, same_transitions
+from test_torch_pitch import jax_pitch_rows
 from test_torch_train import alignment_bar, write_dict
 from test_training import make_training_corpus
 
@@ -176,15 +175,12 @@ def test_pitch_adapt_meets_the_adapt_bars(mono_pitch, tmp_path):
     got = adapter.adapt(corpus_dir)
     pipeline = adapter.pipeline
     assert pipeline.use_pitch and pipeline.feature_dim == 48
-    jax = JB.TrainingPipeline(JCorpus.load(corpus_dir),
-                              JLexicon.load(dict_path, position_dependent=False),
-                              batch_size=4, use_pitch=True)
-    jax.prepare_features()
-    for pb, jb in zip(pipeline.batches, jax.batches):
-        assert pb.utt_indices == [int(i) for i in jb.utt_indices]
+    jax = jax_pitch_rows(corpus_dir, dict_path)
+    assert sorted(jax) == sorted(i for pb in pipeline.batches for i in pb.utt_indices)
+    for pb in pipeline.batches:
         for row, L in enumerate(pb.frame_lengths):
             np.testing.assert_allclose(pb.raw[row, :L, 13:].numpy(),
-                                       np.asarray(jb.raw)[row, :L, 13:],
+                                       jax[pb.utt_indices[row]][:L],
                                        atol=1e-4, rtol=0)
     original = PModel.load(model_path)
     want = _numpy_map_means(original, pipeline)
@@ -229,11 +225,7 @@ def test_pitch_long_path_matches_the_corpus_path(mono_pitch, tmp_path, monkeypat
         d.mkdir(parents=True)
         shutil.copy(wav, d / wav.name)
         shutil.copy(wav.with_suffix(".lab"), d / wav.with_suffix(".lab").name)
-    # one utterance a batch: a row's pitch depends on its batch (the lag
-    # Viterbi backtraces every row from the batch's last frame, in both
-    # packages; ROADMAP.md Queue 3), and the long path computes each
-    # utterance's alone
-    aligner = PAligner(model_path, dict_path, PConfig(batch_size=1), device="cpu")
+    aligner = PAligner(model_path, dict_path, PConfig(batch_size=4), device="cpu")
     want = aligner.align_corpus(PCorpus.load(single))
     monkeypatch.setattr(PON, "LONG_UTTERANCE_FRAMES", 50)
     monkeypatch.setattr(PLV, "CHUNK_FRAMES", 64)

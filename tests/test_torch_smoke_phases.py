@@ -321,7 +321,8 @@ def test_transfer_pitch_and_chain_major_phases_run_on_cpu(fixture, tmp_path,
                                                           one_torch_thread):
     """transfer-features, pitch-paths and lvcsr-chain-major at a tiny size:
     features against waves and card (here the CPU) against the CPU, the
-    pitch recipe's 40 x 112 LDA and its paths, the production LVCSR routes
+    pitch recipe's 40 x 112 LDA and its paths, each row's pitch and each
+    utterance's alignment alike in a batch and alone, the production LVCSR routes
     against the chain-major and record-based decoders; the LVCSR threshold
     is lowered so the tiny vocabulary routes there."""
     import montreal_forced_aligner_tpu_torch.transcription.transcriber as PT
@@ -361,6 +362,15 @@ def test_transfer_pitch_and_chain_major_phases_run_on_cpu(fixture, tmp_path,
     for label in ("single_pass", "two_pass"):
         assert pitch["long_path"][label]["against_corpus_path"][
             "frame_agreement"] == 1.0
+    inv = pitch["batch_invariance"]
+    assert inv["pitch"]["utterances"] == 6 and inv["pitch"]["batch_size"] == 4
+    assert inv["pitch"]["rows_with_equal_lag_paths"] == 6
+    assert inv["pitch"]["features_max_abs_diff"] == 0.0
+    for label in ("two_pass", "single_pass"):
+        a = inv["align"][label]
+        assert a["utterances"] == 8 and a["batch_size"] == 8
+        assert a["intervals_differ"] == 0
+    assert inv["align"]["single_pass"]["max_score_diff"] <= 0.01
     monkeypatch.setattr(PT.Transcriber, "LVCSR_WORD_THRESHOLD", 4)
     corpus_lm = chip_smoke.corpus_lm(model_path, dict_path, corpus_dir)
     chain = chip_smoke.lvcsr_chain_major_phase(model_path, dict_path, small_dir,
