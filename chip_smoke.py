@@ -32,7 +32,11 @@ What it does, in order; any failure exits non-zero with no result line:
    synchronised and one profiled;
 6. aligns small corpora on the card and on the CPU (the plain PyTorch
    versions), speaker-independent and two-pass, and holds each pair to the
-   JAX package's parity bar;
+   JAX package's parity bar; then **speaker_stats_invariance**: the first
+   pass's inputs of sat-2pass rebatched at 1, 8 and 32 give bit-identical
+   per-speaker fMLLR totals and the same MFCC rows bit-identical CMVN
+   sums (the MFCC rows', CMVN means' and transforms' largest differences
+   between batch sizes reported);
 7. holds each kernel against its plain version on the real inputs of the
    first batch of sat-si and of sat-2pass's second pass (adapted features,
    final model): K1 backpointers and K2 states bit-identical, K1 alpha
@@ -896,6 +900,132 @@ def fmllr_summary(aligner):
     }
 
 
+def speaker_stats_invariance(model_path, dict_path, corpus_dir, device,
+                             batch_sizes=(1, 8, 32)):
+    """**speaker_stats_invariance**: a speaker's CMVN and fMLLR statistics
+    do not move with the batching. The first pass of sat-2pass at batch 32
+    fixes each utterance's features, frame pdfs and weights (the recorded
+    inputs of ``accumulate_fmllr_stats``); those utterances, rebatched at
+    each of ``batch_sizes`` (consecutive slices of the corpus order, each
+    batch padded to its own longest utterance), give per-speaker float64
+    totals bit-identical to one utterance a batch, and so do the CMVN sums
+    (``ops.feats.frame_sums``) of the batch-1 MFCC rows rebatched. Reported:
+    each batching's synchronised seconds in the fMLLR statistics, the
+    transforms' and the CMVN means' largest differences from batch 1 (the
+    means from each batching's own MFCCs), and the MFCC rows' largest
+    difference from batch 1 (the mel product is a GEMM over the batch's
+    rows: that is the feature layer's)."""
+    import torch
+
+    import montreal_forced_aligner_tpu_torch.align.aligner as aligner_mod
+    from montreal_forced_aligner_tpu_torch.corpus.corpus import Corpus
+    from montreal_forced_aligner_tpu_torch.ops.feats import (
+        add_to_speakers,
+        cmvn_means,
+        frame_sums,
+    )
+    from montreal_forced_aligner_tpu_torch.ops.mfcc import pad_waves_for_mfcc
+    from montreal_forced_aligner_tpu_torch.ops.transforms import (
+        accumulate_fmllr_stats,
+        estimate_speaker_fmllr,
+        stats_to_host,
+        zero_fmllr_totals,
+    )
+
+    aligner = aligner_mod.PretrainedAligner(
+        model_path, dict_path, aligner_mod.AlignerConfig(batch_size=32),
+        device=device)
+    corpus = Corpus.load(corpus_dir)
+    rec = CallRecorder(aligner_mod, "accumulate_fmllr_stats", device)
+    with rec:
+        aligner.align_corpus(corpus)
+    # each utterance's first-pass inputs, in corpus order
+    utts = []
+    for args, _kw in rec.all_args:
+        ff, flens, pdf, spk, weight, *model, num_speakers = args
+        for r, n in enumerate(flens):
+            utts.append((ff[r, :n], pdf[r, :n], weight[r, :n], int(spk[r])))
+    D = utts[0][0].shape[1]
+
+    def rebatch(rows, bs):
+        for lo in range(0, len(rows), bs):
+            part = rows[lo : lo + bs]
+            T = max(int(x[0].shape[0]) for x in part)
+            out = [torch.zeros((len(part), T) + tuple(x.shape[1:]), dtype=x.dtype,
+                               device=device) for x in part[0][:-1]]
+            for r, row in enumerate(part):
+                for o, x in zip(out, row[:-1]):
+                    o[r, : x.shape[0]] = x
+            yield out, [int(x[0].shape[0]) for x in part], [x[-1] for x in part]
+
+    fmllr, seconds = {}, {}
+    for bs in batch_sizes:
+        totals = zero_fmllr_totals(num_speakers, D, device)
+        _sync(device)
+        t0 = time.perf_counter()
+        for (ff, pdf, weight), flens, spk in rebatch(utts, bs):
+            accumulate_fmllr_stats(ff, np.array(flens), pdf, spk, weight, *model,
+                                   num_speakers, totals=totals)
+        _sync(device)
+        seconds[bs] = time.perf_counter() - t0
+        fmllr[bs] = totals
+    base = batch_sizes[0]
+    for bs in batch_sizes[1:]:
+        for a, b in zip(fmllr[bs], fmllr[base]):
+            _check(torch.equal(a, b), f"fMLLR totals at batch {bs} differ from "
+                   f"batch {base} by {(a - b).abs().max().item()}")
+    transforms = {bs: estimate_speaker_fmllr(
+        *stats_to_host(*t), min_count=aligner.config.fmllr_min_count)
+        for bs, t in fmllr.items()}
+
+    # CMVN: each batching's own MFCCs, and the batch-1 rows rebatched
+    cfg = aligner.mfcc_config
+    waves = corpus.load_audio_parallel(cfg.sample_rate)
+    order = [int(i) for i in np.argsort([len(w) for w in waves], kind="stable")]
+    spk_of = [corpus.speaker_index[corpus.utterances[i].speaker] for i in order]
+    mfcc, means = {}, {}
+    for bs in batch_sizes:
+        rows, total = [], torch.zeros((num_speakers, cfg.num_coefficients),
+                                      dtype=torch.float64, device=device)
+        count = np.zeros(num_speakers)
+        for lo in range(0, len(order), bs):
+            wl = [waves[i] for i in order[lo : lo + bs]]
+            L = aligner_mod._round_up(max(len(w) for w in wl), 16000)
+            padded, lens = pad_waves_for_mfcc(wl, cfg, L)
+            flens = np.array([cfg.num_frames(int(n)) for n in lens], np.int32)
+            feats, sums = aligner_mod._mfcc_and_sums(
+                torch.from_numpy(padded).to(device), torch.from_numpy(flens).to(device),
+                cfg, cfg.num_frames(L))
+            add_to_speakers(total, sums, spk_of[lo : lo + bs])
+            np.add.at(count, spk_of[lo : lo + bs], flens.astype(np.float64))
+            rows += [feats[r, :n] for r, n in enumerate(flens)]
+        mfcc[bs] = rows
+        means[bs] = cmvn_means(total, torch.from_numpy(count).to(device))
+    sums = {}
+    for bs in batch_sizes:
+        parts = [frame_sums(x, torch.tensor(flens, device=device))
+                 for (x,), flens, _s in rebatch([(x, 0) for x in mfcc[base]], bs)]
+        sums[bs] = torch.cat(parts)
+        _check(torch.equal(sums[bs], sums[base]),
+               f"CMVN sums of the same MFCC rows at batch {bs} differ from batch "
+               f"{base}")
+    return {
+        "utterances": len(utts), "speakers": num_speakers,
+        "batch_sizes": list(batch_sizes), "fmllr_totals_bit_identical": True,
+        "cmvn_sums_bit_identical": True,
+        "fmllr_stats_synced_s": {str(bs): v for bs, v in seconds.items()},
+        "transforms_max_abs_diff": {
+            str(bs): float(np.abs(transforms[bs] - transforms[base]).max())
+            for bs in batch_sizes[1:]},
+        "mfcc_rows_max_abs_diff": {
+            str(bs): max(float((a - b).abs().max()) for a, b in zip(mfcc[bs], mfcc[base]))
+            for bs in batch_sizes[1:]},
+        "cmvn_means_max_abs_diff": {
+            str(bs): float((means[bs] - means[base]).abs().max())
+            for bs in batch_sizes[1:]},
+    }
+
+
 # -- phases ------------------------------------------------------------------
 
 
@@ -936,6 +1066,7 @@ def run_main_path(model_path, dict_path, corpus_dir, out_dir, device,
             stack.enter_context(rec)
         if device.type == "cuda":
             torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
         cuda_build.reset_launch_counts()
         t0 = time.perf_counter()
         results = aligner.align_corpus(corpus)
@@ -943,6 +1074,7 @@ def run_main_path(model_path, dict_path, corpus_dir, out_dir, device,
             torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         launches = dict(cuda_build.LAUNCHES)
+        peak = torch.cuda.max_memory_allocated() if device.type == "cuda" else None
     phases = dict(aligner.last_phase_seconds)
     paths = aligner.export_textgrids(corpus, results, out_dir)
 
@@ -1001,6 +1133,7 @@ def run_main_path(model_path, dict_path, corpus_dir, out_dir, device,
         "setup_s": setup_s,
         "wall_s": wall,
         "audio_s_per_s": audio_s / wall,
+        "peak_memory_bytes": peak,
         "launches": launches,
         "kernel_calls": {k: r.calls for k, r in counted.items()},
         "kernel_ms": {k: r.total_ms() for k, r in counted.items()},
@@ -5078,9 +5211,11 @@ def pitch_batch_invariance(model_path, dict_path, corpus_dir, align_dir, device,
                "utterances depend on the batch")
     single = aligned["single_pass"]["max_score_diff"]
     _check(single <= 0.01, f"pitch align single pass: scores {single} nats apart")
-    # the two-pass's fMLLR statistics are float32 sums in batch order: its
-    # scores move with the batches by ~1e-5 of a score, pitch or not
-    # (``align_without_pitch`` beside this line)
+    # the statistics add nothing of their own (``speaker_stats_invariance``),
+    # but the features still move with the batch (the MFCC rows, the feature
+    # layer's) and the fMLLR solve can amplify that: on the card the pitch
+    # archive's two-pass has moved 2.6 times its single pass (PERF.md §6), so
+    # it is held at this line's earlier bar
     two = aligned["two_pass"]
     _check(two["max_score_diff"] <= 1e-4 * two["max_score"] + 1e-3,
            f"pitch align two-pass: scores {two['max_score_diff']} nats apart")
@@ -5094,14 +5229,23 @@ def pitch_batch_invariance(model_path, dict_path, corpus_dir, align_dir, device,
     }
 
 
+def two_pass_within_single(label, aligned):
+    """A speaker's fMLLR statistics are float64 sums of its utterances in
+    corpus order, so the two-pass moves with the batches only through the
+    features, as the single pass does: its largest score difference within
+    the single pass's plus 1e-3 nats."""
+    two = aligned["two_pass"]["max_score_diff"]
+    single = aligned["single_pass"]["max_score_diff"]
+    _check(two <= single + 1e-3, f"{label} two-pass: scores {two} nats apart at "
+           f"the two batch sizes, the single pass {single}")
+
+
 def batch_size_alignment(model_path, dict_path, corpus_dir, device):
     """The archive at ``model_path`` aligning the utterances of
     ``corpus_dir`` in one batch against one utterance a batch, two-pass and
     single pass (the speaker-independent model): per mode, the utterances
     whose intervals differ, the largest score difference and the largest
-    score's magnitude. The two-pass's fMLLR statistics are float32 sums in
-    batch order, so its scores move with the batches in the last bits
-    with or without pitch."""
+    score's magnitude."""
     from montreal_forced_aligner_tpu_torch.align.aligner import (
         AlignerConfig,
         PretrainedAligner,
@@ -5382,6 +5526,8 @@ def main() -> int:
         for adaptation, d in ((False, small_dir), (True, small2_dir)):
             _emit({"reference_check": "sat-2pass" if adaptation else "sat-si",
                    **reference_check(model_path, dict_path, d, device, adaptation)})
+        _emit({"speaker_stats_invariance": speaker_stats_invariance(
+            model_path, dict_path, corpus_dir, device)})
         checks = {}
         for path in ("sat-si", "sat-2pass"):
             checks[path] = kernel_checks(inputs.pop(path), aligners[path].gmm,
@@ -5547,10 +5693,14 @@ def main() -> int:
         pitch_paths = pitch_paths_phase(dict_path, tmp, device)
         invariance = pitch_paths.pop("batch_invariance")
         _emit({"main_path": pitch_paths})
-        # the same batch sizes without pitch: what the two-pass's float32
-        # fMLLR sums move by themselves
-        invariance["align_without_pitch"] = batch_size_alignment(
-            model_path, dict_path, small2_dir, device)
+        # the same batch sizes without pitch, at the same bars
+        no_pitch = batch_size_alignment(model_path, dict_path, small2_dir, device)
+        for label, a in no_pitch.items():
+            _check(a["intervals_differ"] == 0,
+                   f"align without pitch {label}: intervals of "
+                   f"{a['intervals_differ']} utterances depend on the batch")
+        two_pass_within_single("align without pitch", no_pitch)
+        invariance["align_without_pitch"] = no_pitch
         _emit({"pitch_batch_invariance": invariance})
         chain = lvcsr_chain_major_phase(model_path, dict_path, small_dir, lvcsr_lm,
                                         device)

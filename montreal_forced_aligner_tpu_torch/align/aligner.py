@@ -68,13 +68,14 @@ from montreal_forced_aligner_tpu_torch.io.wav import read_wave
 from montreal_forced_aligner_tpu_torch.models.acoustic_model import AcousticModel
 from montreal_forced_aligner_tpu_torch.ops.cuda_emission import state_loglikes
 from montreal_forced_aligner_tpu_torch.ops.feats import (
+    add_to_speakers,
     apply_per_speaker_transform,
     apply_transform,
+    cmvn_means,
     compute_deltas,
-    frame_mask,
+    frame_sums,
     nonsilence_weight,
     silence_pdf_mask,
-    speaker_sums,
     splice_frames,
 )
 from montreal_forced_aligner_tpu_torch.ops.gmm_loglikes import (
@@ -92,6 +93,7 @@ from montreal_forced_aligner_tpu_torch.ops.transforms import (
     accumulate_fmllr_stats,
     estimate_speaker_fmllr,
     stats_to_host,
+    zero_fmllr_totals,
 )
 from montreal_forced_aligner_tpu_torch.ops.viterbi import (
     BatchedGraph,
@@ -127,51 +129,19 @@ def _mfcc_and_sums(
     cfg: MfccConfig,
     max_frames: int,
 ):
-    """MFCC + masked per-utterance feature sums (for CMVN): (feats (B, T,
-    D), sums (B, D))."""
+    """MFCC + each utterance's float64 feature sums over its own frames
+    (for CMVN, ``ops.feats.frame_sums``): (feats (B, T, D), sums (B, D))."""
     feats = _mfcc_device(padded_waves, cfg, max_frames)
-    mask = frame_mask(frame_lengths, feats.shape[1])[..., None]
-    return feats, torch.where(mask, feats, 0.0).sum(dim=1)
-
-
-def _mfcc_and_spk_stats(
-    padded_waves: torch.Tensor,  # (B, L) int16 or float32
-    frame_lengths: torch.Tensor,  # (B,) int32
-    spk_idx: torch.Tensor,  # (B,) int64 dense speaker index
-    cfg: MfccConfig,
-    max_frames: int,
-    num_speakers: int,
-):
-    """Phase A: MFCC + per-speaker sums of the valid frames, reduced on the
-    device by one product with the (N, B) speaker indicator, in a fixed
-    order (``index_add_`` adds with atomics on the card, so two runs, and a
-    run and its one-rank distributed twin, would differ in the last bits):
-    returns (feats (B, T, D), spk_sum (N, D))."""
-    feats, sums = _mfcc_and_sums(padded_waves, frame_lengths, cfg, max_frames)
-    return feats, speaker_sums(sums, spk_idx, num_speakers)
+    return feats, frame_sums(feats, frame_lengths)
 
 
 def _feats_and_sums(feats16: torch.Tensor, frame_lengths: torch.Tensor):
     """Phase A for features computed on the host (``ops.mfcc.
     mfcc_host_batch``) and shipped as float16: float32 on the device, and
-    the masked per-utterance sums of :func:`_mfcc_and_sums`: (feats (B, T,
-    D), sums (B, D))."""
+    the per-utterance sums of :func:`_mfcc_and_sums`: (feats (B, T, D),
+    sums (B, D))."""
     feats = feats16.to(torch.float32)
-    mask = frame_mask(frame_lengths, feats.shape[1])[..., None]
-    return feats, torch.where(mask, feats, 0.0).sum(dim=1)
-
-
-def _feats_and_spk_stats(
-    feats16: torch.Tensor,  # (B, T, D) float16
-    frame_lengths: torch.Tensor,  # (B,) int32
-    spk_idx: torch.Tensor,  # (B,) int64 dense speaker index
-    num_speakers: int,
-):
-    """:func:`_mfcc_and_spk_stats` for host features shipped as float16:
-    the same per-speaker sums, by the same fixed-order product with the
-    speaker indicator."""
-    feats, sums = _feats_and_sums(feats16, frame_lengths)
-    return feats, speaker_sums(sums, spk_idx, num_speakers)
+    return feats, frame_sums(feats, frame_lengths)
 
 
 def _final_feats(feats, frame_lengths, mean_rows, lda=None, pitch=None):
@@ -657,14 +627,18 @@ class PretrainedAligner:
         return self._per_device[key]
 
     # -- pipeline ------------------------------------------------------------
-    def _fmllr_second_pass_feats(self, prepared, num_speakers, mark):
+    def _fmllr_second_pass_feats(self, prepared, num_speakers, mark, utt_spk):
         """Pass 1 with the speaker-independent model, per-speaker fMLLR
         statistics on the device, one fetch of their sums, the host solve,
         and the adapted features (reference ``_fmllr_second_pass_feats``,
         two-pass align ``alignment/base.py:491-558``; estimation spec
         ``corpus/features.py:422-548`` with silence_weight=0). Nothing else
-        leaves the device between the two passes."""
-        stats = None
+        leaves the device between the two passes. ``utt_spk``: each corpus
+        utterance's speaker index."""
+        # float64 totals on the first device, one utterance at a time in
+        # corpus order (the batches are consecutive slices of it)
+        stats = zero_fmllr_totals(num_speakers, self.fmllr.means.shape[2],
+                                  self.device)
         for b in prepared:
             dev = b.ff.device
             fm = self._on("fmllr", dev)
@@ -674,14 +648,12 @@ class PretrainedAligner:
                 use_emission_kernel=self.si_use_emission_kernel,
             )
             frame_pdf = b.graph.state_pdf.gather(1, state_path.long())
-            out = accumulate_fmllr_stats(
-                b.ff, b.flens_dev, frame_pdf, b.spk_dev,
+            accumulate_fmllr_stats(
+                b.ff, b.flens, frame_pdf, utt_spk[b.utts],
                 nonsilence_weight(frame_pdf, fm.sil_mask),
                 fm.means, fm.inv_vars, fm.gconsts, fm.miv, num_speakers,
+                totals=stats,
             )
-            # float32 sums on the first device, in batch order
-            out = tuple(x.to(self.device) for x in out)
-            stats = out if stats is None else tuple(a + b for a, b in zip(stats, out))
         mark("fmllr_pass1")
         K, G, beta = stats_to_host(*stats)
         mark("fmllr_stats_fetch")
@@ -740,8 +712,8 @@ class PretrainedAligner:
 
     def _align_local(self, corpus: Corpus) -> Dict[int, UtteranceAlignment]:
         """``align_corpus`` on this process's devices: batches round-robin
-        over ``self.devices``, per-speaker sums and fMLLR statistics reduced
-        on the first in batch order."""
+        over ``self.devices``, per-speaker CMVN sums and fMLLR statistics
+        added on the first, one utterance at a time in corpus order."""
         from montreal_forced_aligner_tpu_torch.online import alignment as online
 
         cfg = self.config
@@ -799,10 +771,11 @@ class PretrainedAligner:
             self.last_phase_seconds = phase
             return results
 
-        # phase A: MFCC + per-speaker CMVN sums, reduced on the device. All
-        # batches are dispatched before anything is fetched.
+        # phase A: MFCC + per-speaker CMVN sums, float64 totals on the device
+        # added one utterance at a time in corpus order. All batches are
+        # dispatched before anything is fetched.
         D = self.mfcc_config.num_coefficients
-        spk_total = torch.zeros((num_speakers, D), dtype=torch.float32, device=dev)
+        spk_total = torch.zeros((num_speakers, D), dtype=torch.float64, device=dev)
         spk_count = np.zeros(num_speakers, dtype=np.float64)
         stashes = []
         for bi, batch in enumerate(batches):
@@ -824,20 +797,16 @@ class PretrainedAligner:
                 feats16 = mfcc_host_batch(
                     padded, self.mfcc_config, max_frames
                 ).astype(np.float16)
-                feats_dev, bsum = _feats_and_spk_stats(
-                    torch.from_numpy(feats16).to(bdev), flens_dev, spk_dev,
-                    num_speakers,
-                )
+                feats_dev, sums = _feats_and_sums(
+                    torch.from_numpy(feats16).to(bdev), flens_dev)
             else:
-                feats_dev, bsum = _mfcc_and_spk_stats(
+                feats_dev, sums = _mfcc_and_sums(
                     torch.from_numpy(padded).to(bdev),
                     flens_dev,
-                    spk_dev,
                     self.mfcc_config,
                     max_frames,
-                    num_speakers,
                 )
-            spk_total += bsum.to(dev)
+            add_to_speakers(spk_total, sums, spk_idx)
             # frame counts accumulate on the host in float64
             np.add.at(spk_count, spk_idx, flens.astype(np.float64))
             pitch = None
@@ -896,9 +865,7 @@ class PretrainedAligner:
             graphs[i] = g
         mark("graph_compile")
 
-        spk_mean = spk_total / torch.from_numpy(
-            np.maximum(spk_count, 1.0).astype(np.float32)
-        ).to(dev)[:, None]
+        spk_mean = cmvn_means(spk_total, torch.from_numpy(spk_count).to(dev))
         spk_mean_on = {}
         prepared = []
         for batch, feats_dev, flens, pitch, flens_dev, spk_dev in stashes:
@@ -919,7 +886,9 @@ class PretrainedAligner:
         mark("graph_ship_and_final_feats")
 
         if self.two_pass:
-            prepared = self._fmllr_second_pass_feats(prepared, num_speakers, mark)
+            utt_spk = np.array([speaker_index[u.speaker] for u in corpus.utterances])
+            prepared = self._fmllr_second_pass_feats(prepared, num_speakers, mark,
+                                                     utt_spk)
 
         pending = []
         for b in prepared:

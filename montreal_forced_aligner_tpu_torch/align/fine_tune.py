@@ -292,21 +292,26 @@ def _fine_tune_local(
 
 
 def _speaker_means(aligner, corpus: Corpus) -> np.ndarray:
-    """Per-speaker CMVN means over the corpus (mirrors the align pipeline)."""
+    """Per-speaker CMVN means over the corpus, as the align pipeline makes
+    them: float64 totals, one utterance at a time in the stable length
+    order, whatever the batch size."""
     from montreal_forced_aligner_tpu_torch.align.aligner import _mfcc_and_sums, _round_up
+    from montreal_forced_aligner_tpu_torch.ops.feats import add_to_speakers, cmvn_means
     from montreal_forced_aligner_tpu_torch.ops.mfcc import pad_waves_for_mfcc
 
     dev = aligner.device
 
     D = aligner.mfcc_config.num_coefficients
     S = len(corpus.speakers)
-    sums = np.zeros((S, D))
+    sums = torch.zeros((S, D), dtype=torch.float64, device=dev)
     counts = np.zeros(S)
     speaker_index = corpus.speaker_index
     waves = [corpus.load_audio(u).samples for u in corpus.utterances]
+    order = np.argsort([len(w) for w in waves], kind="stable")
     bs = aligner.config.batch_size
     for lo in range(0, len(waves), bs):
-        chunk = waves[lo : lo + bs]
+        batch = order[lo : lo + bs]
+        chunk = [waves[i] for i in batch]
         L = _round_up(max(len(w) for w in chunk), 16000)
         padded, lens = pad_waves_for_mfcc(chunk, aligner.mfcc_config, L)
         flens = np.array(
@@ -318,9 +323,7 @@ def _speaker_means(aligner, corpus: Corpus) -> np.ndarray:
             aligner.mfcc_config,
             aligner.mfcc_config.num_frames(L),
         )
-        ssum = ssum.cpu().numpy()
-        for r, u in enumerate(corpus.utterances[lo : lo + bs]):
-            s = speaker_index[u.speaker]
-            sums[s] += ssum[r]
-            counts[s] += flens[r]
-    return (sums / np.maximum(counts, 1.0)[:, None]).astype(np.float32)
+        spk = [speaker_index[corpus.utterances[i].speaker] for i in batch]
+        add_to_speakers(sums, ssum, spk)
+        np.add.at(counts, spk, flens.astype(np.float64))
+    return cmvn_means(sums, torch.from_numpy(counts).to(dev)).cpu().numpy()

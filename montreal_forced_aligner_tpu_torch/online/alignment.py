@@ -23,6 +23,7 @@ from montreal_forced_aligner_tpu_torch.graph.compiler import (
 )
 from montreal_forced_aligner_tpu_torch.ops.feats import (
     apply_per_speaker_transform,
+    cmvn_means,
     nonsilence_weight,
 )
 from montreal_forced_aligner_tpu_torch.ops.long_viterbi import viterbi_align_long
@@ -81,9 +82,11 @@ def align_utterance_online(
         aligner.mfcc_config,
         aligner.mfcc_config.num_frames(L),
     )
-    # single-utterance CMVN (reference ``online/alignment.py:86-88``); a
-    # pitch model's pitch is pasted after it, as phase A pastes it
-    mean = sums[0] / max(int(flens[0]), 1)
+    # single-utterance CMVN (reference ``online/alignment.py:86-88``): the
+    # corpus path's float64 sum and division for a speaker of one
+    # utterance; a pitch model's pitch is pasted after it, as phase A
+    # pastes it
+    mean = cmvn_means(sums, torch.from_numpy(flens).to(dev))
     pitch = None
     if aligner.use_pitch:
         from montreal_forced_aligner_tpu_torch.ops.pitch import (
@@ -95,7 +98,7 @@ def align_utterance_online(
             np.array([len(samples)], np.int32), flens, int(feats.shape[1]),
             device=dev,
         )).to(dev)
-    ff = _final_feats(feats, flens_dev, mean[None], aligner.gmm.lda, pitch)
+    ff = _final_feats(feats, flens_dev, mean, aligner.gmm.lda, pitch)
     garrs = batch_graphs([graph])
     Lf0 = int(flens[0])
     is_long = Lf0 > LONG_UTTERANCE_FRAMES
@@ -127,9 +130,9 @@ def align_utterance_online(
         frame_pdf = bgraph.state_pdf.gather(1, sp1.long())
         K, G, beta = stats_to_host(*accumulate_fmllr_stats(
             ff[:, : frame_pdf.shape[1]],
-            torch.tensor([Lf0], dtype=torch.int32, device=dev),
+            [Lf0],
             frame_pdf,
-            torch.zeros(1, dtype=torch.int64, device=dev),
+            [0],
             nonsilence_weight(frame_pdf, fm.sil_mask),
             fm.means, fm.inv_vars, fm.gconsts, fm.miv, 1,
         ))

@@ -29,12 +29,62 @@ def frame_mask(frame_lengths: torch.Tensor, T: int) -> torch.Tensor:
     return t[None, :] < frame_lengths[:, None]
 
 
-def speaker_sums(x: torch.Tensor, speaker_ids: torch.Tensor, num_speakers: int):
-    """Per-speaker sums of (B, ...) rows, by one product with the (N, B)
-    speaker indicator in a fixed order (no float atomics): (N, ...)."""
-    onehot = (torch.arange(num_speakers, device=x.device)[:, None]
-              == speaker_ids.long()[None, :]).to(x.dtype)
-    return (onehot @ x.reshape(x.shape[0], -1)).reshape((num_speakers,) + x.shape[1:])
+def host_ints(x) -> list:
+    """A (B,) tensor or array of integers as a host list (a device tensor
+    is copied, and waits for the card: the pipelines pass host arrays)."""
+    if isinstance(x, torch.Tensor):
+        return x.tolist()
+    return np.asarray(x).tolist()
+
+
+def frame_sums(x: torch.Tensor, frame_lengths: torch.Tensor) -> torch.Tensor:
+    """Per-utterance float64 sums of (B, T, ...) rows over their valid
+    frames: (B, ...).
+
+    Each row's sum is a function of its own frames alone, whatever the
+    batch size, the padded length T or the rows beside it: padded frames
+    become exact zeros, the frame axis is zero-padded to a power of two and
+    its halves are added elementwise until one frame is left. The pairing
+    is fixed by the row's own frames (a longer padding only adds zero
+    halves, exactly), and no library reduction picks its order from the
+    tensor's shape."""
+    B, T = x.shape[:2]
+    mask = frame_mask(frame_lengths, T).reshape((B, T) + (1,) * (x.dim() - 2))
+    y = torch.where(mask, x, torch.zeros((), dtype=x.dtype, device=x.device))
+    y = y.to(torch.float64)
+    n = 1 << max(T - 1, 0).bit_length()
+    if n > T:
+        y = torch.cat([y, y.new_zeros((B, n - T) + tuple(y.shape[2:]))], dim=1)
+    while y.shape[1] > 1:
+        h = y.shape[1] // 2
+        y = y[:, :h] + y[:, h:]
+    return y[:, 0]
+
+
+def add_to_speakers(
+    totals: torch.Tensor,  # (N, ...) float64
+    rows: torch.Tensor,  # (B, ...) one utterance's statistic a row
+    speaker_ids,  # (B,) host ints: each row's speaker
+) -> torch.Tensor:
+    """Add each utterance's row to its speaker's total, in place, one
+    utterance at a time in row order. The pipelines add batches that are
+    consecutive slices of the corpus order (the stable length order), so a
+    speaker's total is the same sequence of float64 adds of its utterances
+    whatever the batch size, the ranks or the path; the Kaldi tools sum a
+    speaker's statistics utterance by utterance in double too
+    (``compute-cmvn-stats``, ``FmllrDiagGmmAccs``). One add a row on the
+    totals' device; nothing waits for the card. Returns ``totals``."""
+    rows = rows.to(device=totals.device, dtype=totals.dtype)
+    for r, s in enumerate(host_ints(speaker_ids)):
+        totals[s] += rows[r]
+    return totals
+
+
+def cmvn_means(spk_sum: torch.Tensor, spk_count: torch.Tensor) -> torch.Tensor:
+    """Per-speaker CMVN means (N, D) in float32 from float64 totals: the
+    division in float64, then one rounding."""
+    count = torch.clamp(spk_count.to(torch.float64), min=1.0)[:, None]
+    return (spk_sum / count).to(torch.float32)
 
 
 def accumulate_cmvn_stats(
@@ -44,19 +94,19 @@ def accumulate_cmvn_stats(
     num_speakers: int,
 ):
     """Per-speaker (sum (N, D), sum of squares (N, D), count (N,)) over the
-    valid frames: the segment reduce of the reference's per-speaker
-    ``CmvnComputer`` (``acoustic_corpus.py:1315``), summed over rows in a
-    fixed order."""
-    mask = frame_mask(frame_lengths, feats.shape[1])[..., None]
-    masked = torch.where(mask, feats, 0.0)
-    per_utt_sum = masked.sum(dim=1)  # (B, D)
-    per_utt_sumsq = (masked * masked).sum(dim=1)
-    counts = frame_lengths.to(feats.dtype)
-    return (
-        speaker_sums(per_utt_sum, speaker_ids, num_speakers),
-        speaker_sums(per_utt_sumsq, speaker_ids, num_speakers),
-        speaker_sums(counts, speaker_ids, num_speakers),
-    )
+    valid frames, in float64: the segment reduce of the reference's
+    per-speaker ``CmvnComputer`` (``acoustic_corpus.py:1315``), each
+    utterance's :func:`frame_sums` added to its speaker's total in row
+    order (:func:`add_to_speakers`)."""
+    D = feats.shape[2]
+    dev = feats.device
+    f64 = dict(dtype=torch.float64, device=dev)
+    sums = frame_sums(torch.cat([feats, feats * feats], dim=-1), frame_lengths)
+    totals = add_to_speakers(torch.zeros((num_speakers, 2 * D), **f64), sums,
+                             speaker_ids)
+    count = add_to_speakers(torch.zeros(num_speakers, **f64),
+                            frame_lengths.to(torch.float64), speaker_ids)
+    return totals[:, :D], totals[:, D:], count
 
 
 def apply_cmvn(
@@ -68,14 +118,15 @@ def apply_cmvn(
     norm_vars: bool = False,
 ) -> torch.Tensor:
     """Per-speaker cepstral mean (and optionally variance) normalization
-    (Kaldi ``apply-cmvn`` defaults: mean only)."""
-    count = torch.clamp(spk_count, min=1.0)[:, None]
-    mean = spk_sum / count  # (N, D)
+    (Kaldi ``apply-cmvn`` defaults: mean only); the statistics in float64,
+    the features in their own type."""
+    count = torch.clamp(spk_count.to(torch.float64), min=1.0)[:, None]
+    mean = spk_sum.to(torch.float64) / count  # (N, D)
     ids = speaker_ids.long()
-    out = feats - mean[ids][:, None, :]
+    out = feats - mean.to(feats.dtype)[ids][:, None, :]
     if norm_vars:
-        var = torch.clamp(spk_sumsq / count - mean**2, min=1e-10)
-        out = out * torch.rsqrt(var)[ids][:, None, :]
+        var = torch.clamp(spk_sumsq.to(torch.float64) / count - mean**2, min=1e-10)
+        out = out * torch.rsqrt(var).to(feats.dtype)[ids][:, None, :]
     return out
 
 

@@ -20,12 +20,13 @@ the frame's weight, and x+ = [x, 1].
 
 The statistics gather each frame's pdf parameters (the reference selects
 them with a one-hot product over all pdfs, exact at ``Precision.HIGHEST``,
-so a gather gives the same numbers) in chunks of frames, reduce per
-utterance with batched products and per speaker with a product by the
-(S, B) speaker indicator: every sum has a fixed order, so the statistics
-are the same from run to run. The fMLLR solver is the native row sweep of
-``native/fmllr_solve.cc`` in float64; :func:`_solve_fmllr_batched_numpy` is
-its plain version. LDA's eigenproblem and MLLT's row sweep are numpy, as in
+so a gather gives the same numbers) one utterance at a time, reduce over
+its frames in float64, and add each utterance to its speaker's float64
+total in corpus order: every sum has a fixed order that the batching does
+not change, so the statistics are the same from run to run and from one
+batch size, path or rank count to another. The fMLLR solver is the native
+row sweep of ``native/fmllr_solve.cc`` in float64;
+:func:`_solve_fmllr_batched_numpy` is its plain version. LDA's eigenproblem and MLLT's row sweep are numpy, as in
 the reference.
 """
 
@@ -39,15 +40,17 @@ import numpy as np
 import torch
 
 from montreal_forced_aligner_tpu_torch.ops import cuda_build
+from montreal_forced_aligner_tpu_torch.ops.feats import add_to_speakers, host_ints
 from montreal_forced_aligner_tpu_torch.ops.stats import (
     frame_layout,
     segment_moments,
 )
 
-# bytes of one gathered (frames, G, D) float32 tensor per chunk; a chunk
-# keeps three alive at once
+# bytes of one gathered (frames, G, D) float32 tensor per chunk of frames
+# (MLLT: of its (frames*G, D*D) outer products)
 _GATHER_CHUNK_BYTES = 64 << 20
-# bytes of the (B, frames, D*(D+1)) weighted rows behind each G product
+# bytes of one utterance's float64 (frames, D + 1 + D*(D+1)) block of the
+# product over frames (4,990 frames a block at D = 40)
 _G_CHUNK_BYTES = 64 << 20
 
 
@@ -179,77 +182,112 @@ def solve_mllt(G_mats: np.ndarray, beta: float, num_iters: int = 10) -> np.ndarr
 # ---------------------------------------------------------------------------
 # fMLLR (CMLLR)
 # ---------------------------------------------------------------------------
+def utterance_fmllr_stats(
+    feats: torch.Tensor,  # (B, T, D)
+    frame_lengths,  # (B,) host ints (or a tensor)
+    frame_pdf: torch.Tensor,  # (B, T) int
+    frame_weight: torch.Tensor,  # (B, T) per-frame weights (silence weighting)
+    means: torch.Tensor,  # (P, G, D)
+    inv_vars: torch.Tensor,  # (P, G, D)
+    gconsts: torch.Tensor,  # (P, G), -inf padding
+    miv: torch.Tensor,  # (P, G, D) means * inv_vars
+):
+    """Each utterance's fMLLR statistics in float64: (K (B, D, D+1), G (B,
+    D, D+1, D+1), beta (B,)).
+
+    An utterance's statistics are a function of its own frames alone,
+    whatever the batch size, the padded length or the rows beside it: every
+    product and reduction runs on tensors of the utterance's own n frames,
+    made anew (the same shapes and the same alignment wherever it is
+    batched, so every library call takes the same order). Per frame, in
+    float32 as the features: the posteriors over the pdf's Gaussians and
+    their weighted sums w_mu_iv, w_iv and gamma. Over frames, in float64:
+    one product of [w_mu_iv | gamma | w_iv (x) x+] with x+ for each block
+    of frames counted from the first, the blocks added in order (x+'s last
+    column of ones makes the gamma column's last entry beta)."""
+    B, T, D = feats.shape
+    _P, NG, _ = means.shape
+    E = D + 1
+    F = D + 1 + D * E  # rows of an utterance's statistics: K, beta, G
+    dev = feats.device
+    lengths = host_ints(frame_lengths)
+    gc_all = torch.clamp(gconsts, min=-1.0e30)
+    out = torch.zeros((B, F, E), dtype=torch.float64, device=dev)
+    # frames of one utterance per gathered (frames, G, D) float32 tensor,
+    # and per float64 (frames, F) block of the product over frames
+    step = max(1, _GATHER_CHUNK_BYTES // (NG * D * 4))
+    t_step = max(1, _G_CHUNK_BYTES // (F * 8))
+    for b, n in enumerate(lengths):
+        if n <= 0:
+            continue
+        x = feats[b, :n].clone()
+        pdf = frame_pdf[b, :n].long()
+        fw = frame_weight[b, :n]
+        rows = torch.empty((n, 2 * D + 1), dtype=torch.float32, device=dev)
+        for n0 in range(0, n, step):
+            sl = slice(n0, min(n, n0 + step))
+            p = pdf[sl]
+            xc = x[sl]
+            iv = inv_vars[p]  # (c, G, D)
+            quad = (
+                torch.bmm(miv[p], xc[:, :, None])[..., 0]
+                - 0.5 * torch.bmm(iv, (xc * xc)[:, :, None])[..., 0]
+                + gc_all[p]
+            )  # (c, G)
+            ll = torch.logsumexp(quad, dim=-1, keepdim=True)
+            post = torch.exp(quad - ll) * fw[sl, None]
+            rows[sl, :D] = torch.bmm(post[:, None, :], means[p] * iv)[:, 0]
+            rows[sl, D : 2 * D] = torch.bmm(post[:, None, :], iv)[:, 0]
+            rows[sl, 2 * D] = post.sum(dim=1)
+            del iv
+        rows = rows.to(torch.float64)
+        xp = torch.cat([x, torch.ones((n, 1), dtype=x.dtype, device=dev)], 1)
+        xp = xp.to(torch.float64)
+        for t0 in range(0, n, t_step):
+            ts = slice(t0, min(n, t0 + t_step))
+            z = (rows[ts, D : 2 * D, None] * xp[ts, None, :]).reshape(-1, D * E)
+            left = torch.cat([rows[ts, :D], rows[ts, 2 * D :], z], dim=1)  # (t, F)
+            out[b] += left.T @ xp[ts]
+    return (out[:, :D], out[:, D + 1 :].reshape(B, D, E, E), out[:, D, D])
+
+
+def zero_fmllr_totals(num_speakers: int, D: int, device):
+    """Per-speaker float64 (K, G, beta) totals at zero on ``device``."""
+    f64 = dict(dtype=torch.float64, device=device)
+    return (torch.zeros((num_speakers, D, D + 1), **f64),
+            torch.zeros((num_speakers, D, D + 1, D + 1), **f64),
+            torch.zeros((num_speakers,), **f64))
+
+
 def accumulate_fmllr_stats(
     feats: torch.Tensor,  # (B, T, D)
-    frame_lengths: torch.Tensor,  # (B,)
+    frame_lengths,  # (B,) host ints (or a tensor)
     frame_pdf: torch.Tensor,  # (B, T) int
-    speaker_idx: torch.Tensor,  # (B,) int
+    speaker_idx,  # (B,) host ints (or a tensor)
     frame_weight: torch.Tensor,  # (B, T) per-frame weights (silence weighting)
     means: torch.Tensor,  # (P, G, D)
     inv_vars: torch.Tensor,  # (P, G, D)
     gconsts: torch.Tensor,  # (P, G), -inf padding
     miv: torch.Tensor,  # (P, G, D) means * inv_vars
     num_speakers: int,
+    totals=None,
 ):
     """Per-speaker fMLLR sufficient statistics (Kaldi ``gmm-est-fmllr``):
-    (K (S, D, D+1), G (S, D, D+1, D+1), beta (S,)) in float32 on the
-    features' device. Padded frames take pdf 0 and a zero posterior."""
-    B, T, D = feats.shape
-    _P, NG, _ = means.shape
-    E = D + 1
-    N = B * T
-    dev = feats.device
-    mask = (torch.arange(T, device=dev)[None, :] < frame_lengths[:, None]).reshape(-1)
-    pdf = torch.where(mask, frame_pdf.reshape(-1).long(), 0)
-    x = feats.reshape(N, D)
-    fw = torch.where(mask, frame_weight.reshape(-1), 0.0)
-    gc_all = torch.clamp(gconsts, min=-1.0e30)
-
-    # frame-level sums over each frame's Gaussians, in chunks of frames so
-    # at most three gathered (chunk, G, D) tensors are alive
-    w_mu_iv = torch.empty((N, D), dtype=torch.float32, device=dev)
-    w_iv = torch.empty((N, D), dtype=torch.float32, device=dev)
-    gamma = torch.empty((N,), dtype=torch.float32, device=dev)
-    step = max(1, _GATHER_CHUNK_BYTES // (NG * D * 4))
-    for n0 in range(0, N, step):
-        sl = slice(n0, min(N, n0 + step))
-        p = pdf[sl]
-        xc = x[sl]
-        iv = inv_vars[p]  # (c, G, D)
-        quad = (
-            torch.bmm(miv[p], xc[:, :, None])[..., 0]
-            - 0.5 * torch.bmm(iv, (xc * xc)[:, :, None])[..., 0]
-            + gc_all[p]
-        )  # (c, G)
-        ll = torch.logsumexp(quad, dim=-1, keepdim=True)
-        post = torch.where(mask[sl, None], torch.exp(quad - ll), 0.0)
-        post = post * fw[sl, None]
-        mu_iv = means[p] * iv
-        w_mu_iv[sl] = torch.bmm(post[:, None, :], mu_iv)[:, 0]
-        w_iv[sl] = torch.bmm(post[:, None, :], iv)[:, 0]
-        gamma[sl] = post.sum(dim=1)
-        del iv, mu_iv
-
-    # per-utterance reductions (each utterance has one speaker), then per
-    # speaker
-    xp = torch.cat([feats, torch.ones((B, T, 1), dtype=feats.dtype, device=dev)], 2)
-    w_mu_iv = w_mu_iv.reshape(B, T, D)
-    w_iv = w_iv.reshape(B, T, D)
-    # (S, B) speaker indicator: the per-speaker sums are products with it,
-    # in a fixed order (index_add_ adds with atomics on the card)
-    onehot = (torch.arange(num_speakers, device=dev)[:, None]
-              == speaker_idx.long()[None, :]).to(torch.float32)
-    beta = onehot @ gamma.reshape(B, T).sum(dim=1)
-    K_utt = torch.bmm(w_mu_iv.transpose(1, 2), xp)  # (B, D, E)
-    G_utt = torch.zeros((B, D * E, E), dtype=torch.float32, device=dev)
-    t_step = max(1, _G_CHUNK_BYTES // (B * D * E * 4))
-    for t0 in range(0, T, t_step):
-        ts = slice(t0, min(T, t0 + t_step))
-        z = (w_iv[:, ts, :, None] * xp[:, ts, None, :]).reshape(B, -1, D * E)
-        G_utt += torch.bmm(z.transpose(1, 2), xp[:, ts])
-    K = (onehot @ K_utt.reshape(B, -1)).reshape(num_speakers, D, E)
-    G = (onehot @ G_utt.reshape(B, -1)).reshape(num_speakers, D, E, E)
-    return K, G, beta
+    (K (S, D, D+1), G (S, D, D+1, D+1), beta (S,)) in float64 on the
+    features' device: each utterance's :func:`utterance_fmllr_stats` added
+    to its speaker's total in row order (``ops.feats.add_to_speakers``).
+    With ``totals`` (an earlier return value) this batch's utterances are
+    added to it in place, so a corpus's batches in corpus order give each
+    speaker the same sum whatever the batch size. Pass host arrays for the
+    lengths and speakers: nothing then waits for the card."""
+    D = feats.shape[2]
+    rows = utterance_fmllr_stats(feats, frame_lengths, frame_pdf, frame_weight,
+                                 means, inv_vars, gconsts, miv)
+    if totals is None:
+        totals = zero_fmllr_totals(num_speakers, D, feats.device)
+    for total, row in zip(totals, rows):
+        add_to_speakers(total, row, speaker_idx)
+    return tuple(totals)
 
 
 class FmllrEstimate(NamedTuple):
@@ -262,10 +300,10 @@ class FmllrEstimate(NamedTuple):
 
 
 def stats_to_host(K: torch.Tensor, G: torch.Tensor, beta: torch.Tensor):
-    """The device's float32 sums as float64 numpy arrays for the solve, in
-    one device-to-host copy."""
-    flat = torch.cat([K.reshape(-1), G.reshape(-1), beta.reshape(-1)]).cpu()
-    flat = flat.numpy().astype(np.float64)
+    """The device's float64 totals as numpy arrays for the solve, in one
+    device-to-host copy."""
+    flat = torch.cat([K.reshape(-1), G.reshape(-1), beta.reshape(-1)])
+    flat = flat.to(torch.float64).cpu().numpy()
     nk, ng = K.numel(), G.numel()
     return (flat[:nk].reshape(K.shape), flat[nk : nk + ng].reshape(G.shape),
             flat[nk + ng :].reshape(beta.shape))

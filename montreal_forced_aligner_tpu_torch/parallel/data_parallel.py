@@ -123,9 +123,10 @@ def make_sharded_accumulate_step(mesh, acoustic_scale: float = 0.1) -> Callable:
 def make_sharded_fmllr_stats_step(mesh) -> Callable:
     """Per-speaker fMLLR statistics over the ranks: ``build(num_speakers)``
     gives ``step(feats, frame_lengths, frame_pdf, speaker_idx, frame_weight,
-    means, inv_vars, gconsts, miv) -> (K, G, beta)``, each rank's sums over
-    its rows reduced over every rank (a rank contributes zeros for the
-    speakers it does not hold). Reference semantics:
+    means, inv_vars, gconsts, miv) -> (K, G, beta)``, each rank's float64
+    totals over its rows reduced over every rank (a rank contributes exact
+    zeros for the speakers it does not hold, so a speaker's total is its
+    rank's). Reference semantics:
     ``kalpy.feat.fmllr.FmllrComputer`` per-speaker accumulation,
     ``corpus/features.py:422-548``."""
     from montreal_forced_aligner_tpu_torch.ops.transforms import (

@@ -72,16 +72,17 @@ def _production_final_feats(aligner, corpus) -> List[np.ndarray]:
         _final_feats,
         _mfcc_and_sums,
     )
+    from montreal_forced_aligner_tpu_torch.ops.feats import add_to_speakers, cmvn_means
     from montreal_forced_aligner_tpu_torch.ops.mfcc import pad_waves_for_mfcc
 
     dev = aligner.device
     speaker_index = corpus.speaker_index
     cfg = aligner.mfcc_config
     waves = corpus.load_audio_parallel(cfg.sample_rate)
-    spk_sum: Dict[int, np.ndarray] = {}
-    spk_n: Dict[int, float] = {}
+    spk = [speaker_index[u.speaker] for u in corpus.utterances]
+    utt_sums = []
     raw = []
-    for utt, w in zip(corpus.utterances, waves):
+    for w in waves:
         L = ((len(w) + 15999) // 16000) * 16000
         padded, lens = pad_waves_for_mfcc([w], cfg, L)
         flens = np.array([cfg.num_frames(int(lens[0]))], np.int32)
@@ -89,10 +90,17 @@ def _production_final_feats(aligner, corpus) -> List[np.ndarray]:
             torch.from_numpy(padded).to(dev), torch.from_numpy(flens).to(dev),
             cfg, cfg.num_frames(L),
         )
-        s = speaker_index[utt.speaker]
-        spk_sum[s] = spk_sum.get(s, 0) + sums.cpu().numpy()[0]
-        spk_n[s] = spk_n.get(s, 0.0) + float(flens[0])
+        utt_sums.append(sums[0])
         raw.append(feats[0, : flens[0]])
+    # the aligner's CMVN: float64 totals in the stable length order
+    S = len(corpus.speakers)
+    order = np.argsort([len(w) for w in waves], kind="stable")
+    spk_sum = add_to_speakers(
+        torch.zeros((S, utt_sums[0].shape[0]), dtype=torch.float64, device=dev),
+        torch.stack([utt_sums[i] for i in order]), [spk[i] for i in order])
+    spk_n = np.zeros(S)
+    np.add.at(spk_n, spk, [float(f.shape[0]) for f in raw])
+    means = cmvn_means(spk_sum, torch.from_numpy(spk_n).to(dev)).cpu().numpy()
     model = aligner.model
     lda = (
         torch.from_numpy(np.asarray(model.lda_mat, np.float32)).to(dev)
@@ -100,9 +108,8 @@ def _production_final_feats(aligner, corpus) -> List[np.ndarray]:
         else None
     )
     out = []
-    for utt, feats in zip(corpus.utterances, raw):
-        s = speaker_index[utt.speaker]
-        mean = (spk_sum[s] / max(spk_n[s], 1.0)).astype(np.float32)
+    for s, feats in zip(spk, raw):
+        mean = means[s]
         T = feats.shape[0]
         ff = _final_feats(
             feats[None],

@@ -20,8 +20,10 @@ the ranks. Both passes align through the training alignment
 (``training/base.py``): the state-emission kernel K3 when the model is large enough, then the band
 Viterbi kernels K1 and K2. Both models align unboosted, as the reference
 package's adaptation does. The statistics sum in a fixed order
-(``ops/stats.py``) and the per-batch fMLLR and GMM sums are added in float64
-on the host in batch order, so two runs on one card give identical models.
+(``ops/stats.py``), each utterance's fMLLR statistics are added to its
+speaker's float64 total in corpus order, and the per-batch GMM sums are
+added in float64 on the host in batch order, so two runs on one card give
+identical models.
 """
 
 from __future__ import annotations
@@ -97,8 +99,9 @@ class MapAdapter:
     def _estimate_fmllr(self, pipeline, gmm) -> np.ndarray:
         """Per-speaker fMLLR transforms from the current alignment
         (reference ``calc_fmllr`` within the align workflow,
-        ``corpus/features.py:422-548``, silence_weight=0): statistics on the
-        device per batch, summed on the host in float64 in batch order."""
+        ``corpus/features.py:422-548``, silence_weight=0): float64 totals
+        on the device, each utterance added to its speaker's in corpus
+        order, fetched once."""
         from montreal_forced_aligner_tpu_torch.ops.feats import (
             nonsilence_weight,
             silence_pdf_mask,
@@ -106,6 +109,8 @@ class MapAdapter:
         from montreal_forced_aligner_tpu_torch.ops.transforms import (
             accumulate_fmllr_stats,
             estimate_speaker_fmllr,
+            stats_to_host,
+            zero_fmllr_totals,
         )
         from montreal_forced_aligner_tpu_torch.params import fmllr_params_from_numpy
 
@@ -113,26 +118,18 @@ class MapAdapter:
         fm = fmllr_params_from_numpy(
             gmm, silence_pdf_mask(self.aligner._silence_pdfs(), gmm.num_pdfs)
         ).to(pipeline.device)
-        pending = []
+        totals = zero_fmllr_totals(S, gmm.dim, pipeline.device)
         for fb in pipeline.batches:
-            pending.append(
-                accumulate_fmllr_stats(
-                    fb.put_b(fb.feats),
-                    pipeline.put_b(fb.frame_lengths),
-                    fb.frame_pdf,
-                    pipeline.put_b(fb.speaker_idx.astype(np.int64)),
-                    nonsilence_weight(fb.frame_pdf, fm.sil_mask),
-                    fm.means, fm.inv_vars, fm.gconsts, fm.miv, S,
-                )
+            accumulate_fmllr_stats(
+                fb.put_b(fb.feats),
+                fb.frame_lengths,
+                fb.frame_pdf,
+                fb.speaker_idx,
+                nonsilence_weight(fb.frame_pdf, fm.sil_mask),
+                fm.means, fm.inv_vars, fm.gconsts, fm.miv, S,
+                totals=totals,
             )
-        D = gmm.dim
-        K = np.zeros((S, D, D + 1))
-        G = np.zeros((S, D, D + 1, D + 1))
-        beta = np.zeros(S)
-        for k, g, b in fetch_all(pending):
-            K += k.astype(np.float64)
-            G += g.astype(np.float64)
-            beta += b.astype(np.float64)
+        K, G, beta = stats_to_host(*totals)
         return estimate_speaker_fmllr(
             K, G, beta, min_count=self.aligner.config.fmllr_min_count
         )

@@ -43,8 +43,10 @@ from montreal_forced_aligner_tpu_torch.graph.compiler import (
     ship_graph_to_device,
 )
 from montreal_forced_aligner_tpu_torch.ops.feats import (
+    add_to_speakers,
     apply_per_speaker_transform,
     apply_transform,
+    cmvn_means,
     compute_deltas,
     splice_frames,
 )
@@ -421,8 +423,9 @@ class TrainingPipeline:
             for i in range(0, len(order), self.batch_size)
         ]
         D = self.mfcc_config.num_coefficients
-        spk_sum = np.zeros((num_speakers, D))
-        spk_count = np.zeros(num_speakers)
+        # float64 totals on the host, one utterance at a time in corpus order
+        spk_sum = torch.zeros((num_speakers, D), dtype=torch.float64)
+        spk_count = torch.zeros(num_speakers, dtype=torch.float64)
         from montreal_forced_aligner_tpu_torch.align.aligner import (
             resolve_transfer_mode,
         )
@@ -456,14 +459,12 @@ class TrainingPipeline:
         for (batch, _f, flens, _s), sums in zip(
             stash, fetch_all([s for _b, _f, _fl, s in stash])
         ):
+            spk = [speaker_index[corpus.utterances[i].speaker] for i in batch]
             for row, i in enumerate(batch):
                 corpus.utterances[i].num_frames = int(flens[row])
-                s = speaker_index[corpus.utterances[i].speaker]
-                spk_sum[s] += sums[row]
-                spk_count[s] += flens[row]
-        self._spk_mean = (spk_sum / np.maximum(spk_count, 1.0)[:, None]).astype(
-            np.float32
-        )
+            add_to_speakers(spk_sum, torch.from_numpy(sums[: len(batch)]), spk)
+            add_to_speakers(spk_count, torch.from_numpy(flens[: len(batch)]), spk)
+        self._spk_mean = cmvn_means(spk_sum, spk_count).numpy()
         # normalize and finalize features on the device (raw = CMVN'd MFCCs
         # kept for later stages that change the feature transform)
         for batch, feats_dev, flens, _sums in stash:

@@ -23,6 +23,8 @@ from montreal_forced_aligner_tpu_torch.models.transition_model import HmmTopolog
 from montreal_forced_aligner_tpu_torch.ops.transforms import (
     accumulate_fmllr_stats,
     estimate_speaker_fmllr,
+    stats_to_host,
+    zero_fmllr_totals,
 )
 from montreal_forced_aligner_tpu_torch.training.base import (
     TrainerConfig,
@@ -101,9 +103,6 @@ class SatTrainer(TriphoneTrainer):
         # dense speaker space of the (rank's) corpus
         S = len(pipeline.corpus.speakers)
         D = pipeline.feature_dim
-        K = np.zeros((S, D, D + 1))
-        G = np.zeros((S, D, D + 1, D + 1))
-        beta = np.zeros(S)
         means = pipeline.put_rep(self.gmm.get_means())
         iv = pipeline.put_rep(self.gmm.inv_vars)
         gc = pipeline.put_rep(self.gmm.gconsts)
@@ -113,30 +112,27 @@ class SatTrainer(TriphoneTrainer):
         sil_mask = pipeline.put_rep(
             silence_pdf_mask(self._silence_pdfs(), self.gmm.num_pdfs)
         )
-        pending = []
+        # float64 totals on the device, each utterance added to its
+        # speaker's in corpus order; a rank holds its speakers whole (the
+        # corpus shards by speaker): their transforms come from this rank's
+        # statistics alone
+        totals = zero_fmllr_totals(S, D, pipeline.device)
         for fb in pipeline.batches:
             weight = self._silence_weight_mask(fb, sil_mask)
-            out = accumulate_fmllr_stats(
+            accumulate_fmllr_stats(
                 fb.put_b(fb.feats),
-                pipeline.put_b(fb.frame_lengths),
+                fb.frame_lengths,
                 fb.frame_pdf,
-                pipeline.put_b(fb.speaker_idx),
+                fb.speaker_idx,
                 weight,
                 means,
                 iv,
                 gc,
                 miv,
                 S,
+                totals=totals,
             )
-            pending.append(out)
-        from montreal_forced_aligner_tpu_torch.training.base import fetch_all
-
-        # a rank holds its speakers whole (the corpus shards by speaker):
-        # their transforms come from this rank's statistics alone
-        for k, g, b in fetch_all(pending):
-            K += k
-            G += g
-            beta += b
+        K, G, beta = stats_to_host(*totals)
         inc = estimate_speaker_fmllr(K, G, beta, min_count=self.fmllr_min_count)
         if self.speaker_transforms is None:
             self.speaker_transforms = inc

@@ -15,7 +15,7 @@ speaker-independent model, per-speaker fMLLR, then the final model on the
 adapted features.
 
 The pipeline: audio load -> phase A (MFCC and per-speaker CMVN sums on the
-device, the aligner's ``_mfcc_and_spk_stats``, or float16 MFCCs from the
+device, the aligner's ``_mfcc_and_sums``, or float16 MFCCs from the
 host in the "features" transfer mode) -> decoding graph (built
 once per LM) -> final features (``_final_feats``) -> [fMLLR first pass] ->
 decode -> one fetch of every path -> words.
@@ -47,7 +47,9 @@ from montreal_forced_aligner_tpu_torch.language_modeling.ngram import (
     train_lm_from_texts,
 )
 from montreal_forced_aligner_tpu_torch.ops.feats import (
+    add_to_speakers,
     apply_per_speaker_transform,
+    cmvn_means,
     nonsilence_weight,
 )
 from montreal_forced_aligner_tpu_torch.ops.gmm_loglikes import (
@@ -63,6 +65,7 @@ from montreal_forced_aligner_tpu_torch.ops.transforms import (
     accumulate_fmllr_stats,
     estimate_speaker_fmllr,
     stats_to_host,
+    zero_fmllr_totals,
 )
 from montreal_forced_aligner_tpu_torch.ops.viterbi import (
     NEG_INF,
@@ -515,7 +518,7 @@ class Transcriber:
                                                   device=dev)
         self.last_transfer_mode = transfer_mode
         D = cfg.num_coefficients
-        spk_total = torch.zeros((num_speakers, D), dtype=torch.float32, device=dev)
+        spk_total = torch.zeros((num_speakers, D), dtype=torch.float64, device=dev)
         spk_count = np.zeros(num_speakers, dtype=np.float64)
         stashes = []
         for batch in batches:
@@ -532,22 +535,18 @@ class Transcriber:
             if transfer_mode == "features":
                 feats16 = mfcc_host_batch(padded, cfg, cfg.num_frames(L)).astype(
                     np.float16)
-                feats, bsum = _al._feats_and_spk_stats(
-                    torch.from_numpy(feats16).to(dev), flens_dev, spk_dev,
-                    num_speakers,
-                )
+                feats, sums = _al._feats_and_sums(
+                    torch.from_numpy(feats16).to(dev), flens_dev)
             else:
-                feats, bsum = _al._mfcc_and_spk_stats(
-                    torch.from_numpy(padded).to(dev), flens_dev, spk_dev, cfg,
-                    cfg.num_frames(L), num_speakers,
+                feats, sums = _al._mfcc_and_sums(
+                    torch.from_numpy(padded).to(dev), flens_dev, cfg,
+                    cfg.num_frames(L),
                 )
-            spk_total += bsum
+            add_to_speakers(spk_total, sums, spk_idx)
             np.add.at(spk_count, spk_idx, flens.astype(np.float64))
             stashes.append((batch, flens, feats, flens_dev, spk_dev))
         mark("phase_a_dispatch")
-        spk_mean = spk_total / torch.from_numpy(
-            np.maximum(spk_count, 1.0).astype(np.float32)
-        ).to(dev)[:, None]
+        spk_mean = cmvn_means(spk_total, torch.from_numpy(spk_count).to(dev))
         prepared = []
         for batch, flens, feats, flens_dev, spk_dev in stashes:
             ff = _al._final_feats(feats, flens_dev, spk_mean[spk_dev], al.gmm.lda)
@@ -561,7 +560,9 @@ class Transcriber:
             # the same records as the final decode
             prepared = self._lvcsr_split_rows(prepared, nbest)
         if al.two_pass:
-            prepared = self._fmllr_decode_feats(prepared, num_speakers, mark)
+            utt_spk = np.array([speaker_index[u.speaker] for u in corpus.utterances])
+            prepared = self._fmllr_decode_feats(prepared, num_speakers, mark,
+                                                utt_spk)
         if self._lvcsr is not None:
             results = self._transcribe_prepared_lvcsr(
                 prepared, corpus, al.frame_shift, nbest, rescore_lm,
@@ -1007,16 +1008,17 @@ class Transcriber:
         return results
 
     # -- SAT two-pass ----------------------------------------------------------
-    def _fmllr_decode_feats(self, prepared, num_speakers, mark):
+    def _fmllr_decode_feats(self, prepared, num_speakers, mark, utt_spk):
         """Two-pass SAT decoding: a first-pass decode with the
         speaker-independent model, per-speaker fMLLR from the first-pass
         labels (silence weighted), then adapted features for the final
-        decode (reference ``transcription/transcriber.py:1120-1198``). Each
-        batch's statistics are summed on the host in float64, in batch
-        order."""
+        decode (reference ``transcription/transcriber.py:1120-1198``). The
+        statistics are float64 totals on the device, each utterance added
+        to its speaker's in corpus order (``utt_spk``: each corpus
+        utterance's speaker index), fetched once."""
         al = self.aligner
         fm = al.fmllr
-        stats = []
+        stats = zero_fmllr_totals(num_speakers, fm.means.shape[2], self.device)
         for b in prepared:
             if self._lvcsr is not None:
                 traces = self._lvcsr_decode(b, al.si_gmm)
@@ -1029,21 +1031,14 @@ class Transcriber:
                     use_emission_kernel=al.si_use_emission_kernel,
                 )
                 frame_pdf = b.graph.state_pdf.gather(1, state_path.long())
-            stats.append(accumulate_fmllr_stats(
-                b.ff, b.flens_dev, frame_pdf, b.spk_dev,
+            accumulate_fmllr_stats(
+                b.ff, b.flens, frame_pdf, utt_spk[b.utts],
                 nonsilence_weight(frame_pdf, fm.sil_mask),
                 fm.means, fm.inv_vars, fm.gconsts, fm.miv, num_speakers,
-            ))
+                totals=stats,
+            )
         mark("fmllr_pass1")
-        D = fm.means.shape[2]
-        K = np.zeros((num_speakers, D, D + 1))
-        G = np.zeros((num_speakers, D, D + 1, D + 1))
-        beta = np.zeros(num_speakers)
-        for out in stats:
-            k, g, bta = stats_to_host(*out)
-            K += k
-            G += g
-            beta += bta
+        K, G, beta = stats_to_host(*stats)
         mark("fmllr_stats_fetch")
         transforms = estimate_speaker_fmllr(
             K, G, beta, min_count=al.config.fmllr_min_count

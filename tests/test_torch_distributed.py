@@ -13,11 +13,13 @@ within 2e-3, transition log-probabilities within 1e-4; at W = 1 the model
 and its iteration log bit-identical to the non-distributed run's; the two
 ranks' models bit-identical. Alignment at W = 2: speaker-independent
 intervals identical to the single run's and scores within 1e-5 relative
-plus 1e-3 (a rank's batches group a speaker's utterances otherwise, so its
-float32 CMVN sums round otherwise), a pitch model's too (a row's pitch
-does not depend on its batch); the SAT
+plus 1e-3, a pitch model's too (a row's pitch does not depend on its
+batch); the SAT
 two-pass with identical phone sequences and boundaries within 11 ms (one
-frame; fMLLR statistics sum in another order). ``devices=("cpu", "cpu")``:
+frame), and each speaker's fMLLR totals bit for bit the single run's at
+another batch size (float64 sums of its utterances in corpus order), its
+transform within atol 1e-6, intervals identical and scores within 1e-4.
+``devices=("cpu", "cpu")``:
 intervals and scores identical. CLI: the union of the ranks' exports is
 the single run's, file for file.
 """
@@ -295,6 +297,55 @@ def test_aligner_two_ranks(sat2, mono):
         for i in want:
             # per-speaker CMVN sums group the utterances into other batches
             assert abs(got0[i][2] - want[i][2]) <= 1e-5 * abs(want[i][2]) + 1e-3
+
+
+def _fmllr_rank(rank, world, model_path, dict_path, corpus_dir, batch_size):
+    """A rank (or, at W = 1, the single run) aligning two-pass: its
+    intervals and scores, and each of its speakers' fMLLR totals and
+    transform by speaker name."""
+    from montreal_forced_aligner_tpu_torch.align.aligner import (
+        AlignerConfig,
+        PretrainedAligner,
+    )
+    from montreal_forced_aligner_tpu_torch.corpus.corpus import Corpus
+    from montreal_forced_aligner_tpu_torch.parallel.multihost import shard_corpus
+
+    al = PretrainedAligner(model_path, dict_path, AlignerConfig(
+        batch_size=batch_size, distributed=world > 1), device="cpu")
+    corpus = Corpus.load(corpus_dir)
+    results = _intervals(al.align_corpus(corpus))
+    speakers = shard_corpus(corpus)[0].speakers if world > 1 else corpus.speakers
+    fm = al.last_fmllr
+    return results, {name: (fm.K[s], fm.G[s], fm.beta[s], fm.transforms[s])
+                     for s, name in enumerate(speakers)}
+
+
+def test_aligner_two_ranks_fmllr_totals(sat2):
+    """The SAT two-pass at W = 2 against the single run at another batch
+    size: each rank's speakers' fMLLR totals (K, G, beta) bit for bit the
+    single run's (a speaker's utterances are float64 sums in corpus order
+    on either side), their transforms within atol 1e-6, the intervals
+    identical and the scores within 1e-4."""
+    ranks = run_ranks(_fmllr_rank, 2, args=(*sat2, 1), timeout=RANK_TIMEOUT,
+                      threads=2)
+    # the single run with the ranks' thread count: the CPU's float64
+    # products split their work by it
+    (want, want_spk), = run_ranks(_fmllr_rank, 1, args=(*sat2, 4),
+                                  timeout=RANK_TIMEOUT, threads=2)
+    got_spk = {**ranks[0][1], **ranks[1][1]}
+    assert not set(ranks[0][1]) & set(ranks[1][1])
+    assert sorted(got_spk) == sorted(want_spk) and len(want_spk) == 2
+    for name, (K, G, beta, trans) in want_spk.items():
+        gK, gG, gbeta, gtrans = got_spk[name]
+        assert beta > 0
+        for g, w in ((gK, K), (gG, G), (gbeta, beta)):
+            assert np.array_equal(g, w), (name, np.abs(g - w).max())
+        assert np.abs(gtrans - trans).max() <= 1e-6, name
+    for got, _spk in ranks:
+        assert sorted(got) == sorted(want)
+        for i, (phones, words, score) in want.items():
+            assert got[i][:2] == (phones, words), i
+            assert abs(got[i][2] - score) <= 1e-4, i
 
 
 @pytest.fixture(scope="module")

@@ -2,8 +2,8 @@
 same inputs made with numpy from a seed.
 
 Tolerances: the statistics within rtol 1e-4 of each tensor's largest
-magnitude (float32 sums in another order: per chunk of frames and per
-utterance here, one einsum over all frames there); the native solve within
+magnitude (float64 sums of each utterance's frames and of each speaker's
+utterances here, float32 sums in one einsum over all frames there); the native solve within
 atol 2e-4 of the JAX package's solve and of the port's numpy sweep (the JAX
 package's own bar for its native solver); the transform and the silence
 weight within atol 1e-5.
@@ -49,7 +49,7 @@ def test_accumulate_fmllr_stats_matches_jax(monkeypatch, chunks):
         a["num_speakers"],
     )
     for g, w in zip(got, want):
-        assert g.dtype == torch.float32
+        assert g.dtype == torch.float64
         _close_to_scale(g.numpy(), np.asarray(w))
     # padded frames take no part: junk in them changes nothing
     junk = a["feats"].copy()

@@ -104,10 +104,14 @@ def test_phase_a_speaker_sums_match_jax():
         jnp.asarray(padded), jnp.asarray(flens), jnp.asarray(spk), cfg,
         max_frames, 3,
     )
-    f_p, s_p = PA._mfcc_and_spk_stats(
-        _t(padded), _t(flens), _t(spk.astype(np.int64)),
-        PM.MfccConfig(**cfg.__dict__), max_frames, 3,
+    # the port: each utterance's float64 sums, added to its speaker's total
+    # one utterance at a time
+    f_p, u_p = PA._mfcc_and_sums(
+        _t(padded), _t(flens), PM.MfccConfig(**cfg.__dict__), max_frames,
     )
+    assert u_p.dtype == torch.float64
+    s_p = PF.add_to_speakers(torch.zeros((3, u_p.shape[1]), dtype=torch.float64),
+                             u_p, spk)
     np.testing.assert_allclose(f_p.numpy(), np.asarray(f_j), rtol=1e-5, atol=1e-4)
     np.testing.assert_allclose(
         s_p.numpy(), np.asarray(s_j), rtol=1e-5, atol=1e-4 * flens.sum()

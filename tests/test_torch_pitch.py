@@ -19,7 +19,10 @@ one utterance a batch and its MFCC columns those of the pipeline without
 pitch, bit for bit; a model trained with pitch aligns every utterance in
 both packages at the JAX package's parity bar, and in the port each
 utterance alike at batch sizes 1, 2 and 4 (frames equal, scores within
-1e-3); fine-tuned boundaries within 1 ms of the JAX package's.
+1e-3); a SAT model's two-pass (align, transcribe, the SAT stage's fMLLR,
+adapt) alike at batch sizes 1 and 4 (intervals equal, scores within 1e-4,
+transforms within atol 1e-6); fine-tuned boundaries within 1 ms of the JAX
+package's.
 """
 
 import numpy as np
@@ -390,6 +393,113 @@ def test_pitch_alignment_does_not_depend_on_the_batch(trained, aligned_alone,
     for k, want in aligned_alone.items():
         assert _intervals(got[k]) == _intervals(want), k
         assert abs(got[k].log_likelihood - want.log_likelihood) <= 1e-3, k
+
+
+@pytest.fixture(scope="module")
+def sat_case(tmp_path_factory):
+    """A reduced SAT-scale model (no pitch), 8 utterances of 2-4 s over 3
+    speakers (3, 3 and 2 utterances) and a bigram over its words."""
+    import chip_smoke
+    from montreal_forced_aligner_tpu_torch.language_modeling.ngram import (
+        train_lm_from_texts,
+    )
+
+    tmp = tmp_path_factory.mktemp("sat_batch")
+    model_path, dict_path, words = chip_smoke.build_sat_scale_model(
+        tmp, num_phones=6, gauss_per_pdf=4, num_words=20)
+    corpus_dir, _ = chip_smoke.build_corpus(tmp, words, 8, min_s=2.0, max_s=4.0,
+                                            num_speakers=3)
+    # a bigram over 6 of the words keeps the CPU's dense decode short
+    rng = np.random.RandomState(5)
+    lm, _ = train_lm_from_texts([" ".join(rng.choice(sorted(words)[:6], 5))
+                                 for _ in range(40)], order=2)
+    return model_path, dict_path, corpus_dir, lm
+
+
+def _sat_stage_fmllr(adapter, pipeline, gmm):
+    """The SAT training stage's fMLLR estimate (``SatTrainer._estimate_fmllr``:
+    its statistics over the pipeline's batches, the solve, the adapted
+    features and a realignment) on the adapter's pass-1 alignment."""
+    from montreal_forced_aligner_tpu_torch.training.sat import SatTrainer
+
+    model = adapter.aligner.model
+    trainer = SatTrainer(adapter.aligner.lexicon, model.transition_model.topo,
+                         lda_mat=model.lda_mat,
+                         fmllr_min_count=adapter.aligner.config.fmllr_min_count)
+    trainer.tm, trainer.tree, trainer.gmm = model.transition_model, model.tree, gmm
+    trainer._estimate_fmllr(pipeline)
+    return trainer.speaker_transforms
+
+
+def _sat_run(path, sat_case, batch_size, monkeypatch):
+    """One path's SAT two-pass at ``batch_size``: ({utterance: (intervals
+    or final state path, score)}, per-speaker transforms)."""
+    import montreal_forced_aligner_tpu_torch.training.adapt as PAD
+    from montreal_forced_aligner_tpu_torch.transcription.transcriber import (
+        Transcriber,
+    )
+
+    model_path, dict_path, corpus_dir, lm = sat_case
+    corpus = PCorpus.load(corpus_dir)
+    if path == "align":
+        aligner = PAligner(model_path, dict_path, PConfig(batch_size=batch_size),
+                           device="cpu")
+        assert aligner.two_pass
+        res = aligner.align_corpus(corpus)
+        return ({k: (_intervals(a), a.log_likelihood) for k, a in res.items()},
+                aligner.last_fmllr.transforms)
+    if path == "transcribe":
+        tr = Transcriber(model_path, dict_path, lm=lm, batch_size=batch_size,
+                         device="cpu")
+        assert tr.aligner.two_pass
+        # the decoder's per-frame loop launches many small ops: one thread
+        # keeps parallel test workers from oversubscribing the cores
+        threads = torch.get_num_threads()
+        torch.set_num_threads(1)
+        try:
+            res = tr.transcribe_corpus(corpus)
+        finally:
+            torch.set_num_threads(threads)
+        return ({k: (r.text, r.log_likelihood) for k, r in res.items()},
+                tr.last_fmllr.transforms)
+    got = {}
+    real = PAD.MapAdapter._estimate_fmllr
+
+    def recording(self, pipeline, gmm):
+        est = real if path == "adapt" else _sat_stage_fmllr
+        got["transforms"] = est(self, pipeline, gmm)
+        return got["transforms"]
+
+    monkeypatch.setattr(PAD.MapAdapter, "_estimate_fmllr", recording)
+    adapter = PAD.MapAdapter(model_path, dict_path, 20.0,
+                             PConfig(batch_size=batch_size), device="cpu")
+    adapter.adapt(corpus_dir)
+    out = {}
+    for fb in adapter.pipeline.batches:
+        paths, scores = fb.host_state_path(), fb.host_align_scores()
+        for row, i in enumerate(fb.utt_indices):
+            L = int(fb.frame_lengths[row])
+            out[i] = (paths[row, :L].tolist(), float(scores[row]))
+    return out, got["transforms"]
+
+
+@pytest.mark.parametrize("path", ["align", "transcribe", "sat_stage", "adapt"])
+def test_sat_two_pass_does_not_depend_on_the_batch(sat_case, path, monkeypatch):
+    """A SAT model's two-pass on each path at batch sizes 1 and 4: each
+    speaker's CMVN and fMLLR statistics are float64 sums of its utterances
+    in corpus order, so the same intervals (the words, for transcribe; the
+    final alignment, for the SAT stage and adapt), scores within 1e-4 nats
+    and transforms within atol 1e-6; the entries that differ at all are
+    counted in the assertion's message (0 on this CPU)."""
+    want, want_t = _sat_run(path, sat_case, 1, monkeypatch)
+    got, got_t = _sat_run(path, sat_case, 4, monkeypatch)
+    assert sorted(got) == sorted(want) and len(want) == 8
+    assert want_t.shape[0] == 3
+    differ = int((got_t != want_t).sum())
+    assert np.abs(got_t - want_t).max() <= 1e-6, differ
+    for k, (labels, score) in want.items():
+        assert got[k][0] == labels, k
+        assert abs(got[k][1] - score) <= 1e-4, (k, differ)
 
 
 def test_fine_tune_matches_jax(trained):

@@ -1,7 +1,7 @@
 """``chip_smoke.py``'s adapt, graph-compile, pitch, fine-tune,
 transcription, segmentation, G2P, multi-GPU (with ``MFA`` and the parity
-harness), transfer-features, pitch-paths and lvcsr-chain-major phases at a
-tiny size on the CPU, where
+harness), transfer-features, pitch-paths, lvcsr-chain-major and speaker
+statistics phases at a tiny size on the CPU, where
 every kernel wrapper takes its plain version (so no launches are counted):
 their reports, checks and the kernels line with adapt's, the dense
 decode's and g2p-align's launches and checks."""
@@ -378,3 +378,20 @@ def test_transfer_pitch_and_chain_major_phases_run_on_cpu(fixture, tmp_path,
     assert chain["utterances"] == 3 and chain["rows"] >= 1
     assert chain["cross_word"]["ckpt_vs_host_score_diff"] <= 1e-4
     assert chain["word_internal"]["position_major_vs_host_score_diff"] <= 1e-4
+
+
+def test_speaker_stats_invariance_runs_on_cpu(fixture):
+    """The speaker statistics line at a tiny size: the fMLLR totals of the
+    first pass's inputs rebatched at 1, 2 and 6, and the CMVN sums of the
+    batch-1 MFCC rows rebatched, bit for bit alike (the phase checks it);
+    on the CPU the MFCC rows, CMVN means and transforms are alike too."""
+    _tmp, model_path, dict_path, corpus_dir, *_ = fixture
+    out = chip_smoke.speaker_stats_invariance(model_path, dict_path, corpus_dir,
+                                              torch.device("cpu"),
+                                              batch_sizes=(1, 2, 6))
+    assert out["utterances"] == 6 and out["speakers"] == 2
+    assert out["fmllr_totals_bit_identical"] and out["cmvn_sums_bit_identical"]
+    for key in ("transforms_max_abs_diff", "mfcc_rows_max_abs_diff",
+                "cmvn_means_max_abs_diff"):
+        assert out[key] == {"2": 0.0, "6": 0.0}, key
+    assert sorted(out["fmllr_stats_synced_s"]) == ["1", "2", "6"]

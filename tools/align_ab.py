@@ -12,7 +12,9 @@ runs each (default 5; 0 skips them). With TRAIN_RUNS (default 0), it then
 trains ``chip_smoke.py``'s train-mono workload once unmeasured and
 TRAIN_RUNS times with the card synchronised at each phase, and keeps each
 run's wall and phase seconds. Prints one JSON line: LABEL and, per path,
-the warm walls, their median, the synchronised run and its phases.
+the warm walls, their median, the synchronised run and its phases, the
+fMLLR summary (null for sat-si) and the card's peak memory over the
+path's runs.
 
 To compare a change with its parent, unpack the parent with ``git archive``
 into a git-ignored directory and run both in one call to the card,
@@ -75,14 +77,17 @@ def main() -> int:
         model_path, dict_path, words = chip_smoke.build_sat_scale_model(tmp)
         corpus_dir, _ = chip_smoke.build_corpus(tmp, words, 64)
         for adaptation in (True, False) if warm else ():
+            torch.cuda.reset_peak_memory_stats()
             report, _aligner, _calls = chip_smoke.run_main_path(
                 model_path, dict_path, corpus_dir, tmp / f"tg{adaptation}", device,
                 warm_runs=warm, adaptation=adaptation,
             )
             out[report["path"]] = {
                 k: report[k] for k in ("warm_walls_s", "warm_median_wall_s",
-                                       "synced_wall_s", "phases_synced_s")
+                                       "synced_wall_s", "phases_synced_s",
+                                       "fmllr")
             }
+            out[report["path"]]["peak_memory_bytes"] = torch.cuda.max_memory_allocated()
         if train_runs:
             out["train-mono"] = train_mono_runs(corpus_dir, dict_path, device,
                                                 train_runs)
