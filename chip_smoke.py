@@ -35,8 +35,9 @@ What it does, in order; any failure exits non-zero with no result line:
    JAX package's parity bar; then **speaker_stats_invariance**: the first
    pass's inputs of sat-2pass rebatched at 1, 8 and 32 give bit-identical
    per-speaker fMLLR totals and the same MFCC rows bit-identical CMVN
-   sums (the MFCC rows', CMVN means' and transforms' largest differences
-   between batch sizes reported);
+   sums, and each batching's own MFCC rows, CMVN means, LDA rows,
+   fMLLR-applied rows and all-pdf log-likelihood rows are bit-identical
+   (the transforms' largest differences between batch sizes reported);
 7. holds each kernel against its plain version on the real inputs of the
    first batch of sat-si and of sat-2pass's second pass (adapted features,
    final model): K1 backpointers and K2 states bit-identical, K1 alpha
@@ -902,28 +903,32 @@ def fmllr_summary(aligner):
 
 def speaker_stats_invariance(model_path, dict_path, corpus_dir, device,
                              batch_sizes=(1, 8, 32)):
-    """**speaker_stats_invariance**: a speaker's CMVN and fMLLR statistics
-    do not move with the batching. The first pass of sat-2pass at batch 32
-    fixes each utterance's features, frame pdfs and weights (the recorded
-    inputs of ``accumulate_fmllr_stats``); those utterances, rebatched at
-    each of ``batch_sizes`` (consecutive slices of the corpus order, each
-    batch padded to its own longest utterance), give per-speaker float64
-    totals bit-identical to one utterance a batch, and so do the CMVN sums
-    (``ops.feats.frame_sums``) of the batch-1 MFCC rows rebatched. Reported:
-    each batching's synchronised seconds in the fMLLR statistics, the
-    transforms' and the CMVN means' largest differences from batch 1 (the
-    means from each batching's own MFCCs), and the MFCC rows' largest
-    difference from batch 1 (the mel product is a GEMM over the batch's
-    rows: that is the feature layer's)."""
+    """**speaker_stats_invariance**: a speaker's CMVN and fMLLR statistics,
+    and each utterance's features, do not move with the batching. The
+    first pass of sat-2pass at batch 32 fixes each utterance's features,
+    frame pdfs and weights (the recorded inputs of
+    ``accumulate_fmllr_stats``); those utterances, rebatched at each of
+    ``batch_sizes`` (consecutive slices of the corpus order, each batch
+    padded to its own longest utterance), give per-speaker float64 totals
+    bit-identical to one utterance a batch, and so do the CMVN sums
+    (``ops.feats.frame_sums``) of the batch-1 MFCC rows rebatched. Each
+    batching's own MFCC rows and CMVN means, and its rows through the rest
+    of the feature layer (``ops.tiles``: the final features' LDA, one fixed
+    set of fMLLR transforms, the all-pdf log-likelihoods of the SAT-scale
+    model), are bit-identical to batch 1's. Reported: each batching's
+    synchronised seconds in the fMLLR statistics and in the feature
+    layer's rows, and each quantity's largest difference from batch 1."""
     import torch
 
     import montreal_forced_aligner_tpu_torch.align.aligner as aligner_mod
     from montreal_forced_aligner_tpu_torch.corpus.corpus import Corpus
     from montreal_forced_aligner_tpu_torch.ops.feats import (
         add_to_speakers,
+        apply_per_speaker_transform,
         cmvn_means,
         frame_sums,
     )
+    from montreal_forced_aligner_tpu_torch.ops.gmm_loglikes import gmm_loglikes
     from montreal_forced_aligner_tpu_torch.ops.mfcc import pad_waves_for_mfcc
     from montreal_forced_aligner_tpu_torch.ops.transforms import (
         accumulate_fmllr_stats,
@@ -1009,20 +1014,54 @@ def speaker_stats_invariance(model_path, dict_path, corpus_dir, device,
         _check(torch.equal(sums[bs], sums[base]),
                f"CMVN sums of the same MFCC rows at batch {bs} differ from batch "
                f"{base}")
+
+    # each batching's MFCC rows through the final features (CMVN by its own
+    # means, splice, LDA), the base batching's transforms and all pdfs
+    gmm = aligner.gmm
+    fixed = torch.from_numpy(transforms[base]).to(device, torch.float32)
+
+    def layer_rows(bs):
+        for (x,), flens, spk in rebatch(list(zip(mfcc[bs], spk_of)), bs):
+            spk_t = torch.tensor(spk, device=device)
+            ff = aligner_mod._final_feats(x, torch.tensor(flens, device=device),
+                                          means[bs][spk_t], gmm.lda)
+            fm = apply_per_speaker_transform(ff, spk_t, fixed)
+            ll = gmm_loglikes(fm, gmm.W, gmm.gconsts)
+            for r, n in enumerate(flens):
+                yield ff[r, :n], fm[r, :n], ll[r, :n]
+
+    layers = ("lda_rows", "fmllr_rows", "all_pdf_loglike_rows")
+    _sync(device)
+    t0 = time.perf_counter()
+    base_rows = list(layer_rows(base))
+    _sync(device)
+    layer_s = {str(base): time.perf_counter() - t0}
+    diffs = {name: {} for name in ("mfcc_rows", "cmvn_means") + layers}
+    for bs in batch_sizes[1:]:
+        worst = dict.fromkeys(layers, 0.0)
+        t0 = time.perf_counter()
+        for got, want in zip(layer_rows(bs), base_rows):
+            for name, a, b in zip(layers, got, want):
+                worst[name] = max(worst[name], float((a - b).abs().max()))
+        _sync(device)
+        layer_s[str(bs)] = time.perf_counter() - t0
+        worst["mfcc_rows"] = max(float((a - b).abs().max())
+                                 for a, b in zip(mfcc[bs], mfcc[base]))
+        worst["cmvn_means"] = float((means[bs] - means[base]).abs().max())
+        for name, v in worst.items():
+            diffs[name][str(bs)] = v
+            _check(v == 0.0, f"{name} at batch {bs} differ from batch {base} by {v}")
     return {
         "utterances": len(utts), "speakers": num_speakers,
         "batch_sizes": list(batch_sizes), "fmllr_totals_bit_identical": True,
         "cmvn_sums_bit_identical": True,
+        "feature_rows_bit_identical": True,
         "fmllr_stats_synced_s": {str(bs): v for bs, v in seconds.items()},
+        "feature_rows_synced_s": layer_s,
         "transforms_max_abs_diff": {
             str(bs): float(np.abs(transforms[bs] - transforms[base]).max())
             for bs in batch_sizes[1:]},
-        "mfcc_rows_max_abs_diff": {
-            str(bs): max(float((a - b).abs().max()) for a, b in zip(mfcc[bs], mfcc[base]))
-            for bs in batch_sizes[1:]},
-        "cmvn_means_max_abs_diff": {
-            str(bs): float((means[bs] - means[base]).abs().max())
-            for bs in batch_sizes[1:]},
+        **{f"{name}_max_abs_diff": v for name, v in diffs.items()},
     }
 
 
@@ -1161,20 +1200,23 @@ def batch_inputs(counted, first_call: int):
 
 def busy_seconds(prof):
     """Seconds in the union of the card's busy intervals (its kernels and
-    copies) that a ``torch.profiler`` run saw."""
+    copies) that a ``torch.profiler`` run saw. Read from the profiler's raw
+    events: building its event tree (``prof.events()``) took 44-92 s of
+    host time for transcribe-dense's profiled run on an H100 machine."""
     import torch
 
-    spans = sorted((e.time_range.start, e.time_range.end) for e in prof.events()
-                   if e.device_type == torch.autograd.DeviceType.CUDA)
+    spans = sorted((e.start_ns(), e.start_ns() + e.duration_ns())
+                   for e in prof.profiler.kineto_results.events()
+                   if e.device_type() == torch.autograd.DeviceType.CUDA)
     _check(spans, "the profiler saw no work on the card")
-    busy, (cur_start, cur_end) = 0.0, spans[0]
+    busy, (cur_start, cur_end) = 0, spans[0]
     for start, end in spans[1:]:
         if start > cur_end:
             busy += cur_end - cur_start
             cur_start, cur_end = start, end
         else:
             cur_end = max(cur_end, end)
-    return (busy + cur_end - cur_start) / 1e6
+    return (busy + cur_end - cur_start) / 1e9
 
 
 # the symbols of the port's kernels, as the profiler names them
@@ -1765,11 +1807,12 @@ def native_solve_check(aligner):
 
 
 def profiled_run(fn, device):
-    """One call of ``fn`` under ``torch.profiler``: its wall seconds and the
-    union of the card's busy intervals (the device's busy share)."""
+    """One call of ``fn`` under ``torch.profiler``, tracing the card only:
+    its wall seconds and the union of the card's busy intervals (the
+    device's busy share)."""
     from torch.profiler import ProfilerActivity, profile
 
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         fn()
         _sync(device)
@@ -5161,8 +5204,8 @@ def pitch_batch_invariance(model_path, dict_path, corpus_dir, align_dir, device,
     pitch archive at ``model_path`` aligning the utterances of
     ``align_dir`` in one batch against one utterance a batch
     (:func:`batch_size_alignment`): intervals equal, single pass scores
-    within 0.01 nats, two-pass scores within 1e-4 of the largest plus
-    1e-3."""
+    within 0.01 nats, two-pass scores within the single pass's difference
+    plus 1e-3 (:func:`two_pass_within_single`)."""
     from montreal_forced_aligner_tpu_torch.corpus.corpus import Corpus
     from montreal_forced_aligner_tpu_torch.ops import pitch as PP
 
@@ -5211,14 +5254,7 @@ def pitch_batch_invariance(model_path, dict_path, corpus_dir, align_dir, device,
                "utterances depend on the batch")
     single = aligned["single_pass"]["max_score_diff"]
     _check(single <= 0.01, f"pitch align single pass: scores {single} nats apart")
-    # the statistics add nothing of their own (``speaker_stats_invariance``),
-    # but the features still move with the batch (the MFCC rows, the feature
-    # layer's) and the fMLLR solve can amplify that: on the card the pitch
-    # archive's two-pass has moved 2.6 times its single pass (PERF.md §6), so
-    # it is held at this line's earlier bar
-    two = aligned["two_pass"]
-    _check(two["max_score_diff"] <= 1e-4 * two["max_score"] + 1e-3,
-           f"pitch align two-pass: scores {two['max_score_diff']} nats apart")
+    two_pass_within_single("pitch align", aligned)
     return {
         "pitch": {"utterances": len(waves), "batch_size": batch_size,
                   "frames": sum(n for _f, n, _p in alone),

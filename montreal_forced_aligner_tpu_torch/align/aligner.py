@@ -66,6 +66,7 @@ from montreal_forced_aligner_tpu_torch.graph.compiler import (
 from montreal_forced_aligner_tpu_torch.io.textgrid import Interval, TextGrid
 from montreal_forced_aligner_tpu_torch.io.wav import read_wave
 from montreal_forced_aligner_tpu_torch.models.acoustic_model import AcousticModel
+from montreal_forced_aligner_tpu_torch.ops import tiles
 from montreal_forced_aligner_tpu_torch.ops.cuda_emission import state_loglikes
 from montreal_forced_aligner_tpu_torch.ops.feats import (
     add_to_speakers,
@@ -116,8 +117,8 @@ from montreal_forced_aligner_tpu_torch.tokenization.languages import (
 
 POSITIONS = ("_B", "_E", "_I", "_S")
 
-# bytes of the (B, frames, P*G) Gaussian log-likelihoods per chunk of the
-# confidence margin
+# bytes of the (B, frames, P) pdf log-likelihoods per chunk of the
+# confidence margin (``gmm_loglikes`` bounds its own Gaussians' tiles)
 _CONFIDENCE_CHUNK_BYTES = 512 << 20
 
 _logger = logging.getLogger("mfa_tpu")
@@ -162,10 +163,11 @@ def _phone_confidence(ff, state_path, graph, W, gconsts) -> torch.Tensor:
     ``alignment/multiprocessing.py:1353``); always <= 0. All pdfs in
     float32 and a gather, in chunks of frames."""
     B, T, _D = ff.shape
-    P, G = gconsts.shape
+    P = gconsts.shape[0]
     frame_pdf = graph.state_pdf.gather(1, state_path.long()).long()
     out = torch.empty((B, T), dtype=torch.float32, device=ff.device)
-    step = max(1, _CONFIDENCE_CHUNK_BYTES // (B * P * G * 4))
+    # whole blocks of frames (``ops.tiles``): no chunk pads its rows' blocks
+    step = tiles.BLOCK * max(1, _CONFIDENCE_CHUNK_BYTES // (B * P * 4 * tiles.BLOCK))
     for t0 in range(0, T, step):
         ts = slice(t0, min(T, t0 + step))
         ll = gmm_loglikes(ff[:, ts], W, gconsts)  # (B, t, P)

@@ -11,6 +11,11 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from montreal_forced_aligner_tpu_torch.ops.tiles import map_row_blocks
+
+# frames a call of the LDA and fMLLR products (8192 x 112 float32 in: 3.7 MB)
+TRANSFORM_TILE_FRAMES = 8192
+
 
 def delta_window_scales(order: int = 2, window: int = 2):
     """Kaldi delta coefficients: per order, the previous order's scales
@@ -250,13 +255,19 @@ def sliding_cmn(
 def apply_transform(feats: torch.Tensor, transform: torch.Tensor) -> torch.Tensor:
     """Apply an affine/linear transform (LDA): rows of ``transform`` are
     output dims; if it has D+1 columns the last is an offset (Kaldi
-    ``transform-feats`` semantics)."""
+    ``transform-feats`` semantics). (B, T, D) -> (B, T, E), one product a
+    tile of ``TRANSFORM_TILE_FRAMES`` frames (``ops.tiles``)."""
     D = feats.shape[-1]
     _out_dim, in_dim = transform.shape
-    out = torch.matmul(feats, transform[:, :D].T)
-    if in_dim == D + 1:
-        out = out + transform[:, D]
-    return out
+    A = transform[:, :D].T
+
+    def tile(blocks, _rows):
+        out = torch.matmul(blocks.reshape(-1, D), A)
+        if in_dim == D + 1:
+            out = out + transform[:, D]
+        return out.reshape(blocks.shape[:2] + out.shape[1:])
+
+    return map_row_blocks(tile, feats, TRANSFORM_TILE_FRAMES)
 
 
 def apply_per_speaker_transform(
@@ -265,11 +276,18 @@ def apply_per_speaker_transform(
     transforms: torch.Tensor,  # (S, E, D+1) per-speaker fMLLR transforms
 ) -> torch.Tensor:
     """Each row's features through its speaker's affine transform: (B, T, E)
-    in float32 (a batched product, TF32 off, then the offset column)."""
-    trans = transforms[speaker_ids.long()]  # (B, E, D+1)
+    in float32. Each block of a row's frames (``ops.tiles``) is multiplied
+    by its speaker's matrix, ``TRANSFORM_TILE_FRAMES // BLOCK`` blocks a
+    batched product (TF32 off), then the offset column."""
+    spk = speaker_ids.to(feats.device).long()
     D = feats.shape[-1]
-    out = torch.bmm(feats, trans[:, :, :D].transpose(1, 2))
-    return out + trans[:, None, :, D]
+
+    def tile(blocks, rows):
+        trans = transforms[spk[rows]]  # (NB, E, D+1)
+        out = torch.bmm(blocks, trans[:, :, :D].transpose(1, 2))
+        return out + trans[:, None, :, D]
+
+    return map_row_blocks(tile, feats, TRANSFORM_TILE_FRAMES)
 
 
 def silence_pdf_mask(sil_pdfs, num_pdfs: int) -> np.ndarray:

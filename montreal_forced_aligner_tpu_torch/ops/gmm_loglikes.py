@@ -7,14 +7,21 @@ Counterpart of ``montreal_forced_aligner_tpu/ops/gmm_loglikes.py``:
 
 This is the emission path of small models (P·G below the threshold of the
 state-emission kernel, ``ops/cuda_emission.py``); its large product is a
-plain float32 ``torch.matmul``.
+plain float32 ``torch.matmul`` on fixed-shape tiles of frames.
 """
 
 from __future__ import annotations
 
 import torch
 
+from montreal_forced_aligner_tpu_torch.ops.tiles import map_row_blocks
+
 NEG_INF = -1.0e30
+
+# bytes of a tile's (frames, P*G) float32 Gaussian log-likelihoods, and its
+# most frames
+TILE_BYTES = 64 << 20
+MAX_TILE_FRAMES = 8192
 
 
 def gmm_loglikes(
@@ -22,12 +29,20 @@ def gmm_loglikes(
     W: torch.Tensor,  # (2D, P*G) from DiagGmmSet.flatten_for_device
     gconsts: torch.Tensor,  # (P, G) with -inf padding
 ) -> torch.Tensor:
-    """Log-likelihood of every pdf for every frame: (B, T, P)."""
+    """Log-likelihood of every pdf for every frame: (B, T, P). The product
+    and the ``logsumexp`` run on tiles of frames (``ops.tiles``) whose
+    (frames, P*G) block stays within ``TILE_BYTES``, at one shape for a
+    model whatever the batch."""
     P, G = gconsts.shape
-    xx = torch.cat([feats, feats * feats], dim=-1)  # (B, T, 2D)
-    quad = torch.matmul(xx, W)
-    quad = quad.reshape(*quad.shape[:-1], P, G) + gconsts
-    return torch.logsumexp(quad, dim=-1)
+    tile_frames = min(MAX_TILE_FRAMES, TILE_BYTES // (P * G * 4))
+
+    def tile(blocks, _rows):
+        x = blocks.reshape(-1, blocks.shape[-1])
+        xx = torch.cat([x, x * x], dim=-1)  # (C, 2D)
+        quad = torch.matmul(xx, W).reshape(-1, P, G) + gconsts
+        return torch.logsumexp(quad, dim=-1).reshape(blocks.shape[:2] + (P,))
+
+    return map_row_blocks(tile, feats, tile_frames)
 
 
 def select_state_emissions(ll: torch.Tensor, state_pdf: torch.Tensor) -> torch.Tensor:

@@ -2,10 +2,11 @@
 
 Counterpart of ``montreal_forced_aligner_tpu/ops/mfcc.py``: the same
 constants (Povey window, mel banks, DCT, lifter), the same host-side
-reflection padding and the same per-frame steps, run as one batched tensor
-program on whatever device the padded waves live on. Framing is a strided
-``unfold``, the spectrum ``torch.fft.rfft``, mel and DCT two float32 matrix
-products (TF32 is off package-wide, so they run at full float32 precision).
+reflection padding and the same per-frame steps, run on whatever device
+the padded waves live on, on tiles of frames of one fixed shape
+(``ops.tiles``). Framing is a strided ``unfold``, the spectrum
+``torch.fft.rfft``, mel and DCT two float32 matrix products (TF32 is off
+package-wide, so they run at full float32 precision).
 """
 
 from __future__ import annotations
@@ -16,6 +17,8 @@ from typing import Optional, Tuple
 
 import numpy as np
 import torch
+
+from montreal_forced_aligner_tpu_torch.ops.tiles import map_row_blocks
 
 EPS_F32 = float(np.finfo(np.float32).eps)
 
@@ -138,6 +141,9 @@ class MfccConfig:
         )
 
 
+# frames a call of the device MFCC's steps (13 MB of float32 frames)
+TILE_FRAMES = 8192
+
 PAD_LEFT = 480  # host-side reflection padding before the signal (3 chunks)
 PAD_RIGHT = 640  # right padding incl. reflection room (4 chunks)
 
@@ -150,7 +156,8 @@ def _mfcc_device(
 ) -> torch.Tensor:
     """(B, max_frames, num_coefficients) MFCCs in ``dtype`` on
     ``waves.device``; frames past each utterance's true count are garbage
-    the caller masks."""
+    the caller masks. Every step runs on tiles of ``TILE_FRAMES`` frames
+    (``ops.tiles``), so a row's MFCCs do not depend on the batch."""
     consts = cfg.constants()
     dev = waves.device
     window = torch.from_numpy(consts["window"]).to(dev, dtype)
@@ -169,30 +176,33 @@ def _mfcc_device(
             f"padded waves of {waves.shape[1]} samples cannot hold "
             f"{max_frames} frames"
         )
-    frames = waves[:, off:end].unfold(1, length, shift)  # (B, T, length)
-
-    if cfg.remove_dc_offset:
-        frames = frames - frames.mean(-1, keepdim=True)
     tiny = float(np.finfo(np.float32).tiny)
-    if cfg.use_energy and cfg.raw_energy:
-        log_energy = torch.log(torch.clamp((frames * frames).sum(-1), min=tiny))
-    if cfg.preemphasis != 0.0:
-        prev = torch.cat([frames[..., :1], frames[..., :-1]], -1)
-        frames = frames - cfg.preemphasis * prev
-    if cfg.use_energy and not cfg.raw_energy:
-        log_energy = torch.log(torch.clamp((frames * frames).sum(-1), min=tiny))
-    frames = frames * window
 
-    # power spectrum over the first fft_size//2 bins (Kaldi MelBanks range)
-    spec = torch.fft.rfft(frames, n=cfg.fft_size, dim=-1)
-    power = (spec.real**2 + spec.imag**2)[..., : cfg.fft_size // 2]
-    log_mel = torch.log(torch.clamp(power @ mel, min=EPS_F32))
-    ceps = (log_mel @ dct) * lifter
-    if cfg.use_energy:
-        if cfg.energy_floor > 0.0:
-            log_energy = torch.clamp(log_energy, min=math.log(cfg.energy_floor))
-        ceps[..., 0] = log_energy
-    return ceps
+    def tile(blocks, _rows):  # (NB, BLOCK, length) frames
+        frames = blocks.reshape(-1, length)
+        if cfg.remove_dc_offset:
+            frames = frames - frames.mean(-1, keepdim=True)
+        if cfg.use_energy and cfg.raw_energy:
+            log_energy = torch.log(torch.clamp((frames * frames).sum(-1), min=tiny))
+        if cfg.preemphasis != 0.0:
+            prev = torch.cat([frames[..., :1], frames[..., :-1]], -1)
+            frames = frames - cfg.preemphasis * prev
+        if cfg.use_energy and not cfg.raw_energy:
+            log_energy = torch.log(torch.clamp((frames * frames).sum(-1), min=tiny))
+        frames = frames * window
+        # power spectrum over the first fft_size//2 bins (Kaldi MelBanks range)
+        spec = torch.fft.rfft(frames, n=cfg.fft_size, dim=-1)
+        power = (spec.real**2 + spec.imag**2)[..., : cfg.fft_size // 2]
+        log_mel = torch.log(torch.clamp(torch.matmul(power, mel), min=EPS_F32))
+        ceps = torch.matmul(log_mel, dct) * lifter
+        if cfg.use_energy:
+            if cfg.energy_floor > 0.0:
+                log_energy = torch.clamp(log_energy, min=math.log(cfg.energy_floor))
+            ceps[..., 0] = log_energy
+        return ceps.reshape(blocks.shape[:2] + ceps.shape[1:])
+
+    frames = waves[:, off:end].unfold(1, length, shift)  # (B, T, length) view
+    return map_row_blocks(tile, frames, TILE_FRAMES)
 
 
 def mfcc_host_batch(

@@ -79,23 +79,12 @@ logger = logging.getLogger("mfa_tpu")
 
 LN10 = math.log(10.0)
 
-# bytes of the (B, frames, P*G) Gaussian log-likelihoods per chunk of the
-# LVCSR decoders' all-pdf emissions
-_EMISSION_CHUNK_BYTES = 512 << 20
-
 
 def _lvcsr_emissions(ff: torch.Tensor, gmm, acoustic_scale: float) -> torch.Tensor:
     """(B, T, P) pre-scaled per-pdf emissions of the LVCSR decoders: all
-    pdfs (the decoders gather each frame's states from these), computed in
-    chunks of frames so the (B, frames, P*G) intermediate stays bounded."""
-    B, T, _D = ff.shape
-    P, G = gmm.gconsts.shape
-    out = torch.empty((B, T, P), dtype=torch.float32, device=ff.device)
-    step = max(1, _EMISSION_CHUNK_BYTES // (B * P * G * 4))
-    for t0 in range(0, T, step):
-        ts = slice(t0, min(T, t0 + step))
-        out[:, ts] = acoustic_scale * gmm_loglikes(ff[:, ts], gmm.W, gmm.gconsts)
-    return out
+    pdfs (the decoders gather each frame's states from these);
+    ``gmm_loglikes`` bounds its (frames, P*G) intermediate by tiles."""
+    return gmm_loglikes(ff, gmm.W, gmm.gconsts).mul_(acoustic_scale)
 
 
 def _state_emissions(ff, state_pdf, gmm, use_emission_kernel: bool):

@@ -382,16 +382,20 @@ def test_transfer_pitch_and_chain_major_phases_run_on_cpu(fixture, tmp_path,
 
 def test_speaker_stats_invariance_runs_on_cpu(fixture):
     """The speaker statistics line at a tiny size: the fMLLR totals of the
-    first pass's inputs rebatched at 1, 2 and 6, and the CMVN sums of the
-    batch-1 MFCC rows rebatched, bit for bit alike (the phase checks it);
-    on the CPU the MFCC rows, CMVN means and transforms are alike too."""
+    first pass's inputs rebatched at 1, 2 and 6, the CMVN sums of the
+    batch-1 MFCC rows rebatched, and each batching's MFCC, CMVN means, LDA,
+    fMLLR-applied and all-pdf rows bit for bit alike (the phase checks it);
+    on the CPU the transforms are alike too."""
     _tmp, model_path, dict_path, corpus_dir, *_ = fixture
     out = chip_smoke.speaker_stats_invariance(model_path, dict_path, corpus_dir,
                                               torch.device("cpu"),
                                               batch_sizes=(1, 2, 6))
     assert out["utterances"] == 6 and out["speakers"] == 2
     assert out["fmllr_totals_bit_identical"] and out["cmvn_sums_bit_identical"]
+    assert out["feature_rows_bit_identical"]
     for key in ("transforms_max_abs_diff", "mfcc_rows_max_abs_diff",
-                "cmvn_means_max_abs_diff"):
+                "cmvn_means_max_abs_diff", "lda_rows_max_abs_diff",
+                "fmllr_rows_max_abs_diff", "all_pdf_loglike_rows_max_abs_diff"):
         assert out[key] == {"2": 0.0, "6": 0.0}, key
     assert sorted(out["fmllr_stats_synced_s"]) == ["1", "2", "6"]
+    assert sorted(out["feature_rows_synced_s"]) == ["1", "2", "6"]
