@@ -198,7 +198,23 @@ What it does, in order; any failure exits non-zero with no result line:
 33. **parity harness**: ``parity.harness.compare_corpus_sat``, the card's
     sat-2pass against the independent numpy two-pass decoder, on the 4
     shortest utterances (frame and boundary agreement reported);
-34. prints one ``{"kernels": [...]}`` line (sat-2pass's launches and
+34. main path **whisper** (in a spawned process without the
+    deterministic cuBLAS workspace): a random-weight Whisper checkpoint at
+    ``openai/whisper-large-v3-turbo``'s published widths and depth (about
+    809M parameters, float16 safetensors, a synthetic vocabulary in the
+    published layout) transcribes the 8-utterance corpus through ``cli
+    transcribe_whisper`` on the card, counted from 0 (no K1-K3 on this
+    path); the load seconds, encoder ms per utterance, decoder ms per
+    token, tokens, warm audio seconds per second and peak memory; the card
+    against the port's CPU path (a worker) on 2 utterances: log-mel within
+    1e-4, encoder output within 1e-4, greedy ids of the first 32 steps
+    equal up to the CPU's first near-tie (top two within 1e-4), logits
+    within 1e-4;
+35. **speechbrain-paths**: ``transcribe_speechbrain``, ``create_segments_vad
+    --speechbrain_model_path`` and ``diarize_speakers speechbrain`` through
+    ``tests/torch_mock_speechbrain.py`` on the card and the CPU: the same
+    texts, segments and labels; parameters and inputs on the card;
+36. prints one ``{"kernels": [...]}`` line (sat-2pass's launches and
     second-pass checks; each row's ``launches_by_path`` adds the training,
     adapt, transcription, segmentation, g2p-align and multi-GPU paths'
     launches (a list by rank where ranks share the card),
@@ -2786,18 +2802,24 @@ def _cpu_task(root, name, args, out_path, threads):
 class CpuTask:
     """A function of this script run in a spawned process while the card's
     phases go on (host work that the card would otherwise wait for);
-    :meth:`result` joins it and fails if it failed."""
+    :meth:`result` joins it and fails if it failed. ``drop_env`` names
+    variables the process starts without; a process that is to spawn its
+    own tasks is not a daemon (``daemon=False``)."""
 
-    def __init__(self, name, args, out_path, threads=4):
+    def __init__(self, name, args, out_path, threads=4, daemon=True, drop_env=()):
         import multiprocessing
 
         self.name, self.out_path = name, Path(out_path)
         root = str(Path(__file__).resolve().parent)
         self.proc = multiprocessing.get_context("spawn").Process(
             target=_cpu_task, args=(root, name, args, str(out_path), threads),
-            daemon=True)
+            daemon=daemon)
         self.t0 = time.perf_counter()
-        self.proc.start()
+        kept = {k: os.environ.pop(k) for k in drop_env if k in os.environ}
+        try:
+            self.proc.start()
+        finally:
+            os.environ.update(kept)
 
     def result(self, timeout=900.0):
         self.proc.join(timeout)
@@ -5463,6 +5485,452 @@ def lvcsr_chain_major_phase(model_path, dict_path, small_dir, lm, device,
             "seconds": seconds}
 
 
+# -- neural backends: Whisper and the SpeechBrain paths -----------------------
+
+# openai/whisper-large-v3-turbo's published config.json: widths and depth
+WHISPER_TURBO = {
+    "vocab_size": 51866, "num_mel_bins": 128, "d_model": 1280,
+    "encoder_layers": 32, "encoder_attention_heads": 20, "encoder_ffn_dim": 5120,
+    "decoder_layers": 4, "decoder_attention_heads": 20, "decoder_ffn_dim": 5120,
+    "max_source_positions": 1500, "max_target_positions": 448,
+}
+# its vocabulary's layout: 50,257 byte-level tokens, then <|endoftext|>,
+# <|startoftranscript|>, 100 languages, the tasks and control tokens, and
+# 1,501 timestamps (<|0.00|> to <|30.00|>)
+WHISPER_TURBO_TEXT = {"n_base": 50257, "n_languages": 100, "n_timestamps": 1501}
+# the card against the CPU: log-mel, encoder output and step logits
+WHISPER_MEL_ATOL = 1e-4
+WHISPER_ENCODER_ATOL = 1e-4
+WHISPER_LOGITS_ATOL = 1e-4
+WHISPER_COMPARE_STEPS = 32
+WHISPER_COMPARE_UTTS = 2
+
+
+def whisper_text_layout(n_base, n_languages, n_timestamps, seed=0):
+    """A synthetic Whisper vocabulary in the published layout: the 256
+    byte characters and seeded letter strings (with and without GPT-2's
+    word-initial ``Ġ``) as the byte-level tokens, then the special tokens
+    and the timestamps at the published ids (for large-v3's sizes:
+    <|endoftext|> 50257, <|startoftranscript|> 50258, languages from 50259,
+    <|translate|> 50359, <|transcribe|> 50360, <|startoflm|> 50361,
+    <|startofprev|> 50362, <|nospeech|> 50363, <|notimestamps|> 50364,
+    <|0.00|> 50365). Returns (vocab, added tokens as (id, text, special),
+    the named ids, lang_to_id)."""
+    from montreal_forced_aligner_tpu_torch.transcription.whisper.generate import (
+        LANGUAGES,
+    )
+    from montreal_forced_aligner_tpu_torch.transcription.whisper.tokenizer import (
+        bytes_to_unicode,
+    )
+
+    rng = np.random.RandomState(seed)
+    chars = bytes_to_unicode()
+    vocab = {chars[b]: b for b in range(256)}
+    letters = np.array(list("abcdefghijklmnopqrstuvwxyz"))
+    while len(vocab) < n_base:
+        word = "".join(rng.choice(letters, rng.randint(2, 9)))
+        token = ("Ġ" + word) if rng.rand() < 0.6 else word
+        vocab.setdefault(token, len(vocab))
+    codes = list(LANGUAGES)[:n_languages]
+    names = (["<|endoftext|>", "<|startoftranscript|>"]
+             + [f"<|{c}|>" for c in codes]
+             + ["<|translate|>", "<|transcribe|>", "<|startoflm|>",
+                "<|startofprev|>", "<|nospeech|>", "<|notimestamps|>"])
+    added = [(n_base + i, t, True) for i, t in enumerate(names)]
+    first_ts = n_base + len(names)
+    added += [(first_ts + i, f"<|{i * 0.02:.2f}|>", False) for i in range(n_timestamps)]
+    ids = {t.strip("<|>"): i for i, t, _ in added[:len(names)]}
+    lang_to_id = {f"<|{c}|>": ids[c] for c in codes}
+    return vocab, added, ids, lang_to_id
+
+
+def _whisper_tensor(name, shape, gen, device):
+    import torch
+
+    from montreal_forced_aligner_tpu_torch.transcription.whisper.model import sinusoids
+
+    if name.endswith("embed_positions.weight") and ".encoder." in name:
+        return sinusoids(*shape)
+    if "layer_norm" in name:
+        return (torch.ones if name.endswith("weight") else torch.zeros)(shape)
+    if name.endswith("bias"):
+        return torch.zeros(shape)
+    return torch.randn(shape, generator=gen, device=device) * 0.02
+
+
+def write_whisper_checkpoint(out_dir: Path, dims: dict, text: dict, seed=0,
+                             device="cpu", max_length=None) -> Path:
+    """A Hugging Face Whisper checkpoint directory at ``dims`` with random
+    weights from ``seed`` (drawn on ``device``): weight matrices N(0, 0.02)
+    (the config's ``init_std``), LayerNorms 1 and 0, biases 0, the
+    encoder's positions sinusoidal; stored as float16 safetensors, as
+    published. The vocabulary is :func:`whisper_text_layout`'s; the
+    generation config has the published keys (``forced_decoder_ids`` for
+    transcribe, ``lang_to_id``, ``suppress_tokens`` of 82 seeded
+    byte-level ids and the published control tokens,
+    ``begin_suppress_tokens`` of ``Ġ`` and <|endoftext|>, ``max_length`` the
+    target positions)."""
+    import struct
+
+    import torch
+
+    from montreal_forced_aligner_tpu_torch.transcription.whisper import (
+        Whisper,
+        WhisperDims,
+    )
+
+    out_dir = Path(out_dir)
+    out_dir.mkdir(parents=True, exist_ok=True)
+    vocab, added, ids, lang_to_id = whisper_text_layout(**text, seed=seed)
+    eot, sot = ids["endoftext"], ids["startoftranscript"]
+    rng = np.random.RandomState(seed + 1)
+    n_suppress = min(82, text["n_base"] // 8)
+    suppress = sorted(int(i) for i in rng.choice(np.arange(256, text["n_base"]),
+                                                 n_suppress, replace=False))
+    suppress += [sot, ids["translate"], ids["transcribe"], ids["startoflm"],
+                 ids["startofprev"], ids["nospeech"]]
+    begin_suppress = [vocab["Ġ"], eot]
+    config = {
+        "architectures": ["WhisperForConditionalGeneration"],
+        "model_type": "whisper", **dims, "activation_function": "gelu",
+        "bos_token_id": eot, "eos_token_id": eot, "pad_token_id": eot,
+        "decoder_start_token_id": sot, "begin_suppress_tokens": begin_suppress,
+        "scale_embedding": False, "is_encoder_decoder": True, "use_cache": True,
+        "torch_dtype": "float16", "init_std": 0.02,
+    }
+    generation = {
+        "begin_suppress_tokens": begin_suppress, "bos_token_id": eot,
+        "decoder_start_token_id": sot, "eos_token_id": eot, "pad_token_id": eot,
+        "forced_decoder_ids": [[1, None], [2, ids["transcribe"]]],
+        "is_multilingual": True, "lang_to_id": lang_to_id,
+        "max_initial_timestamp_index": 50,
+        "max_length": max_length or dims["max_target_positions"],
+        "no_timestamps_token_id": ids["notimestamps"],
+        "prev_sot_token_id": ids["startofprev"], "return_timestamps": False,
+        "suppress_tokens": suppress,
+        "task_to_id": {"transcribe": ids["transcribe"], "translate": ids["translate"]},
+    }
+    preprocessor = {
+        "chunk_length": 30, "feature_extractor_type": "WhisperFeatureExtractor",
+        "feature_size": dims["num_mel_bins"], "hop_length": 160, "n_fft": 400,
+        "n_samples": 480000, "nb_max_frames": 3000, "padding_side": "right",
+        "padding_value": 0.0, "processor_class": "WhisperProcessor",
+        "return_attention_mask": False, "sampling_rate": 16000,
+    }
+    specials = [t for _, t, s in added if s]
+    tokenizer = {
+        "add_prefix_space": False, "additional_special_tokens": specials,
+        "added_tokens_decoder": {
+            str(i): {"content": t, "lstrip": False, "normalized": False,
+                     "rstrip": False, "single_word": False, "special": s}
+            for i, t, s in added},
+        "bos_token": "<|endoftext|>", "clean_up_tokenization_spaces": True,
+        "eos_token": "<|endoftext|>", "errors": "replace",
+        "model_max_length": 1000000000000000019884624838656,
+        "pad_token": "<|endoftext|>", "processor_class": "WhisperProcessor",
+        "tokenizer_class": "WhisperTokenizer", "unk_token": "<|endoftext|>",
+    }
+    special_map = {"additional_special_tokens": specials,
+                   "bos_token": "<|endoftext|>", "eos_token": "<|endoftext|>",
+                   "pad_token": "<|endoftext|>", "unk_token": "<|endoftext|>"}
+    for name, data in (("config.json", config), ("generation_config.json", generation),
+                       ("preprocessor_config.json", preprocessor),
+                       ("tokenizer_config.json", tokenizer),
+                       ("special_tokens_map.json", special_map),
+                       ("vocab.json", vocab)):
+        (out_dir / name).write_text(json.dumps(data, indent=1))
+    (out_dir / "merges.txt").write_text("#version: 0.2\n")
+    with torch.device("meta"):
+        shapes = [(k, tuple(v.shape)) for k, v in
+                  Whisper(WhisperDims.from_config(config)).state_dict().items()]
+    header, offset = {}, 0
+    for name, shape in shapes:
+        n = int(np.prod(shape)) * 2
+        header[name] = {"dtype": "F16", "shape": list(shape),
+                        "data_offsets": [offset, offset + n]}
+        offset += n
+    header["__metadata__"] = {"format": "pt"}
+    blob = json.dumps(header).encode()
+    blob += b" " * (-len(blob) % 8)
+    gen = torch.Generator(device=device).manual_seed(seed)
+    with open(out_dir / "model.safetensors", "wb") as f:
+        f.write(struct.pack("<Q", len(blob)))
+        f.write(blob)
+        for name, shape in shapes:
+            t = _whisper_tensor(name, shape, gen, device)
+            f.write(t.to(torch.float16).cpu().numpy().data)
+    return out_dir
+
+
+def whisper_cpu_reference(ckpt, waves, steps):
+    """The port's CPU path on each wave: log-mel, encoder output, and the
+    greedy decode's prompt, first ``steps`` steps' scores and the language
+    detection's scores (run in a worker beside the card)."""
+    import torch
+
+    from montreal_forced_aligner_tpu_torch.transcription.torch_models import (
+        WhisperTranscriber,
+    )
+
+    tr = WhisperTranscriber(ckpt, device="cpu")
+    encode, encoded = tr.model.encode, []
+    # keep the decode's own encoder output (one encoder run an utterance)
+    tr.model.encode = lambda mel: encoded.append(encode(mel)) or encoded[-1]
+    out = []
+    with torch.no_grad():
+        for wave in waves:
+            mel = tr.features(wave)
+            encoded.clear()
+            d = tr.decode(wave, keep_scores=steps, max_steps=steps)
+            enc = encoded[0]  # the first window's
+            out.append({"mel": mel.numpy(), "enc": enc.numpy(), "prompt": d.prompt,
+                        "scores": torch.stack(d.scores).numpy(),
+                        "language_scores": d.language_scores.numpy()})
+    return out
+
+
+def greedy_agreement(cpu_scores, card_scores, atol):
+    """Steps whose arg-max agree, up to the first step where the CPU's top
+    two scores lie within ``atol`` (a near-tie the two devices may break
+    apart): (steps compared, the step that stopped the comparison or None,
+    the largest finite score difference over the compared steps)."""
+    compared, stopped, worst = 0, None, 0.0
+    for i, (c, g) in enumerate(zip(cpu_scores, card_scores)):
+        finite = np.isfinite(c)
+        _check(np.array_equal(finite, np.isfinite(g)),
+               f"step {i}: the suppressed tokens differ")
+        top = np.sort(c[finite])[-2:]
+        if top[1] - top[0] < atol:
+            stopped = i
+            break
+        _check(int(np.argmax(c)) == int(np.argmax(g)),
+               f"step {i}: the card chose {int(np.argmax(g))}, the CPU "
+               f"{int(np.argmax(c))} (margin {top[1] - top[0]:.3g})")
+        worst = max(worst, float(np.abs(c[finite] - g[finite]).max()))
+        compared += 1
+    return compared, stopped, worst
+
+
+def whisper_phase(tmp: Path, corpus_dir: Path, device, dims=None, text=None):
+    """Main path **whisper**: a random-weight checkpoint at
+    large-v3-turbo's published widths and depth written as float16
+    safetensors, then ``cli transcribe_whisper`` on the card over the
+    corpus (counted from 0: no kernel of K1-K3 on this path); one warm
+    load and a warm run utterance by utterance (the same texts; decoder ms
+    per token is the run's wall less each utterance's encoder, timed
+    alone, over the tokens), peak memory; then the
+    card against the port's CPU path (a worker started after the write) on
+    the first utterances: log-mel and encoder output within their
+    tolerances, the language detection and the greedy ids of the first
+    steps equal up to the CPU's first near-tie, their logits within
+    ``WHISPER_LOGITS_ATOL``. ``dims`` and ``text`` cut the model for a
+    rehearsal on the CPU."""
+    import torch
+
+    from montreal_forced_aligner_tpu_torch.corpus.corpus import Corpus
+    from montreal_forced_aligner_tpu_torch.transcription.torch_models import (
+        WhisperTranscriber,
+        _samples_at_model_rate,
+    )
+
+    t0 = time.perf_counter()
+    ckpt = write_whisper_checkpoint(tmp / "whisper_turbo", dims or WHISPER_TURBO,
+                                    text or WHISPER_TURBO_TEXT, seed=0,
+                                    device=device)
+    write_s = time.perf_counter() - t0
+    corpus = Corpus.load(corpus_dir, require_transcripts=False)
+    waves = [_samples_at_model_rate(corpus.load_audio(u)) for u in corpus.utterances]
+    audio_s = sum(min(len(w), 480000) for w in waves) / 16000
+    cpu = CpuTask("whisper_cpu_reference",
+                  (str(ckpt), waves[:WHISPER_COMPARE_UTTS], WHISPER_COMPARE_STEPS),
+                  tmp / "whisper_cpu.pkl", threads=6)
+    out_dir = tmp / "whisper_out"
+    _reset_peak(device)
+    _, cold_s, launches = _counted(device, lambda: _cli(
+        ["transcribe_whisper", corpus_dir, ckpt, out_dir, "--device", device.type]))
+    _no_launches("whisper", launches)
+    cold_peak = _peak_gib(device)
+    labs = {p.relative_to(out_dir).as_posix(): p.read_text()
+            for p in sorted(out_dir.rglob("*.lab"))}
+    _check(len(labs) == len(corpus.files), f"whisper: {len(labs)} transcripts for "
+           f"{len(corpus.files)} files")
+    t0 = time.perf_counter()
+    tr = WhisperTranscriber(ckpt, device=device)
+    _sync(device)
+    load_s = time.perf_counter() - t0
+    _check(all(p.device.type == device.type for p in tr.model.parameters()),
+           "whisper: parameters off the device")
+    # the warm run, one utterance at a time as transcribe_corpus runs them,
+    # and each utterance's encoder once more on its own
+    _reset_peak(device)
+    enc_ms, utt_s, tokens, windows, texts = [], [], 0, 0, {}
+    with torch.no_grad():
+        for utt, wave in zip(corpus.utterances, waves):
+            _sync(device)
+            t0 = time.perf_counter()
+            d = tr.decode(wave)
+            texts[utt.id] = tr.tokenizer.decode(d.ids).strip()
+            _sync(device)
+            utt_s.append(time.perf_counter() - t0)
+            tokens += d.steps
+            windows += d.windows
+            mel = tr.features(wave)
+            _sync(device)
+            t0 = time.perf_counter()
+            tr.model.encode(mel)
+            _sync(device)
+            enc_ms.append(1e3 * (time.perf_counter() - t0))
+    warm_s = sum(utt_s)
+    warm_peak = _peak_gib(device)
+    by_file = {}
+    for u in corpus.utterances:
+        by_file.setdefault(f"{u.speaker}/{u.file_name}.lab", []).append(texts[u.id])
+    _check(by_file.keys() == labs.keys() and all(
+        "\n".join(v) + "\n" == labs[k] for k, v in by_file.items()),
+        "whisper: the warm run's texts differ from the command's")
+    # the card against the CPU
+    ref = cpu.result()
+    checks = []
+    with torch.no_grad():
+        for i, r in enumerate(ref):
+            mel = tr.features(waves[i])
+            enc = tr.model.encode(mel).cpu().numpy()
+            d = tr.decode(waves[i], keep_scores=WHISPER_COMPARE_STEPS,
+                          max_steps=WHISPER_COMPARE_STEPS)
+            mel_err = float(np.abs(mel.cpu().numpy() - r["mel"]).max())
+            enc_err = float(np.abs(enc - r["enc"]).max())
+            _check(mel_err <= WHISPER_MEL_ATOL, f"whisper log-mel: {mel_err}")
+            _check(enc_err <= WHISPER_ENCODER_ATOL, f"whisper encoder: {enc_err}")
+            lang_c = r["language_scores"]
+            lang_g = d.language_scores.numpy()
+            top = np.sort(lang_c[np.isfinite(lang_c)])[-2:]
+            lang_close = bool(top[1] - top[0] < WHISPER_LOGITS_ATOL)
+            row = {"mel_max_abs_err": mel_err, "encoder_max_abs_err": enc_err,
+                   "language_margin": float(top[1] - top[0]),
+                   "language_max_abs_err": float(np.abs(
+                       lang_c[np.isfinite(lang_c)] - lang_g[np.isfinite(lang_g)]).max())}
+            if not lang_close:
+                _check(d.prompt == r["prompt"],
+                       f"whisper prompt: card {d.prompt}, CPU {r['prompt']}")
+                compared, stopped, worst = greedy_agreement(
+                    r["scores"], torch.stack(d.scores).numpy(), WHISPER_LOGITS_ATOL)
+                _check(worst <= WHISPER_LOGITS_ATOL, f"whisper logits: {worst}")
+                row.update(steps_equal=compared, stopped_at_near_tie=stopped,
+                           logits_max_abs_err=worst)
+            checks.append(row)
+    return {
+        "path": "whisper", "dims": dims or WHISPER_TURBO,
+        "model": "random weights (seed 0), float16 safetensors",
+        "parameters": sum(p.numel() for p in tr.model.parameters()),
+        "utterances": len(waves), "audio_s": audio_s,
+        "checkpoint_write_s": write_s,
+        "checkpoint_bytes": (ckpt / "model.safetensors").stat().st_size,
+        "cold_command_s": cold_s, "launches": launches, "cold_peak_gib": cold_peak,
+        "load_s": load_s, "warm_s": warm_s, "warm_audio_s_per_s": audio_s / warm_s,
+        "warm_peak_gib": warm_peak,
+        "encoder_ms_per_utterance": statistics.median(enc_ms),
+        "decoder_ms_per_token": (1e3 * warm_s - sum(enc_ms)) / tokens,
+        "tokens": tokens,
+        "windows": windows, "card_vs_cpu": checks,
+        "tolerances": {"mel": WHISPER_MEL_ATOL, "encoder": WHISPER_ENCODER_ATOL,
+                       "logits": WHISPER_LOGITS_ATOL},
+    }
+
+
+def _tg_segments(out_dir: Path):
+    from montreal_forced_aligner_tpu_torch.io.textgrid import TextGrid
+
+    return {p.relative_to(out_dir).as_posix():
+            [(i.begin, i.end) for i in TextGrid.read(p).tiers["segments"] if i.label]
+            for p in sorted(out_dir.rglob("*.TextGrid"))}
+
+
+def speechbrain_paths_phase(tmp: Path, asr_dir: Path, vad_dir: Path,
+                            speaker_dir: Path, num_speakers: int, device):
+    """**speechbrain-paths**: the three SpeechBrain commands through the
+    port's stand-in package (``tests/torch_mock_speechbrain.py``, whose
+    ``from_hparams`` puts the models on ``run_opts["device"]``), on the
+    card and on the CPU: ``transcribe_speechbrain`` (the texts),
+    ``create_segments_vad --speechbrain_model_path`` (the segments) and
+    ``diarize_speakers speechbrain --xvector_model_path`` (the labels),
+    each counted from 0 (no kernel launches) and equal across devices;
+    each wrapper's model parameters and its last input on the card."""
+
+    sys.path.insert(0, str(Path(__file__).resolve().parent / "tests"))
+    import torch_mock_speechbrain
+
+    from montreal_forced_aligner_tpu_torch.diarization.embeddings import XVectorEmbedder
+    from montreal_forced_aligner_tpu_torch.transcription.torch_models import (
+        SpeechbrainTranscriber,
+    )
+    from montreal_forced_aligner_tpu_torch.vad.segmenter import SpeechbrainVAD
+
+    torch_mock_speechbrain.install()
+    try:
+        report = {"path": "speechbrain-paths"}
+        runs = {}
+        for dev in (device.type, "cpu"):
+            ck = tmp / f"sb_{dev}"
+            ck.mkdir(exist_ok=True)
+            asr_out, vad_out, diar_out = (tmp / f"sb_{n}_{dev}" for n in
+                                          ("asr", "vad", "diar"))
+            _, asr_s, l1 = _counted(device, lambda: _cli(
+                ["transcribe_speechbrain", asr_dir, ck, asr_out, "--device", dev]))
+            _, vad_s, l2 = _counted(device, lambda: _cli(
+                ["create_segments_vad", vad_dir, vad_out, "--device", dev,
+                 "--speechbrain_model_path", ck]))
+            _, diar_s, l3 = _counted(device, lambda: _cli(
+                ["diarize_speakers", speaker_dir, "speechbrain", diar_out,
+                 "--device", dev, "--xvector_model_path", ck,
+                 "--expected_num_speakers", num_speakers]))
+            for launches in (l1, l2, l3):
+                _no_launches("speechbrain-paths", launches)
+            runs[dev] = {
+                "texts": {p.relative_to(asr_out).as_posix(): p.read_text()
+                          for p in sorted(asr_out.rglob("*.lab"))},
+                "segments": _tg_segments(vad_out),
+                "labels": (diar_out / "utt2spk.tsv").read_text(),
+                "walls_s": {"transcribe_speechbrain": asr_s,
+                            "create_segments_vad": vad_s, "diarize_speakers": diar_s},
+            }
+        card, cpu = runs[device.type], runs["cpu"]
+        _check(card["texts"] and card["texts"] == cpu["texts"],
+               "transcribe_speechbrain: the card's texts differ from the CPU's")
+        _check(card["segments"] and card["segments"] == cpu["segments"],
+               "create_segments_vad (speechbrain): segments differ")
+        _check(card["labels"] == cpu["labels"],
+               "diarize_speakers speechbrain: labels differ")
+        _, purity, ari = _purity_ari(tmp / f"sb_diar_{device.type}")
+        ck = tmp / f"sb_{device.type}"
+        wave = np.sin(np.arange(16000) * 0.05).astype(np.float32) * 3000
+        on_card = {}
+        for name, wrapper, call in (
+                ("asr", SpeechbrainTranscriber(ck, device=device),
+                 lambda w: w.transcribe(wave)),
+                ("vad", SpeechbrainVAD(ck, device=device),
+                 lambda w: w.voiced_frames(wave)),
+                ("xvector", XVectorEmbedder(ck, device=device),
+                 lambda w: w.embed(wave))):
+            call(wrapper)
+            params = {p.device.type for p in wrapper.model.parameters()} or {
+                wrapper.model.device.type}
+            on_card[name] = {"parameters": sorted(params),
+                             "input": wrapper.model.input_device.type}
+            _check(params == {device.type} and on_card[name]["input"] == device.type,
+                   f"speechbrain {name}: {on_card[name]}")
+        report.update(
+            files_transcribed=len(card["texts"]),
+            segment_files=len(card["segments"]),
+            segments=sum(len(v) for v in card["segments"].values()),
+            utterances_diarized=len(card["labels"].splitlines()),
+            diarize_purity=purity, diarize_ari=ari, on_card=on_card,
+            card_walls_s=card["walls_s"], cpu_walls_s=cpu["walls_s"],
+            card_equals_cpu=True)
+        return report
+    finally:
+        torch_mock_speechbrain.uninstall()
+
+
 def read_duration(path) -> float:
     from montreal_forced_aligner_tpu_torch.io.wav import read_wave
 
@@ -5741,6 +6209,17 @@ def main() -> int:
         chain = lvcsr_chain_major_phase(model_path, dict_path, small_dir, lvcsr_lm,
                                         device)
         _emit({"main_path": chain})
+        # the neural backends: Whisper at large-v3-turbo's widths, in a
+        # process of its own without this one's deterministic cuBLAS
+        # workspace (it holds the decoder's matrix-vector products to
+        # about a third of their speed: tools/whisper_card.py), and the
+        # SpeechBrain commands through the port's stand-in package
+        whisper = CpuTask("whisper_phase", (tmp, small2_dir, device),
+                          tmp / "whisper.pkl", daemon=False,
+                          drop_env=("CUBLAS_WORKSPACE_CONFIG",)).result()
+        _emit({"main_path": whisper})
+        _emit({"main_path": speechbrain_paths_phase(tmp, small2_dir, vad_dir,
+                                                    subset_dir, 8, device)})
 
         def by_rank(launches):
             return {k: [l[k] for l in launches] for k in launches[0]}
@@ -5773,7 +6252,8 @@ def main() -> int:
                    "pitch-adapt": pitch_paths["adapt"]["launches"],
                    "pitch-long-path (two-pass)":
                        pitch_paths["long_path"]["two_pass"]["launches"],
-                   "lvcsr-chain-major": chain["launches"]}
+                   "lvcsr-chain-major": chain["launches"],
+                   "whisper": whisper["launches"]}
         extra = {**mono_checks, "train_recipe": recipe_checks,
                  "adapt": adapt_checks, "transcribe_dense": dense_checks,
                  "g2p_align": g2p_checks}

@@ -371,6 +371,21 @@ def _transcribe_parser(sub) -> None:
     t.add_argument("-a", "--audio_directory", default=None)
 
 
+def _neural_parsers(sub) -> None:
+    """The neural transcription backends: transcribe_whisper and
+    transcribe_speechbrain."""
+    for name, what in (("transcribe_whisper", "a local Whisper checkpoint "
+                        "(Hugging Face directory)"),
+                       ("transcribe_speechbrain", "a local SpeechBrain ASR "
+                        "checkpoint (needs the speechbrain package)")):
+        t = sub.add_parser(name, help=f"Transcribe a corpus with {what}")
+        t.add_argument("corpus_directory")
+        t.add_argument("model_path")
+        t.add_argument("output_directory")
+        _device(t)
+        t.add_argument("--language", default=None, help="decoding language hint")
+
+
 def _segmentation_parsers(sub) -> None:
     """i-vectors, diarization and segmentation: train_ivector,
     diarize_speakers, create_segments_vad and create_segments."""
@@ -395,14 +410,14 @@ def _segmentation_parsers(sub) -> None:
     _num_jobs(d)
     d.add_argument("corpus_directory")
     d.add_argument("ivector_extractor_path",
-                   help="i-vector extractor (npz or reference archive); the "
-                        "literal 'speechbrain' names the neural x-vector "
-                        "backend, which is out of scope and raises")
+                   help="i-vector extractor (npz or reference archive), or "
+                        "the literal 'speechbrain' for SpeechBrain x-vectors "
+                        "(with --xvector_model_path)")
     d.add_argument("output_directory")
     _device(d)
     d.add_argument("--xvector_model_path", default=None,
-                   help="SpeechBrain checkpoint for 'speechbrain': out of "
-                        "scope, raises")
+                   help="Local SpeechBrain EncoderClassifier checkpoint for "
+                        "'speechbrain' (needs the speechbrain package)")
     # None = not given: a --config_path value applies, else the default
     d.add_argument("--expected_num_speakers", type=int, default=None,
                    help="0 = threshold-based (default 0)")
@@ -446,7 +461,9 @@ def _segmentation_parsers(sub) -> None:
     v.add_argument("--min_pause_duration", type=float, default=0.333)
     v.add_argument("--energy_threshold", type=float, default=5.5)
     v.add_argument("--speechbrain_model_path", default=None,
-                   help="Neural VAD: out of scope, raises")
+                   help="Local SpeechBrain VAD checkpoint: neural VAD in "
+                        "place of the energy VAD (needs the speechbrain "
+                        "package)")
     v.add_argument("--output_format", default="long_textgrid",
                    choices=_OUTPUT_FORMATS)
 
@@ -560,6 +577,7 @@ def _parser() -> argparse.ArgumentParser:
                    choices=_OUTPUT_FORMATS)
     _train_parser(sub)
     _transcribe_parser(sub)
+    _neural_parsers(sub)
     _segmentation_parsers(sub)
     _host_parsers(sub)
     _g2p_parsers(sub)
@@ -1694,13 +1712,6 @@ def _train_ivector(args) -> int:
     return 0
 
 
-_NEURAL_DIARIZATION = (
-    "speechbrain x-vector diarization is out of the port's scope (it needs "
-    "the speechbrain package and weights that are not in the repository; "
-    "ROADMAP.md, Queue 1, out of scope): pass an i-vector extractor"
-)
-
-
 def _diarize_speakers(args) -> int:
     """Cluster or classify utterances into speakers (reference ``mfa
     diarize_speakers``, ``diarization/speaker_diarizer.py``). Writes
@@ -1728,7 +1739,11 @@ def _diarize_speakers(args) -> int:
     output_format = setting("output_format", "long_textgrid")
     manifold_algorithm = setting("manifold_algorithm", "tsne")
     if args.ivector_extractor_path == "speechbrain":
-        raise RuntimeError(_NEURAL_DIARIZATION)
+        return _diarize_xvectors(
+            args, expected_num_speakers=expected_num_speakers,
+            distance_threshold=distance_threshold, cluster_type=cluster_type,
+            min_cluster_size=min_cluster_size, metric=metric,
+            output_format=output_format, manifold_algorithm=manifold_algorithm)
     if not Path(args.ivector_extractor_path).exists():
         raise FileNotFoundError(
             f"IVECTOR_EXTRACTOR_PATH {args.ivector_extractor_path!r} does not "
@@ -1773,6 +1788,72 @@ def _diarize_speakers(args) -> int:
         corpus, result, order, args.output_directory, args.classify,
         args.evaluate, args.visualize, manifold_algorithm, output_format,
         metric=metric, extractor_path=str(args.ivector_extractor_path),
+        expected_num_speakers=expected_num_speakers, cluster_type=cluster_type,
+        distance_threshold=distance_threshold, min_cluster_size=min_cluster_size,
+    )
+    return 0
+
+
+def _diarize_xvectors(args, *, expected_num_speakers, distance_threshold,
+                      cluster_type, min_cluster_size, metric, output_format,
+                      manifold_algorithm) -> int:
+    """``diarize_speakers CORPUS speechbrain OUT --xvector_model_path CKPT``:
+    SpeechBrain embeddings on the device in place of i-vectors, then the
+    same clustering or classification and export."""
+    import numpy as np
+
+    from montreal_forced_aligner_tpu_torch.corpus.corpus import Corpus
+    from montreal_forced_aligner_tpu_torch.diarization.embeddings import (
+        XVectorDiarizer,
+        XVectorEmbedder,
+    )
+    from montreal_forced_aligner_tpu_torch.diarization.speaker_diarizer import (
+        DiarizationResult,
+    )
+    from montreal_forced_aligner_tpu_torch.ivector.extractor import length_normalize
+
+    if args.xvector_model_path is None:
+        raise ValueError(
+            "IVECTOR_EXTRACTOR_PATH 'speechbrain' needs --xvector_model_path "
+            "pointing at a local EncoderClassifier checkpoint (no network "
+            "egress here)")
+    corpus = Corpus.load(args.corpus_directory, require_transcripts=False)
+    embedder = XVectorEmbedder(args.xvector_model_path, device=args.device)
+    if metric == "plda":
+        raise ValueError(
+            "--metric plda is not available with x-vector embeddings (no "
+            "PLDA model in a speechbrain checkpoint); use cosine")
+    order = list(range(corpus.num_utterances))
+    if args.classify:
+        emb = length_normalize(embedder.embed_corpus(corpus))
+        enrolled = {
+            s: emb[[i for i, u in enumerate(corpus.utterances)
+                    if u.speaker == s]].mean(axis=0)
+            for s in corpus.speakers
+        }
+        names = list(enrolled)
+        enroll = length_normalize(np.stack([enrolled[n] for n in names]))
+        a = enroll / np.linalg.norm(enroll, axis=1, keepdims=True)
+        b = emb / np.linalg.norm(emb, axis=1, keepdims=True)
+        assigned = [names[i] for i in (a @ b.T).argmax(axis=0)]
+        name_idx = {s: i for i, s in enumerate(corpus.speakers)}
+        result = DiarizationResult(
+            labels=np.array([name_idx[n] for n in assigned]), ivectors=emb)
+        moved = sum(1 for i, u in enumerate(corpus.utterances)
+                    if assigned[i] != u.speaker)
+        print(f"Classification reassigned {moved}/{len(order)} utterances")
+    else:
+        result = XVectorDiarizer(embedder, metric=metric).cluster_corpus(
+            corpus,
+            num_speakers=expected_num_speakers or None,
+            threshold=None if expected_num_speakers else distance_threshold,
+            method=cluster_type,
+            min_cluster_size=min_cluster_size,
+        )
+    _export_diarization(
+        corpus, result, order, args.output_directory, args.classify,
+        args.evaluate, args.visualize, manifold_algorithm, output_format,
+        metric=metric, extractor_path="speechbrain",
         expected_num_speakers=expected_num_speakers, cluster_type=cluster_type,
         distance_threshold=distance_threshold, min_cluster_size=min_cluster_size,
     )
@@ -1875,8 +1956,9 @@ def _export_diarization(
 
 
 def _create_segments_vad(args) -> int:
-    """Segment audio files by energy VAD (reference ``mfa
-    create_segments_vad``, ``vad/segmenter.py:56``)."""
+    """Segment audio files by energy VAD, or by a SpeechBrain VAD with
+    ``--speechbrain_model_path`` (reference ``mfa create_segments_vad``,
+    ``vad/segmenter.py:56,328``)."""
     from montreal_forced_aligner_tpu_torch.vad.segmenter import (
         SegmenterConfig,
         SpeechbrainVadSegmenter,
@@ -2153,11 +2235,47 @@ def _tokenize(args) -> int:
     return 0
 
 
+def _transcribe_neural(args, transcriber_class) -> int:
+    from montreal_forced_aligner_tpu_torch.corpus.corpus import Corpus
+
+    tr = transcriber_class(args.model_path, language=args.language,
+                           device=args.device)
+    corpus = Corpus.load(args.corpus_directory, require_transcripts=False)
+    results = tr.transcribe_corpus(corpus)
+    _export_transcripts(corpus, results, args.output_directory)
+    print(f"Transcribed {len(results)} utterances to {args.output_directory}")
+    return 0
+
+
+def _transcribe_whisper(args) -> int:
+    """Transcribe a corpus with a local Whisper checkpoint (reference ``mfa
+    transcribe_whisper``, ``transcription/transcriber.py:1850``): the
+    port's own model on the device; one ``spk/<file>.lab`` per file."""
+    from montreal_forced_aligner_tpu_torch.transcription.torch_models import (
+        WhisperTranscriber,
+    )
+
+    return _transcribe_neural(args, WhisperTranscriber)
+
+
+def _transcribe_speechbrain(args) -> int:
+    """Transcribe a corpus with a local SpeechBrain ASR checkpoint
+    (reference ``mfa transcribe_speechbrain``,
+    ``transcription/transcriber.py:1967``); needs the speechbrain package."""
+    from montreal_forced_aligner_tpu_torch.transcription.torch_models import (
+        SpeechbrainTranscriber,
+    )
+
+    return _transcribe_neural(args, SpeechbrainTranscriber)
+
+
 _COMMANDS = {
     "align": _align, "align_one": _align_one, "train": _train, "adapt": _adapt,
     "validate": _validate, "transcribe": _transcribe,
     "train_ivector": _train_ivector, "diarize_speakers": _diarize_speakers,
     "create_segments_vad": _create_segments_vad,
+    "transcribe_whisper": _transcribe_whisper,
+    "transcribe_speechbrain": _transcribe_speechbrain,
     "create_segments": _create_segments,
     "evaluate_alignments": _evaluate_alignments,
     "train_lm": _train_lm, "train_dictionary": _train_dictionary,

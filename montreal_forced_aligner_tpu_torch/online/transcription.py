@@ -3,15 +3,16 @@
 Counterpart of ``montreal_forced_aligner_tpu/online/transcription.py``
 (reference ``online/transcription.py:28``, ``transcribe_utterance_online``:
 the GMM decode of one utterance against the model, the lexicon and an LM):
-the production :class:`Transcriber` on a one-utterance corpus. The
-whisper and speechbrain variants need weights that are not in the
-repository; they raise.
+the production :class:`Transcriber` on a one-utterance corpus; and its
+whisper and speechbrain variants (``:99,:122``), which call the neural
+wrappers of :mod:`..transcription.torch_models` directly.
 """
 
 from __future__ import annotations
 
 import tempfile
 from pathlib import Path
+from typing import Optional
 
 import numpy as np
 
@@ -83,15 +84,42 @@ def transcribe_utterance_online(
         return tr.transcribe_corpus(corpus)[0]
 
 
-def transcribe_utterance_online_whisper(*_args, **_kwargs) -> str:
-    """Reference ``online/transcription.py:99``: needs whisper weights."""
-    raise NotImplementedError(
-        "transcribe_utterance_online_whisper: the neural backends are out of "
-        "scope (their weights are not in the repository; ROADMAP.md)")
+def transcribe_utterance_online_whisper(
+    model_path, samples: np.ndarray, sample_rate: int = 16000,
+    language: Optional[str] = None, device="cuda",
+) -> str:
+    """Reference ``online/transcription.py:99`` (faster-whisper variant)."""
+    from montreal_forced_aligner_tpu_torch.transcription.torch_models import (
+        WhisperTranscriber,
+    )
+
+    return WhisperTranscriber(model_path, language=language,
+                              device=device).transcribe(_at_16k(samples, sample_rate))
 
 
-def transcribe_utterance_online_speechbrain(*_args, **_kwargs) -> str:
-    """Reference ``online/transcription.py:122``: needs speechbrain weights."""
-    raise NotImplementedError(
-        "transcribe_utterance_online_speechbrain: the neural backends are out "
-        "of scope (their weights are not in the repository; ROADMAP.md)")
+def _at_16k(samples: np.ndarray, sample_rate: int) -> np.ndarray:
+    if sample_rate == 16000:
+        return np.asarray(samples, np.float32)
+    from montreal_forced_aligner_tpu_torch.corpus.corpus import _resample
+    from montreal_forced_aligner_tpu_torch.io.wav import WaveData
+
+    wd = WaveData(
+        samples=np.asarray(samples, np.float32),
+        sample_rate=sample_rate,
+        num_channels=1,
+        duration=len(samples) / sample_rate,
+    )
+    return _resample(wd, 16000).samples
+
+
+def transcribe_utterance_online_speechbrain(
+    model_path, samples: np.ndarray, sample_rate: int = 16000, device="cuda",
+) -> str:
+    """Reference ``online/transcription.py:122`` (speechbrain variant)."""
+    from montreal_forced_aligner_tpu_torch.transcription.torch_models import (
+        SpeechbrainTranscriber,
+    )
+
+    return SpeechbrainTranscriber(model_path, device=device).transcribe(
+        _at_16k(samples, sample_rate)
+    )

@@ -1,0 +1,203 @@
+"""Whisper's encoder and decoder as PyTorch modules.
+
+Counterpart of ``WhisperForConditionalGeneration`` (``transformers``
+``models/whisper/modeling_whisper.py``), inference only, with the same
+parameter names so a checkpoint's state dict loads as it is. The encoder
+is two convolutions with GELU, the stored (sinusoidal) positions, pre-LN
+self-attention blocks and a final LayerNorm; the decoder adds learned
+positions to the token embeddings, runs pre-LN blocks of causal
+self-attention (with a key/value cache), cross-attention to the encoder
+(its keys and values computed once an utterance) and a feed-forward
+layer, and takes its logits from the token embedding. Attention is
+``F.scaled_dot_product_attention`` on queries scaled before the product,
+as the reference's SDPA path computes it; float32 throughout, with TF32
+off (set at the package's import).
+"""
+
+from __future__ import annotations
+
+import math
+from typing import List, Optional, Tuple
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from montreal_forced_aligner_tpu_torch.transcription.whisper.checkpoint import (
+    WhisperDims,
+)
+
+KV = Tuple[torch.Tensor, torch.Tensor]
+
+
+def sinusoids(length: int, channels: int, max_timescale: float = 10000.0) -> torch.Tensor:
+    """The encoder's positions as Whisper makes them (sin half, cos half);
+    a checkpoint stores them as ``model.encoder.embed_positions.weight``."""
+    increment = math.log(max_timescale) / (channels // 2 - 1)
+    inv = torch.exp(-increment * torch.arange(channels // 2, dtype=torch.float32))
+    scaled = torch.arange(length, dtype=torch.float32)[:, None] * inv[None, :]
+    return torch.cat([scaled.sin(), scaled.cos()], dim=1)
+
+
+class Attention(nn.Module):
+    def __init__(self, d_model: int, heads: int):
+        super().__init__()
+        self.heads = heads
+        self.head_dim = d_model // heads
+        if self.head_dim * heads != d_model:
+            raise ValueError(f"d_model {d_model} is not divisible by {heads} heads")
+        self.scaling = self.head_dim ** -0.5
+        self.k_proj = nn.Linear(d_model, d_model, bias=False)
+        self.v_proj = nn.Linear(d_model, d_model)
+        self.q_proj = nn.Linear(d_model, d_model)
+        self.out_proj = nn.Linear(d_model, d_model)
+
+    def _split(self, x: torch.Tensor) -> torch.Tensor:
+        b, t, _ = x.shape
+        return x.view(b, t, self.heads, self.head_dim).transpose(1, 2).contiguous()
+
+    def project_kv(self, x: torch.Tensor) -> KV:
+        return self._split(self.k_proj(x)), self._split(self.v_proj(x))
+
+    def forward(self, x: torch.Tensor, kv: KV, causal: bool = False) -> torch.Tensor:
+        b, t, _ = x.shape
+        q = self._split(self.q_proj(x) * self.scaling)
+        out = F.scaled_dot_product_attention(q, kv[0], kv[1], scale=1.0,
+                                             is_causal=causal)
+        return self.out_proj(out.transpose(1, 2).reshape(b, t, -1))
+
+
+def _ffn(layer, x: torch.Tensor) -> torch.Tensor:
+    return x + layer.fc2(F.gelu(layer.fc1(layer.final_layer_norm(x))))
+
+
+class EncoderLayer(nn.Module):
+    def __init__(self, dims: WhisperDims):
+        super().__init__()
+        d = dims.d_model
+        self.self_attn = Attention(d, dims.encoder_attention_heads)
+        self.self_attn_layer_norm = nn.LayerNorm(d)
+        self.fc1 = nn.Linear(d, dims.encoder_ffn_dim)
+        self.fc2 = nn.Linear(dims.encoder_ffn_dim, d)
+        self.final_layer_norm = nn.LayerNorm(d)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        h = self.self_attn_layer_norm(x)
+        x = x + self.self_attn(h, self.self_attn.project_kv(h))
+        return _ffn(self, x)
+
+
+class DecoderLayer(nn.Module):
+    def __init__(self, dims: WhisperDims):
+        super().__init__()
+        d = dims.d_model
+        self.self_attn = Attention(d, dims.decoder_attention_heads)
+        self.self_attn_layer_norm = nn.LayerNorm(d)
+        self.encoder_attn = Attention(d, dims.decoder_attention_heads)
+        self.encoder_attn_layer_norm = nn.LayerNorm(d)
+        self.fc1 = nn.Linear(d, dims.decoder_ffn_dim)
+        self.fc2 = nn.Linear(dims.decoder_ffn_dim, d)
+        self.final_layer_norm = nn.LayerNorm(d)
+
+    def forward(self, x: torch.Tensor, past: Optional[KV], cross: KV
+                ) -> Tuple[torch.Tensor, KV]:
+        h = self.self_attn_layer_norm(x)
+        k, v = self.self_attn.project_kv(h)
+        if past is not None:
+            k, v = torch.cat([past[0], k], dim=-2), torch.cat([past[1], v], dim=-2)
+        x = x + self.self_attn(h, (k, v), causal=past is None and x.shape[1] > 1)
+        x = x + self.encoder_attn(self.encoder_attn_layer_norm(x), cross)
+        return _ffn(self, x), (k, v)
+
+
+class Encoder(nn.Module):
+    def __init__(self, dims: WhisperDims):
+        super().__init__()
+        d = dims.d_model
+        self.conv1 = nn.Conv1d(dims.num_mel_bins, d, kernel_size=3, padding=1)
+        self.conv2 = nn.Conv1d(d, d, kernel_size=3, stride=2, padding=1)
+        self.embed_positions = nn.Embedding(dims.max_source_positions, d)
+        self.layers = nn.ModuleList(EncoderLayer(dims) for _ in range(dims.encoder_layers))
+        self.layer_norm = nn.LayerNorm(d)
+
+    def forward(self, features: torch.Tensor) -> torch.Tensor:
+        """(B, num_mel_bins, 2 * max_source_positions) log-mel ->
+        (B, max_source_positions, d_model)."""
+        expected = 2 * self.embed_positions.num_embeddings
+        if features.shape[-1] != expected:
+            raise ValueError(f"Whisper expects {expected} mel frames, got "
+                             f"{features.shape[-1]}")
+        x = F.gelu(self.conv1(features))
+        x = F.gelu(self.conv2(x)).permute(0, 2, 1)
+        x = x + self.embed_positions.weight
+        for layer in self.layers:
+            x = layer(x)
+        return self.layer_norm(x)
+
+
+class Decoder(nn.Module):
+    def __init__(self, dims: WhisperDims):
+        super().__init__()
+        d = dims.d_model
+        self.embed_tokens = nn.Embedding(dims.vocab_size, d, dims.pad_token_id)
+        self.embed_positions = nn.Embedding(dims.max_target_positions, d)
+        self.layers = nn.ModuleList(DecoderLayer(dims) for _ in range(dims.decoder_layers))
+        self.layer_norm = nn.LayerNorm(d)
+
+    def cross_kv(self, encoded: torch.Tensor) -> List[KV]:
+        """Each layer's cross-attention keys and values of one encoding."""
+        return [layer.encoder_attn.project_kv(encoded) for layer in self.layers]
+
+    def forward(self, ids: torch.Tensor, cross: List[KV],
+                past: Optional[List[KV]] = None) -> Tuple[torch.Tensor, List[KV]]:
+        """(B, T) token ids after the ``past`` ones -> (B, T, d_model) final
+        states and the extended cache."""
+        start = 0 if past is None else past[0][0].shape[-2]
+        end = start + ids.shape[1]
+        if end > self.embed_positions.num_embeddings:
+            raise ValueError(f"decoder position {end - 1} is past the model's "
+                             f"{self.embed_positions.num_embeddings} positions")
+        x = self.embed_tokens(ids) + self.embed_positions.weight[start:end]
+        cache = []
+        for i, layer in enumerate(self.layers):
+            x, kv = layer(x, None if past is None else past[i], cross[i])
+            cache.append(kv)
+        return self.layer_norm(x), cache
+
+
+class WhisperCore(nn.Module):
+    def __init__(self, dims: WhisperDims):
+        super().__init__()
+        self.encoder = Encoder(dims)
+        self.decoder = Decoder(dims)
+
+
+class Whisper(nn.Module):
+    """Encoder, decoder and the tied output projection; ``state_dict``
+    keys are the checkpoint's (``model.encoder...``, ``model.decoder...``)."""
+
+    def __init__(self, dims: WhisperDims):
+        super().__init__()
+        if dims.activation_function != "gelu":
+            raise NotImplementedError(
+                f"activation {dims.activation_function!r}: only Whisper's "
+                "'gelu' is supported")
+        self.dims = dims
+        self.model = WhisperCore(dims)
+
+    def encode(self, features: torch.Tensor) -> torch.Tensor:
+        return self.model.encoder(features)
+
+    def logits(self, states: torch.Tensor) -> torch.Tensor:
+        return F.linear(states, self.model.decoder.embed_tokens.weight)
+
+    @classmethod
+    def from_weights(cls, dims: WhisperDims, state_dict) -> "Whisper":
+        """The model holding a checkpoint's float32 tensors themselves (built
+        on the meta device, so nothing is initialised first); a stored
+        ``proj_out.weight`` is the tied embedding and is not loaded."""
+        with torch.device("meta"):
+            model = cls(dims)
+        weights = {k: v for k, v in state_dict.items() if k != "proj_out.weight"}
+        model.load_state_dict(weights, strict=True, assign=True)
+        return model.eval()

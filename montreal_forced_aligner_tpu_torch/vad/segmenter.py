@@ -1,4 +1,4 @@
-"""Energy-based voice activity detection and segmentation.
+"""Voice activity detection (energy and SpeechBrain neural) and segmentation.
 
 Counterpart of ``montreal_forced_aligner_tpu/vad/segmenter.py``
 (behavioural spec: reference ``corpus/features.py:379-419,863-895``,
@@ -8,7 +8,8 @@ if its log energy exceeds threshold + mean_scale * the file's mean log
 energy; and ``vad/segmenter.py:56``, ``VadSegmenter``: voiced frames merged
 into utterance segments under min/max segment lengths and a minimum pause,
 defaults from ``vad/models.py:503``). The frame energies run on the device
-with the MFCC framing; the thresholds and the merging on the host.
+with the MFCC framing; the thresholds and the merging on the host. The
+neural VAD (``SpeechbrainVAD``) needs the speechbrain package.
 """
 
 from __future__ import annotations
@@ -27,13 +28,6 @@ from montreal_forced_aligner_tpu_torch.ops.mfcc import (
     MfccConfig,
     pad_waves_for_mfcc,
 )
-
-_NEURAL_VAD = (
-    "the SpeechBrain neural VAD is out of the port's scope (it needs the "
-    "speechbrain package and weights that are not in the repository; "
-    "ROADMAP.md, Queue 1, out of scope): use the energy VAD"
-)
-
 
 def _frame_log_energy(waves: torch.Tensor, cfg: MfccConfig, max_frames: int):
     """(B, max_frames) per-frame log energy with the MFCC framing
@@ -175,18 +169,76 @@ class VadSegmenter:
 
 
 class SpeechbrainVAD:
-    """The reference's neural VAD (``MfaVAD``, ``vad/models.py:133``):
-    out of the port's scope, so constructing one raises."""
+    """Neural VAD posteriors from a locally available SpeechBrain VAD
+    checkpoint (reference ``MfaVAD``, ``vad/models.py:133``; used by
+    ``SpeechbrainVadSegmenter``, ``vad/segmenter.py:328``). Gated on the
+    speechbrain package and local weights; the model and the wave sit on
+    ``device``, and the frame posteriors, back on the host, are
+    thresholded and merged by the same ``segments_from_vad`` as the
+    energy VAD's."""
 
-    def __init__(self, model_path, threshold: float = 0.5):
-        raise RuntimeError(_NEURAL_VAD)
+    def __init__(self, model_path, threshold: float = 0.5, device="cuda"):
+        self.device = resolve_device(device)
+        try:
+            from speechbrain.inference.VAD import VAD as _SbVAD
+        except ImportError as e:
+            raise RuntimeError(
+                "speechbrain is not available; neural VAD needs the "
+                "speechbrain package and a local checkpoint directory"
+            ) from e
+        model_path = Path(model_path)
+        if not model_path.exists():
+            raise FileNotFoundError(
+                f"no local SpeechBrain VAD checkpoint at {model_path}"
+            )
+        self.model = _SbVAD.from_hparams(
+            source=str(model_path), savedir=str(model_path),
+            run_opts={"device": str(self.device)},
+        )
+        self.threshold = threshold
+
+    def voiced_frames(
+        self, samples: np.ndarray, sample_rate: int = 16000,
+        frame_shift: float = 0.01,
+    ) -> np.ndarray:
+        """Boolean per-frame speech decisions at ``frame_shift`` rate."""
+        if sample_rate != 16000:
+            from montreal_forced_aligner_tpu_torch.corpus.corpus import _resample
+            from montreal_forced_aligner_tpu_torch.io.wav import WaveData
+
+            wd = WaveData(
+                samples=np.asarray(samples, dtype=np.float32),
+                sample_rate=sample_rate,
+                num_channels=1,
+                duration=len(samples) / sample_rate,
+            )
+            samples = _resample(wd, 16000).samples
+            sample_rate = 16000
+        wav = torch.from_numpy(
+            np.asarray(samples, dtype=np.float32) / 32768.0
+        ).unsqueeze(0).to(self.device)
+        with torch.no_grad():
+            probs = self.model.get_speech_prob_chunk(wav).cpu().numpy().reshape(-1)
+        n_out = int(len(samples) / sample_rate / frame_shift)
+        if len(probs) == 0 or n_out == 0:
+            return np.zeros(n_out, dtype=bool)
+        idx = np.minimum(
+            (np.arange(n_out) * len(probs) // max(n_out, 1)), len(probs) - 1
+        )
+        return probs[idx] > self.threshold
 
 
 class SpeechbrainVadSegmenter(VadSegmenter):
     """``VadSegmenter`` with neural frame decisions (reference
-    ``SpeechbrainVadSegmenter``, ``vad/segmenter.py:328``): out of the
-    port's scope, so constructing one raises."""
+    ``SpeechbrainVadSegmenter``, ``vad/segmenter.py:328``)."""
 
     def __init__(self, model_path, config: Optional[SegmenterConfig] = None,
                  device="cuda"):
-        raise RuntimeError(_NEURAL_VAD)
+        super().__init__(config, device)
+        self.vad = SpeechbrainVAD(model_path, device=self.device)
+
+    def segment_wave(self, wave) -> List[Tuple[float, float]]:
+        voiced = self.vad.voiced_frames(
+            wave.samples, wave.sample_rate, self.config.frame_shift
+        )
+        return segments_from_vad(voiced, self.config)

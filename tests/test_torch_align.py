@@ -542,7 +542,15 @@ def test_port_names_no_jax_in_any_import():
                    "parallel/data_parallel.py", "parallel/scaling.py",
                    "parallel/dryrun.py", "wrapper.py",
                    "parity/reference_decoder.py", "parity/harness.py",
-                   "parity/accuracy.py"):
+                   "parity/accuracy.py", "speechbrain_surface.py",
+                   "transcription/torch_models.py",
+                   "transcription/whisper/__init__.py",
+                   "transcription/whisper/checkpoint.py",
+                   "transcription/whisper/features.py",
+                   "transcription/whisper/model.py",
+                   "transcription/whisper/generate.py",
+                   "transcription/whisper/tokenizer.py",
+                   "diarization/embeddings.py", "vad/segmenter.py"):
         assert f"montreal_forced_aligner_tpu_torch/{module}" in names
     assert "mfa_tpu_torch/__init__.py" in names
     for path in _port_files():
@@ -557,7 +565,8 @@ def test_port_names_no_jax_in_any_import():
             for name in names:
                 root = name.split(".")[0]
                 assert root not in ("jax", "jaxlib", "montreal_forced_aligner_tpu",
-                                    "mfa_tpu"), (path, name)
+                                    "mfa_tpu", "transformers", "safetensors"), (
+                    path, name)
 
 
 def test_importing_the_port_loads_no_jax():
@@ -569,7 +578,8 @@ def test_importing_the_port_loads_no_jax():
         "import chip_smoke\n"
         "import mfa_tpu_torch\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in "
-        "('jax', 'jaxlib', 'montreal_forced_aligner_tpu')]\n"
+        "('jax', 'jaxlib', 'montreal_forced_aligner_tpu', 'transformers', "
+        "'safetensors')]\n"
         "assert not bad, bad\n"
         "assert len(mods) > 25, mods\n"
         "for m in ('training.trainer', 'training.sat', 'ops.stats', "
@@ -584,7 +594,10 @@ def test_importing_the_port_loads_no_jax():
         "'tokenization_surface', 'parallel.multihost', 'parallel.mesh', "
         "'parallel.data_parallel', 'parallel.scaling', 'parallel.dryrun', "
         "'wrapper', 'parity.reference_decoder', 'parity.harness', "
-        "'parity.accuracy'):\n"
+        "'parity.accuracy', 'speechbrain_surface', 'transcription.torch_models', "
+        "'transcription.whisper.checkpoint', 'transcription.whisper.features', "
+        "'transcription.whisper.model', 'transcription.whisper.generate', "
+        "'transcription.whisper.tokenizer', 'diarization.embeddings'):\n"
         "    assert p.__name__ + '.' + m in mods, m\n"
         "print('ok', len(mods))\n"
     )

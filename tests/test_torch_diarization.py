@@ -12,7 +12,8 @@ the JAX package's, on the CPU.
   byte. ``--visualize`` writes the plot where sklearn is present.
 * The JAX package's ``relabel_corpus`` pairs batch-order labels with the
   corpus order; the port's takes the batches' ``order``.
-* ``speechbrain`` parses and raises, naming the out-of-scope backend.
+* ``speechbrain`` x-vectors through the port's stand-in package: the JAX
+  command's utt2spk; the missing-package and checkpoint errors.
 """
 
 import numpy as np
@@ -228,12 +229,41 @@ def test_diarize_config_path_and_visualize(diar_corpus, tmp_path, capsys):
 
 
 def test_diarize_speechbrain_and_default_device_raise(diar_corpus, tmp_path):
+    """``diarize_speakers speechbrain`` raises the JAX package's error
+    without the speechbrain package, and a missing checkpoint's; through
+    the port's stand-in it writes the JAX command's utt2spk; the default
+    device raises without a card."""
+    import torch_mock_speechbrain
+
     root, model = diar_corpus
-    with pytest.raises(RuntimeError, match="speechbrain x-vector diarization is out"):
+    with pytest.raises(RuntimeError, match="speechbrain is not available; x-vector"):
         cli_main(["diarize_speakers", str(root), "speechbrain", str(tmp_path / "o"),
                   "--xvector_model_path", str(tmp_path), "--device", "cpu"])
+    ckpt = tmp_path / "sb_spk"
+    ckpt.mkdir()
+    torch_mock_speechbrain.install()
+    try:
+        with pytest.raises(FileNotFoundError, match="no local SpeechBrain speaker"):
+            cli_main(["diarize_speakers", str(root), "speechbrain", str(tmp_path / "o"),
+                      "--xvector_model_path", str(tmp_path / "missing"),
+                      "--device", "cpu"])
+        opts = ["--xvector_model_path", str(ckpt), "--expected_num_speakers", "2"]
+        assert cli_main(["diarize_speakers", str(root), "speechbrain",
+                         str(tmp_path / "port"), "--device", "cpu"] + opts) == 0
+        r = CliRunner().invoke(JCLI.cli, ["diarize_speakers", str(root), "speechbrain",
+                                          str(tmp_path / "jax")] + opts,
+                               catch_exceptions=False)
+        assert r.exit_code == 0, r.output
+        got = (tmp_path / "port" / "utt2spk.tsv").read_text()
+        assert got == (tmp_path / "jax" / "utt2spk.tsv").read_text()
+        assert len(set(line.split("\t")[3] for line in got.splitlines())) == 2
+    finally:
+        torch_mock_speechbrain.uninstall()
     if torch.cuda.is_available():
         return
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        cli_main(["diarize_speakers", str(root), "speechbrain", str(tmp_path / "o"),
+                  "--xvector_model_path", str(ckpt)])
     with pytest.raises(RuntimeError, match="no CUDA device"):
         cli_main(["diarize_speakers", str(root), str(model), str(tmp_path / "o")])
     with pytest.raises(RuntimeError, match="no CUDA device"):

@@ -198,7 +198,11 @@ def test_online_transcription_matches_jax(mono, tmp_path):
         assert got.text == want.text
         assert abs(got.log_likelihood - want.log_likelihood) < 5.0
     assert got.text == "ab a"
-    for fn in (POT.transcribe_utterance_online_whisper,
-               POT.transcribe_utterance_online_speechbrain):
-        with pytest.raises(NotImplementedError):
-            fn("model", samples)
+    # the neural variants run (tests/test_torch_whisper.py and
+    # tests/test_torch_speechbrain.py hold them against the JAX package's);
+    # here their errors without a checkpoint or the package
+    with pytest.raises(FileNotFoundError, match="no local Whisper checkpoint"):
+        POT.transcribe_utterance_online_whisper(tmp_path / "none", samples,
+                                                device="cpu")
+    with pytest.raises(RuntimeError, match="speechbrain is not available"):
+        POT.transcribe_utterance_online_speechbrain(tmp_path, samples, device="cpu")

@@ -7,6 +7,8 @@ their reports, checks and the kernels line with adapt's, the dense
 decode's and g2p-align's launches and checks."""
 
 import sys
+
+import numpy as np
 from pathlib import Path
 
 import pytest
@@ -399,3 +401,77 @@ def test_speaker_stats_invariance_runs_on_cpu(fixture):
         assert out[key] == {"2": 0.0, "6": 0.0}, key
     assert sorted(out["fmllr_stats_synced_s"]) == ["1", "2", "6"]
     assert sorted(out["feature_rows_synced_s"]) == ["1", "2", "6"]
+
+
+# a Whisper at a tiny width, in large-v3's vocabulary layout cut down
+TINY_WHISPER = {
+    "vocab_size": 459, "num_mel_bins": 128, "d_model": 64, "encoder_layers": 2,
+    "encoder_attention_heads": 4, "encoder_ffn_dim": 128, "decoder_layers": 2,
+    "decoder_attention_heads": 4, "decoder_ffn_dim": 128,
+    "max_source_positions": 1500, "max_target_positions": 40,
+}
+TINY_WHISPER_TEXT = {"n_base": 300, "n_languages": 100, "n_timestamps": 51}
+
+
+def test_neural_phases_run_on_cpu(fixture, tmp_path, monkeypatch, one_torch_thread):
+    """The whisper phase at a tiny width and the speechbrain-paths phase,
+    with the CPU in the card's place: no launches, every file transcribed,
+    the CPU reference (a worker) equal to the run, the same texts,
+    segments and labels on both runs."""
+    _tmp, _model, _dict, _corpus, _audio_s, small_dir, *_ = fixture
+    cpu = torch.device("cpu")
+    none = {"band_forward": 0, "band_backtrace": 0, "state_emission": 0}
+    # in a process of its own without CUBLAS_WORKSPACE_CONFIG, which spawns
+    # the CPU reference in turn, as chip_smoke.main runs it
+    monkeypatch.setenv("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
+    w = chip_smoke.CpuTask("whisper_phase", (tmp_path, small_dir, cpu, TINY_WHISPER,
+                                             TINY_WHISPER_TEXT),
+                           tmp_path / "whisper.pkl", threads=1, daemon=False,
+                           drop_env=("CUBLAS_WORKSPACE_CONFIG",)).result()
+    assert chip_smoke.os.environ["CUBLAS_WORKSPACE_CONFIG"] == ":4096:8"
+    assert w["launches"] == none and w["utterances"] == 3
+    assert w["parameters"] > 0 and w["tokens"] >= 3 and w["windows"] == 3
+    assert w["decoder_ms_per_token"] > 0 and w["encoder_ms_per_utterance"] > 0
+    assert len(w["card_vs_cpu"]) == chip_smoke.WHISPER_COMPARE_UTTS
+    for row in w["card_vs_cpu"]:
+        # the worker runs 4 threads, which may split the products otherwise
+        assert row["mel_max_abs_err"] <= 1e-6 and row["encoder_max_abs_err"] <= 1e-5
+        assert row["steps_equal"] + (row["stopped_at_near_tie"] is not None) >= 1
+        assert row["logits_max_abs_err"] <= 1e-5
+    spk_dir, _ = chip_smoke.build_speaker_corpus(tmp_path, num_speakers=2,
+                                                 per_speaker=3, min_s=2.0, max_s=3.0)
+    vad_dir, _pauses, _vad_s = chip_smoke.build_vad_set(tmp_path, num_files=2,
+                                                        seconds=12.0)
+    sb = chip_smoke.speechbrain_paths_phase(tmp_path, small_dir, vad_dir, spk_dir,
+                                            2, cpu)
+    assert sb["card_equals_cpu"] and sb["files_transcribed"] == 3
+    assert sb["segment_files"] == 2 and sb["segments"] >= 2
+    assert sb["utterances_diarized"] == 6
+    assert all(v == {"parameters": ["cpu"], "input": "cpu"} for v in sb["on_card"].values())
+
+
+def test_smoke_vocabulary_layout():
+    """The synthetic vocabulary puts large-v3's special tokens at their
+    published ids."""
+    vocab, added, ids, lang_to_id = chip_smoke.whisper_text_layout(
+        **chip_smoke.WHISPER_TURBO_TEXT)
+    assert len(vocab) + len(added) == chip_smoke.WHISPER_TURBO["vocab_size"] == 51866
+    assert (ids["endoftext"], ids["startoftranscript"], ids["en"]) == (50257, 50258, 50259)
+    assert (ids["translate"], ids["transcribe"], ids["startofprev"],
+            ids["nospeech"], ids["notimestamps"]) == (50359, 50360, 50362, 50363, 50364)
+    assert added[-1] == (51865, "<|30.00|>", False)
+    assert len(lang_to_id) == 100 and lang_to_id["<|yue|>"] == 50358
+    assert sorted(vocab.values()) == list(range(50257))
+
+
+def test_smoke_greedy_agreement():
+    """The card-against-CPU rule: arg-max equal up to the CPU's first
+    near-tie; a disagreement before it fails."""
+    inf = -np.inf
+    cpu = np.array([[0.0, 1.0, inf], [2.0, 1.9995, inf], [0.0, 1.0, inf]])
+    card = np.array([[0.0, 1.0002, inf], [1.9990, 2.0, inf], [1.0, 0.0, inf]])
+    assert chip_smoke.greedy_agreement(cpu, card, 1e-3) == (1, 1, pytest.approx(2e-4))
+    with pytest.raises(RuntimeError, match="step 0"):
+        chip_smoke.greedy_agreement(cpu[2:], card[2:], 1e-3)
+    with pytest.raises(RuntimeError, match="suppressed"):
+        chip_smoke.greedy_agreement(cpu, card[:, ::-1].copy(), 1e-3)

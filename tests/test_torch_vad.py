@@ -9,7 +9,8 @@
   both to one path).
 * ``create_segments`` on the "ab a" corpus of ``tests/helpers.py``: the
   same segment texts as the JAX command's, boundaries within one frame.
-* The neural VAD parses and raises, naming the out-of-scope backend.
+* The neural VAD (SpeechBrain) through the port's stand-in package: the
+  JAX package's segments; its missing-package and checkpoint errors.
 """
 
 import numpy as np
@@ -132,11 +133,39 @@ def test_same_file_names_in_two_speaker_directories(tmp_path):
 
 
 def test_neural_vad_raises(tmp_path):
-    with pytest.raises(RuntimeError, match="neural VAD is out of the port's scope"):
-        PV.SpeechbrainVAD(tmp_path)
-    with pytest.raises(RuntimeError, match="neural VAD is out of the port's scope"):
+    """The neural VAD raises the JAX package's error without the
+    speechbrain package, and a missing checkpoint's; through the port's
+    stand-in package it runs, with the JAX package's segments; the default
+    device raises without a card."""
+    import torch_mock_speechbrain
+
+    with pytest.raises(RuntimeError, match="speechbrain is not available; neural VAD"):
+        PV.SpeechbrainVAD(tmp_path, device="cpu")
+    with pytest.raises(RuntimeError, match="speechbrain is not available; neural VAD"):
         cli_main(["create_segments_vad", str(tmp_path), str(tmp_path / "o"),
                   "--speechbrain_model_path", str(tmp_path), "--device", "cpu"])
+    corpus = tmp_path / "c"
+    (corpus / "spk0").mkdir(parents=True)
+    write_wave(corpus / "spk0" / "u1.wav", vad_wave(np.random.RandomState(3), 6.0), SR)
+    ckpt = tmp_path / "sb_vad"
+    ckpt.mkdir()
+    torch_mock_speechbrain.install()
+    try:
+        with pytest.raises(FileNotFoundError, match="no local SpeechBrain VAD checkpoint"):
+            PV.SpeechbrainVAD(tmp_path / "missing", device="cpu")
+        assert cli_main(["create_segments_vad", str(corpus), str(tmp_path / "o"),
+                         "--speechbrain_model_path", str(ckpt), "--device", "cpu"]) == 0
+        got = [(i.begin, i.end) for i in
+               TextGrid.read(tmp_path / "o" / "spk0" / "u1.TextGrid").tiers["segments"]
+               if i.label]
+        want = JV.SpeechbrainVadSegmenter(ckpt).segment_file(corpus / "spk0" / "u1.wav")
+        assert len(want) >= 2
+        np.testing.assert_allclose(got, want, atol=1e-9)
+        if not torch.cuda.is_available():
+            with pytest.raises(RuntimeError, match="no CUDA device"):
+                PV.SpeechbrainVadSegmenter(ckpt)
+    finally:
+        torch_mock_speechbrain.uninstall()
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="no CUDA device"):
             cli_main(["create_segments_vad", str(tmp_path), str(tmp_path / "o")])
