@@ -202,14 +202,23 @@ What it does, in order; any failure exits non-zero with no result line:
     deterministic cuBLAS workspace): a random-weight Whisper checkpoint at
     ``openai/whisper-large-v3-turbo``'s published widths and depth (about
     809M parameters, float16 safetensors, a synthetic vocabulary in the
-    published layout) transcribes the 8-utterance corpus through ``cli
+    published layout) transcribes the 4-utterance corpus through ``cli
     transcribe_whisper`` on the card, counted from 0 (no K1-K3 on this
     path); the load seconds, encoder ms per utterance, decoder ms per
     token, tokens, warm audio seconds per second and peak memory; the card
     against the port's CPU path (a worker) on 2 utterances: log-mel within
     1e-4, encoder output within 1e-4, greedy ids of the first 32 steps
     equal up to the CPU's first near-tie (top two within 1e-4), logits
-    within 1e-4;
+    within 1e-4; then, in the same process, main path **whisper-settings**:
+    the checkpoint under a second generation config (``WHISPER_SETTINGS``:
+    timestamps, conditioning on earlier windows, 4 beams, no repeated
+    trigram), ``cli transcribe_whisper`` on 2 utterances counted from 0, a
+    warm run (decoder ms a beam step, beam steps, windows, peak memory,
+    the phase's seconds, the card's name and power limit), and the card
+    against the CPU worker over the first 32 steps: every beam's
+    log-probabilities within 1e-4, the running beams equal up to the CPU's
+    first near-tie (best candidates within 1e-4), the chosen hypothesis
+    equal when none came;
 35. **speechbrain-paths**: ``transcribe_speechbrain``, ``create_segments_vad
     --speechbrain_model_path`` and ``diarize_speakers speechbrain`` through
     ``tests/torch_mock_speechbrain.py`` on the card and the CPU: the same
@@ -1910,7 +1919,7 @@ def train_mono_phase(corpus_dir, dict_path, audio_s, device, warm_runs=3,
             {"band_forward": fwd.all_args[first],
              "band_backtrace": back.all_args[first],
              "band_backtrace_last": back.all_args[first + banded - 1]},
-            None, device, sm_clock_mhz=sm_clock_mhz)
+            None, device, sm_clock_mhz=sm_clock_mhz, k1_plain_reps=0)
     del recs, fwd, back
     lls = _loglikes(trainer)
     _check(all(np.isfinite(lls)) and lls[-1] > lls[0], f"train-mono loglikes {lls}")
@@ -2464,7 +2473,7 @@ def adapt_phase(model_path, dict_path, corpus_dir, subset_dir, out_dir, audio_s,
     si_params = gmm_params_from_numpy(si.means_invvars, si.inv_vars,
                                       si.gconsts).to(device)
     checks = kernel_checks(batch_inputs(recs, 0), si_params, device,
-                           sm_clock_mhz=sm_clock_mhz)
+                           sm_clock_mhz=sm_clock_mhz, k1_plain_reps=0)
     del recs, si_params
     first_arrays = [_gmm_arrays(first.gmm), _gmm_arrays(first.alignment_model[1])]
     warm, identical = [], None
@@ -5504,6 +5513,12 @@ WHISPER_ENCODER_ATOL = 1e-4
 WHISPER_LOGITS_ATOL = 1e-4
 WHISPER_COMPARE_STEPS = 32
 WHISPER_COMPARE_UTTS = 2
+# the generation settings the whisper-settings phase writes into a second
+# generation config beside the checkpoint: timestamps, each window
+# conditioned on the earlier ones, beam search over 4 beams, no repeated
+# trigram
+WHISPER_SETTINGS = {"return_timestamps": True, "condition_on_prev_tokens": True,
+                    "num_beams": 4, "no_repeat_ngram_size": 3}
 
 
 def whisper_text_layout(n_base, n_languages, n_timestamps, seed=0):
@@ -5662,10 +5677,43 @@ def write_whisper_checkpoint(out_dir: Path, dims: dict, text: dict, seed=0,
     return out_dir
 
 
-def whisper_cpu_reference(ckpt, waves, steps):
+def settings_checkpoint(ckpt: Path, out_dir: Path, settings: dict) -> Path:
+    """A checkpoint directory beside ``ckpt`` that links its files and holds
+    a generation config with ``settings`` set."""
+    out_dir.mkdir(parents=True, exist_ok=True)
+    for f in ckpt.iterdir():
+        if f.name != "generation_config.json":
+            (out_dir / f.name).symlink_to(f.resolve())
+    gen = json.loads((ckpt / "generation_config.json").read_text())
+    gen.update(settings)
+    (out_dir / "generation_config.json").write_text(json.dumps(gen, indent=1))
+    return out_dir
+
+
+def _with_settings(tr, ckpt: Path):
+    """The transcriber ``tr`` (its model shared) under ``ckpt``'s
+    generation config."""
+    import copy
+
+    from montreal_forced_aligner_tpu_torch.transcription.whisper import (
+        GenerationSettings,
+    )
+
+    out = copy.copy(tr)
+    out.generation = GenerationSettings.from_dict(
+        json.loads((Path(ckpt) / "generation_config.json").read_text()), False)
+    return out
+
+
+def whisper_cpu_reference(ckpt, waves, steps, settings_ckpt=None):
     """The port's CPU path on each wave: log-mel, encoder output, and the
     greedy decode's prompt, first ``steps`` steps' scores and the language
-    detection's scores (run in a worker beside the card)."""
+    detection's scores; with ``settings_ckpt``, also that config's decode
+    cut at ``steps`` steps (its prompt, ids, each step's log-probabilities,
+    running beams and margins), from the same encoder outputs (run in a
+    worker beside the card)."""
+    import hashlib
+
     import torch
 
     from montreal_forced_aligner_tpu_torch.transcription.torch_models import (
@@ -5673,9 +5721,17 @@ def whisper_cpu_reference(ckpt, waves, steps):
     )
 
     tr = WhisperTranscriber(ckpt, device="cpu")
-    encode, encoded = tr.model.encode, []
-    # keep the decode's own encoder output (one encoder run an utterance)
-    tr.model.encode = lambda mel: encoded.append(encode(mel)) or encoded[-1]
+    encode, encoded, cache = tr.model.encode, [], {}
+
+    def cached(mel):
+        # one encoder run a window, kept for the second config's decode
+        key = hashlib.sha1(mel.numpy().tobytes()).hexdigest()
+        if key not in cache:
+            cache[key] = encode(mel)
+        encoded.append(cache[key])
+        return cache[key]
+
+    tr.model.encode = cached
     out = []
     with torch.no_grad():
         for wave in waves:
@@ -5686,7 +5742,45 @@ def whisper_cpu_reference(ckpt, waves, steps):
             out.append({"mel": mel.numpy(), "enc": enc.numpy(), "prompt": d.prompt,
                         "scores": torch.stack(d.scores).numpy(),
                         "language_scores": d.language_scores.numpy()})
+        if settings_ckpt is not None:
+            ts = _with_settings(tr, settings_ckpt)
+            for row, wave in zip(out, waves):
+                row["settings"] = _beam_record(ts.decode(wave, keep_scores=steps,
+                                                         max_steps=steps))
     return out
+
+
+def _beam_record(d):
+    import torch
+
+    return {"prompt": d.prompt, "ids": d.ids, "steps": d.steps,
+            "scores": torch.stack(d.scores).numpy(), "tokens": d.beam_tokens,
+            "sources": d.beam_sources, "margins": d.beam_margins}
+
+
+def beam_agreement(cpu, card, atol):
+    """Beam steps whose log-probabilities agree within ``atol`` (the same
+    entries suppressed) and whose running beams (new token and source beam)
+    are equal, up to the first step where the CPU's best candidates lie
+    within ``atol`` of each other (a near-tie the two devices may break
+    apart): (steps compared, the step that stopped the comparison or None,
+    the largest finite difference over the compared steps)."""
+    compared, stopped, worst = 0, None, 0.0
+    for i, (c, g) in enumerate(zip(cpu["scores"], card["scores"])):
+        finite = np.isfinite(c)
+        _check(np.array_equal(finite, np.isfinite(g)),
+               f"beam step {i}: the suppressed tokens differ")
+        worst = max(worst, float(np.abs(c[finite] - g[finite]).max()))
+        if cpu["margins"][i] < atol:
+            stopped = i
+            break
+        _check(card["tokens"][i] == cpu["tokens"][i]
+               and card["sources"][i] == cpu["sources"][i],
+               f"beam step {i}: the card ran beams {card['tokens'][i]} from "
+               f"{card['sources'][i]}, the CPU {cpu['tokens'][i]} from "
+               f"{cpu['sources'][i]} (margin {cpu['margins'][i]:.3g})")
+        compared += 1
+    return compared, stopped, worst
 
 
 def greedy_agreement(cpu_scores, card_scores, atol):
@@ -5738,11 +5832,14 @@ def whisper_phase(tmp: Path, corpus_dir: Path, device, dims=None, text=None):
                                     text or WHISPER_TURBO_TEXT, seed=0,
                                     device=device)
     write_s = time.perf_counter() - t0
+    settings_dir = settings_checkpoint(ckpt, tmp / "whisper_turbo_settings",
+                                       WHISPER_SETTINGS)
     corpus = Corpus.load(corpus_dir, require_transcripts=False)
     waves = [_samples_at_model_rate(corpus.load_audio(u)) for u in corpus.utterances]
     audio_s = sum(min(len(w), 480000) for w in waves) / 16000
     cpu = CpuTask("whisper_cpu_reference",
-                  (str(ckpt), waves[:WHISPER_COMPARE_UTTS], WHISPER_COMPARE_STEPS),
+                  (str(ckpt), waves[:WHISPER_COMPARE_UTTS], WHISPER_COMPARE_STEPS,
+                   str(settings_dir)),
                   tmp / "whisper_cpu.pkl", threads=6)
     out_dir = tmp / "whisper_out"
     _reset_peak(device)
@@ -5817,8 +5914,13 @@ def whisper_phase(tmp: Path, corpus_dir: Path, device, dims=None, text=None):
                 _check(worst <= WHISPER_LOGITS_ATOL, f"whisper logits: {worst}")
                 row.update(steps_equal=compared, stopped_at_near_tie=stopped,
                            logits_max_abs_err=worst)
+            row["language_close"] = lang_close
             checks.append(row)
+    settings = whisper_settings_phase(
+        tmp, corpus, waves, settings_dir, tr, ref, checks,
+        statistics.median(enc_ms), device)
     return {
+        "settings": settings,
         "path": "whisper", "dims": dims or WHISPER_TURBO,
         "model": "random weights (seed 0), float16 safetensors",
         "parameters": sum(p.numel() for p in tr.model.parameters()),
@@ -5834,6 +5936,105 @@ def whisper_phase(tmp: Path, corpus_dir: Path, device, dims=None, text=None):
         "windows": windows, "card_vs_cpu": checks,
         "tolerances": {"mel": WHISPER_MEL_ATOL, "encoder": WHISPER_ENCODER_ATOL,
                        "logits": WHISPER_LOGITS_ATOL},
+    }
+
+
+def _gpu_label():
+    """``nvidia-smi``'s name and power limit of the card."""
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60, check=True)
+    return out.stdout.strip()
+
+
+def whisper_settings_phase(tmp: Path, corpus, waves, settings_dir: Path, tr, ref,
+                           greedy_checks, encoder_ms, device):
+    """Main path **whisper-settings** (run inside the whisper phase's
+    process): the same checkpoint under a second generation config
+    (``WHISPER_SETTINGS``: timestamps, conditioning on earlier windows, 4
+    beams, no repeated trigram). ``cli transcribe_whisper`` on the card over
+    the first 2 utterances (counted from 0: no K1-K3 on this path); a warm
+    run of the same two with the loaded model (the same texts; decoder ms a
+    beam step is its wall less an encoder run a window, ``encoder_ms``,
+    over the steps), peak memory and the phase's seconds; then the card
+    against the port's CPU path (``ref``, from the whisper phase's worker)
+    over the first ``WHISPER_COMPARE_STEPS`` steps: the prompt equal where
+    the language detection is no near-tie, every beam's log-probabilities
+    within ``WHISPER_LOGITS_ATOL``, the running beams equal up to the CPU's
+    first near-tie, and the chosen hypothesis equal when none came."""
+    import shutil
+
+    import torch
+
+    t_phase = time.perf_counter()
+    utts = corpus.utterances[:WHISPER_COMPARE_UTTS]
+    sub = tmp / "whisper_settings_corpus"
+    for u in utts:
+        d = sub / u.speaker
+        d.mkdir(parents=True, exist_ok=True)
+        src = Path(u.file_path)
+        shutil.copy(src, d / src.name)
+    out_dir = tmp / "whisper_settings_out"
+    _reset_peak(device)
+    _, cold_s, launches = _counted(device, lambda: _cli(
+        ["transcribe_whisper", sub, settings_dir, out_dir, "--device", device.type]))
+    _no_launches("whisper-settings", launches)
+    cold_peak = _peak_gib(device)
+    labs = {p.relative_to(out_dir).as_posix(): p.read_text()
+            for p in sorted(out_dir.rglob("*.lab"))}
+    _check(len(labs) == len(utts), f"whisper-settings: {len(labs)} transcripts "
+           f"for {len(utts)} utterances")
+    ts = _with_settings(tr, settings_dir)
+    _check(ts.generation.num_beams == WHISPER_SETTINGS["num_beams"]
+           and ts.generation.return_timestamps, "whisper-settings: config not read")
+    _reset_peak(device)
+    utt_s, steps, windows, texts = [], 0, 0, {}
+    with torch.no_grad():
+        for u, wave in zip(utts, waves):
+            _sync(device)
+            t0 = time.perf_counter()
+            d = ts.decode(wave)
+            texts[f"{u.speaker}/{u.file_name}.lab"] = ts.tokenizer.decode(d.ids).strip()
+            _sync(device)
+            utt_s.append(time.perf_counter() - t0)
+            steps += d.steps
+            windows += d.windows
+    warm_peak = _peak_gib(device)
+    _check(texts.keys() == labs.keys() and all(
+        t + "\n" == labs[k] for k, t in texts.items()),
+        "whisper-settings: the warm run's texts differ from the command's")
+    checks = []
+    with torch.no_grad():
+        for i, (r, greedy) in enumerate(zip(ref, greedy_checks)):
+            cpu = r["settings"]
+            card = _beam_record(ts.decode(waves[i], keep_scores=WHISPER_COMPARE_STEPS,
+                                          max_steps=WHISPER_COMPARE_STEPS))
+            row = {"language_close": greedy["language_close"]}
+            if not greedy["language_close"]:
+                _check(card["prompt"] == cpu["prompt"],
+                       f"whisper-settings prompt: card {card['prompt']}, CPU "
+                       f"{cpu['prompt']}")
+                compared, stopped, worst = beam_agreement(cpu, card, WHISPER_LOGITS_ATOL)
+                _check(worst <= WHISPER_LOGITS_ATOL, f"whisper-settings log-probs: {worst}")
+                if stopped is None:
+                    _check(card["ids"] == cpu["ids"], "whisper-settings: the card "
+                           f"chose {card['ids']}, the CPU {cpu['ids']}")
+                row.update(beam_steps_equal=compared, stopped_at_near_tie=stopped,
+                           log_probs_max_abs_err=worst,
+                           chosen_equal=card["ids"] == cpu["ids"],
+                           chosen_tokens=len(cpu["ids"]))
+            checks.append(row)
+    warm_s = sum(utt_s)
+    return {
+        "path": "whisper-settings", "settings": WHISPER_SETTINGS,
+        "utterances": len(utts), "cold_command_s": cold_s, "launches": launches,
+        "cold_peak_gib": cold_peak, "warm_s": warm_s, "warm_peak_gib": warm_peak,
+        "beam_steps": steps, "windows": windows,
+        "decoder_ms_per_step_4_beams": (1e3 * warm_s - windows * encoder_ms) / steps,
+        "phase_s": time.perf_counter() - t_phase,
+        "gpu": _gpu_label() if device.type == "cuda" else "not measured (CPU)",
+        "card_vs_cpu": checks,
+        "tolerances": {"log_probs": WHISPER_LOGITS_ATOL},
     }
 
 
@@ -5982,12 +6183,7 @@ def main() -> int:
         print("chip_smoke: no CUDA device; this script runs only on the card",
               file=sys.stderr)
         return 2
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, timeout=60, check=True,
-    )
-    for line in smi.stdout.strip().splitlines():
-        print(line, flush=True)
+    print(_gpu_label(), flush=True)
     sm_clock_mhz = float(subprocess.run(
         ["nvidia-smi", "--query-gpu=clocks.max.sm", "--format=csv,noheader,nounits"],
         capture_output=True, text=True, timeout=60, check=True,
@@ -6034,8 +6230,11 @@ def main() -> int:
             model_path, dict_path, corpus_dir, device)})
         checks = {}
         for path in ("sat-si", "sat-2pass"):
+            # K1's plain version (seconds a call) is timed over repeated
+            # calls only for sat-2pass, whose times the kernels line reports
             checks[path] = kernel_checks(inputs.pop(path), aligners[path].gmm,
-                                         device, sm_clock_mhz=sm_clock_mhz)
+                                         device, sm_clock_mhz=sm_clock_mhz,
+                                         k1_plain_reps=1 if path == "sat-2pass" else 0)
             rep = reports[path]
             for name, c in checks[path].items():
                 _emit({"kernel_check": name, "path": path, **c,
@@ -6063,7 +6262,7 @@ def main() -> int:
         calls = captured["calls"]
         recipe_checks = kernel_checks(batch_inputs(calls, 0), captured["gmm"], device,
                                       sm_clock_mhz=sm_clock_mhz,
-                                      k3_term_bound=True)
+                                      k3_term_bound=True, k1_plain_reps=0)
         for name, c in recipe_checks.items():
             _emit({"kernel_check": name, "path": "train-recipe (LDA stage)", **c,
                    "calls_in_that_realignment": calls[name].calls})
@@ -6071,7 +6270,7 @@ def main() -> int:
         _emit({"train_reference": train_reference_phase(tmp / "tone", device)})
         adapt, adapt_checks = adapt_phase(model_path, dict_path, corpus_dir,
                                           small2_dir, tmp, audio_s, device,
-                                          sm_clock_mhz=sm_clock_mhz)
+                                          warm_runs=1, sm_clock_mhz=sm_clock_mhz)
         _emit({"main_path": adapt})
         for name, c in adapt_checks.items():
             _emit({"kernel_check": name, "path": "adapt (pass 1, first batch)", **c})
@@ -6214,10 +6413,12 @@ def main() -> int:
         # workspace (it holds the decoder's matrix-vector products to
         # about a third of their speed: tools/whisper_card.py), and the
         # SpeechBrain commands through the port's stand-in package
-        whisper = CpuTask("whisper_phase", (tmp, small2_dir, device),
+        whisper = CpuTask("whisper_phase", (tmp, small_dir, device),
                           tmp / "whisper.pkl", daemon=False,
                           drop_env=("CUBLAS_WORKSPACE_CONFIG",)).result()
+        whisper_settings = whisper.pop("settings")
         _emit({"main_path": whisper})
+        _emit({"main_path": whisper_settings})
         _emit({"main_path": speechbrain_paths_phase(tmp, small2_dir, vad_dir,
                                                     subset_dir, 8, device)})
 
@@ -6253,7 +6454,8 @@ def main() -> int:
                    "pitch-long-path (two-pass)":
                        pitch_paths["long_path"]["two_pass"]["launches"],
                    "lvcsr-chain-major": chain["launches"],
-                   "whisper": whisper["launches"]}
+                   "whisper": whisper["launches"],
+                   "whisper-settings": whisper_settings["launches"]}
         extra = {**mono_checks, "train_recipe": recipe_checks,
                  "adapt": adapt_checks, "transcribe_dense": dense_checks,
                  "g2p_align": g2p_checks}

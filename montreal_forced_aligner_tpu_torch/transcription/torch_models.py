@@ -68,7 +68,9 @@ def _missing_checkpoint(kind: str, model_path: Path) -> FileNotFoundError:
 class WhisperTranscriber:
     """Transcribe with a locally available Whisper checkpoint (reference
     ``WhisperTranscriber``, ``transcription/transcriber.py:1850``): the
-    log-mel front end, the encoder and greedy decoding on ``device``."""
+    log-mel front end, the encoder and the decoding its generation config
+    asks for (greedy or beam search, timestamps, conditioning on earlier
+    windows) on ``device``."""
 
     def __init__(self, model_path, language: Optional[str] = None, device="cuda"):
         from montreal_forced_aligner_tpu_torch.transcription.whisper import (
@@ -104,12 +106,13 @@ class WhisperTranscriber:
         return self.log_mel(samples)
 
     def decode(self, samples: np.ndarray, **kw):
-        """The :class:`.whisper.Decoded` of one utterance's samples."""
-        from montreal_forced_aligner_tpu_torch.transcription.whisper import (
-            greedy_generate,
+        """The :class:`.whisper.Decoded` of one utterance's samples, under
+        the checkpoint's generation config."""
+        from montreal_forced_aligner_tpu_torch.transcription.whisper.generate import (
+            generate,
         )
 
-        return greedy_generate(
+        return generate(
             self.model, self.features(samples), self.generation,
             language=self.language,
             config_forced_ids=self.config.get("forced_decoder_ids"), **kw)

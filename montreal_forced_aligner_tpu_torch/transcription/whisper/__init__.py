@@ -1,8 +1,8 @@
 """Whisper as the port's own PyTorch model, read from a local Hugging Face
 checkpoint directory: :mod:`.checkpoint` (settings and weights),
 :mod:`.features` (the log-mel front end), :mod:`.model` (encoder and
-decoder), :mod:`.generate` (greedy decoding) and :mod:`.tokenizer` (ids to
-text)."""
+decoder), :mod:`.generate` (greedy and beam decoding under the
+generation config) and :mod:`.tokenizer` (ids to text)."""
 
 from montreal_forced_aligner_tpu_torch.transcription.whisper.checkpoint import (
     GenerationSettings,
@@ -10,6 +10,7 @@ from montreal_forced_aligner_tpu_torch.transcription.whisper.checkpoint import (
     WhisperDims,
     load_checkpoint,
     read_safetensors,
+    read_weights,
 )
 from montreal_forced_aligner_tpu_torch.transcription.whisper.features import (
     FeatureSettings,
@@ -27,6 +28,6 @@ from montreal_forced_aligner_tpu_torch.transcription.whisper.tokenizer import (
 
 __all__ = [
     "Decoded", "FeatureSettings", "GenerationSettings", "LogMel", "Whisper",
-    "WhisperCheckpoint", "WhisperDims", "WhisperTokenizer", "greedy_generate",
-    "load_checkpoint", "mel_filters", "read_safetensors",
+    "WhisperCheckpoint", "WhisperDims", "WhisperTokenizer", "greedy_generate", "load_checkpoint", "mel_filters", "read_safetensors",
+    "read_weights",
 ]

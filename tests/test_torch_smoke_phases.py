@@ -413,22 +413,36 @@ TINY_WHISPER = {
 TINY_WHISPER_TEXT = {"n_base": 300, "n_languages": 100, "n_timestamps": 51}
 
 
-def test_neural_phases_run_on_cpu(fixture, tmp_path, monkeypatch, one_torch_thread):
+NO_LAUNCHES = {"band_forward": 0, "band_backtrace": 0, "state_emission": 0}
+
+
+@pytest.fixture(scope="module")
+def whisper_run(fixture, tmp_path_factory):
+    """The whisper phase (and the whisper-settings phase inside it) at a
+    tiny width with the CPU in the card's place, in a process of its own
+    without CUBLAS_WORKSPACE_CONFIG, which spawns the CPU reference in
+    turn, as chip_smoke.main runs it."""
+    _tmp, _model, _dict, _corpus, _audio_s, small_dir, *_ = fixture
+    tmp = tmp_path_factory.mktemp("whisper_phase")
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setenv("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
+        w = chip_smoke.CpuTask("whisper_phase", (tmp, small_dir, torch.device("cpu"),
+                                                 TINY_WHISPER, TINY_WHISPER_TEXT),
+                               tmp / "whisper.pkl", threads=1, daemon=False,
+                               drop_env=("CUBLAS_WORKSPACE_CONFIG",)).result()
+        assert chip_smoke.os.environ["CUBLAS_WORKSPACE_CONFIG"] == ":4096:8"
+    return w
+
+
+def test_neural_phases_run_on_cpu(fixture, whisper_run, tmp_path, one_torch_thread):
     """The whisper phase at a tiny width and the speechbrain-paths phase,
     with the CPU in the card's place: no launches, every file transcribed,
     the CPU reference (a worker) equal to the run, the same texts,
     segments and labels on both runs."""
     _tmp, _model, _dict, _corpus, _audio_s, small_dir, *_ = fixture
     cpu = torch.device("cpu")
-    none = {"band_forward": 0, "band_backtrace": 0, "state_emission": 0}
-    # in a process of its own without CUBLAS_WORKSPACE_CONFIG, which spawns
-    # the CPU reference in turn, as chip_smoke.main runs it
-    monkeypatch.setenv("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
-    w = chip_smoke.CpuTask("whisper_phase", (tmp_path, small_dir, cpu, TINY_WHISPER,
-                                             TINY_WHISPER_TEXT),
-                           tmp_path / "whisper.pkl", threads=1, daemon=False,
-                           drop_env=("CUBLAS_WORKSPACE_CONFIG",)).result()
-    assert chip_smoke.os.environ["CUBLAS_WORKSPACE_CONFIG"] == ":4096:8"
+    none = NO_LAUNCHES
+    w = whisper_run
     assert w["launches"] == none and w["utterances"] == 3
     assert w["parameters"] > 0 and w["tokens"] >= 3 and w["windows"] == 3
     assert w["decoder_ms_per_token"] > 0 and w["encoder_ms_per_utterance"] > 0
@@ -448,6 +462,43 @@ def test_neural_phases_run_on_cpu(fixture, tmp_path, monkeypatch, one_torch_thre
     assert sb["segment_files"] == 2 and sb["segments"] >= 2
     assert sb["utterances_diarized"] == 6
     assert all(v == {"parameters": ["cpu"], "input": "cpu"} for v in sb["on_card"].values())
+
+
+def test_whisper_settings_phase_runs_on_cpu(whisper_run):
+    """The whisper-settings phase at a tiny width with the CPU in the
+    card's place: the second generation config read, no launches, both
+    utterances transcribed, the CPU reference (a worker) equal to the run
+    over every compared beam step, and the chosen hypothesis equal."""
+    w = whisper_run["settings"]
+    assert w["path"] == "whisper-settings" and w["launches"] == NO_LAUNCHES
+    assert w["settings"] == chip_smoke.WHISPER_SETTINGS
+    assert w["utterances"] == chip_smoke.WHISPER_COMPARE_UTTS
+    assert w["beam_steps"] >= w["windows"] >= w["utterances"]
+    assert w["decoder_ms_per_step_4_beams"] > 0 and w["phase_s"] > 0
+    assert w["gpu"] == "not measured (CPU)"
+    assert len(w["card_vs_cpu"]) == chip_smoke.WHISPER_COMPARE_UTTS
+    for row in w["card_vs_cpu"]:
+        assert not row["language_close"]
+        # the worker runs other threads, which may split the products otherwise
+        assert row["log_probs_max_abs_err"] <= 1e-5
+        assert row["beam_steps_equal"] + (row["stopped_at_near_tie"] is not None) >= 1
+        assert row["stopped_at_near_tie"] is not None or row["chosen_equal"]
+
+
+def test_smoke_beam_agreement():
+    """The card-against-CPU rule for beams: log-probabilities within the
+    bar and the running beams equal up to the CPU's first near-tie; a
+    disagreement before it fails."""
+    inf = -np.inf
+    scores = np.array([[[0.0, -1.0, inf], [-0.5, -2.0, inf]]] * 3)
+    cpu = {"scores": scores, "tokens": [[0, 0], [1, 0], [0, 1]],
+           "sources": [[0, 0], [1, 0], [0, 0]], "margins": [0.5, 1e-5, 0.5]}
+    card = {**cpu, "scores": scores + 2e-4 * (scores > -1.5)}
+    assert chip_smoke.beam_agreement(cpu, card, 1e-3) == (1, 1, pytest.approx(2e-4))
+    with pytest.raises(RuntimeError, match="beam step 0"):
+        chip_smoke.beam_agreement(cpu, {**card, "tokens": [[1, 0]] * 3}, 1e-3)
+    with pytest.raises(RuntimeError, match="suppressed"):
+        chip_smoke.beam_agreement(cpu, {**card, "scores": scores[:, :, ::-1]}, 1e-3)
 
 
 def test_smoke_vocabulary_layout():

@@ -33,6 +33,7 @@ from montreal_forced_aligner_tpu_torch.transcription.whisper import generate as 
 from montreal_forced_aligner_tpu_torch.transcription.whisper import (
     load_checkpoint,
     read_safetensors,
+    read_weights,
 )
 
 from helpers import build_tiny_whisper_checkpoint
@@ -57,10 +58,14 @@ def one_torch_thread():
     torch.set_num_threads(before)
 
 
-def build_detecting_checkpoint(tmp_path):
+def build_detecting_checkpoint(tmp_path, timestamps=0, eos_like=None,
+                               name="detect_whisper"):
     """2+2 layers, 80 bins, three languages, suppression lists and the
     published ``forced_decoder_ids`` pattern; its generation config is its
-    own (not made from the model config), so every Whisper key survives."""
+    own (not made from the model config), so every Whisper key survives.
+    ``timestamps`` adds that many timestamp tokens (``<|0.00|>``, ...)
+    after ``<|notimestamps|>``; ``eos_like`` makes the end of text's
+    embedding that factor of ``v``'s, so the decoder stops often."""
     from transformers import (
         GenerationConfig,
         WhisperConfig,
@@ -70,7 +75,7 @@ def build_detecting_checkpoint(tmp_path):
         WhisperTokenizer,
     )
 
-    tok_dir = Path(tmp_path) / "tok_src2"
+    tok_dir = Path(tmp_path) / f"tok_{name}"
     tok_dir.mkdir(parents=True, exist_ok=True)
     specials = ["<|endoftext|>", "<|startoftranscript|>", "<|en|>", "<|de|>",
                 "<|fr|>", "<|translate|>", "<|transcribe|>", "<|nospeech|>",
@@ -81,6 +86,9 @@ def build_detecting_checkpoint(tmp_path):
     vocab["Ġ"] = len(vocab)
     for s in specials:
         vocab[s] = len(vocab)
+    stamps = [f"<|{0.02 * i:.2f}|>" for i in range(timestamps)]
+    for s in stamps:
+        vocab[s] = len(vocab)
     (tok_dir / "vocab.json").write_text(json.dumps(vocab))
     (tok_dir / "merges.txt").write_text("#version: 0.2\n")
     tok = WhisperTokenizer(str(tok_dir / "vocab.json"), str(tok_dir / "merges.txt"))
@@ -88,6 +96,8 @@ def build_detecting_checkpoint(tmp_path):
                             "bos_token": "<|endoftext|>",
                             "eos_token": "<|endoftext|>",
                             "pad_token": "<|endoftext|>"})
+    if stamps:
+        tok.add_tokens(stamps)
     proc = WhisperProcessor(feature_extractor=WhisperFeatureExtractor(feature_size=80),
                             tokenizer=tok)
     eot, sot = vocab["<|endoftext|>"], vocab["<|startoftranscript|>"]
@@ -108,6 +118,9 @@ def build_detecting_checkpoint(tmp_path):
                 continue
             p.mul_(160.0 if "encoder_attn" in n
                    else 8.0 if n.startswith("encoder.") else 2.0)
+        if eos_like is not None:
+            emb = model.model.decoder.embed_tokens.weight
+            emb[eot] = emb[vocab["v"]] * eos_like
     model.generation_config = GenerationConfig(
         decoder_start_token_id=sot, eos_token_id=eot, pad_token_id=eot,
         bos_token_id=eot, max_length=20,
@@ -120,7 +133,7 @@ def build_detecting_checkpoint(tmp_path):
                     "translate": vocab["<|translate|>"]},
         no_timestamps_token_id=vocab["<|notimestamps|>"],
     )
-    out = Path(tmp_path) / "detect_whisper"
+    out = Path(tmp_path) / name
     proc.save_pretrained(out)
     model.save_pretrained(out)
     return out
@@ -253,7 +266,7 @@ def test_generation_settings_follow_from_model_config(checkpoints):
     from transformers import GenerationConfig
 
     for name in ("tiny", "detect"):
-        got = load_checkpoint(checkpoints[name]).generation
+        got = load_checkpoint(checkpoints[name], "cpu").generation
         want = GenerationConfig.from_pretrained(checkpoints[name])
         for key in ("lang_to_id", "task_to_id", "no_timestamps_token_id",
                     "is_multilingual", "suppress_tokens", "begin_suppress_tokens",
@@ -263,7 +276,7 @@ def test_generation_settings_follow_from_model_config(checkpoints):
 
 def test_window_tokens_follow_retrieve_segment():
     """The timestamp-pair rule of ``_retrieve_segment`` on token lists,
-    against transformers' own function."""
+    against transformers' own function: the same segments and seek."""
     from transformers.models.whisper.generation_whisper import (
         WhisperGenerationMixin,
     )
@@ -271,19 +284,18 @@ def test_window_tokens_follow_retrieve_segment():
     tb, frames = 50, 3000
     rng = np.random.RandomState(0)
     seqs = [[1, 2, 3], [1, 55, 60, 4], [1, 55, 60, 4, 70, 71], [52, 53],
-            [4, 60], [60, 61, 5, 62], [7]]
-    seqs += [list(rng.choice([1, 2, 51, 60, 75], rng.randint(1, 9))) for _ in range(40)]
+            [4, 60], [60, 61, 5, 62], [7], []]
+    seqs += [list(rng.choice([1, 2, 51, 60, 75], rng.randint(1, 12))) for _ in range(60)]
     for seq in seqs:
-        t = torch.tensor(seq)
+        t = torch.tensor(seq, dtype=torch.long)
         segs, offset = WhisperGenerationMixin._retrieve_segment(
             seek_sequence=t, seek_outputs=[None], time_offset=torch.zeros(1),
             timestamp_begin=tb, seek_num_frames=torch.tensor([frames]),
             time_precision=0.02, time_precision_features=0.01, input_stride=2,
             prev_idx=0, idx=0, return_token_timestamps=False,
             decoder_input_ids=torch.zeros(1, 3, dtype=torch.long))
-        want = torch.cat([s["tokens"] for s in segs]).tolist()
-        got, got_offset = PG.window_tokens([int(x) for x in seq], tb, frames)
-        assert got == want, seq
+        got, got_offset = PG.window_segments([int(x) for x in seq], tb, frames)
+        assert got == [s["tokens"].tolist() for s in segs], seq
         assert got_offset == int(offset), seq
 
 
@@ -347,7 +359,7 @@ def test_bin_checkpoint_loads_like_safetensors(checkpoints, tmp_path):
         dst, safe_serialization=False)
     assert (dst / "pytorch_model.bin").exists()
     assert not (dst / "model.safetensors").exists()
-    a, b = load_checkpoint(src).state_dict, load_checkpoint(dst).state_dict
+    a, b = load_checkpoint(src, "cpu").state_dict, load_checkpoint(dst, "cpu").state_dict
     shared = set(a) & set(b)
     assert set(a) <= shared | {"proj_out.weight"}
     for k in shared:
@@ -388,6 +400,14 @@ def test_entry_points_raise(checkpoints, tmp_path):
         with pytest.raises(RuntimeError, match="no CUDA device"):
             cli_main(["transcribe_whisper", str(tmp_path), str(checkpoints["tiny"]),
                       str(tmp_path / "o")])
+        # the checkpoint readers default to the card as well
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            load_checkpoint(checkpoints["tiny"])
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            read_weights(checkpoints["tiny"])
+    assert load_checkpoint(checkpoints["tiny"], "cpu").state_dict
+    assert all(t.device.type == "cpu"
+               for t in read_weights(checkpoints["tiny"], "cpu").values())
     p = PWhisper(checkpoints["tiny"], device="cpu")
     with pytest.raises(ValueError, match="16000 Hz"):
         p.transcribe(np.zeros(100, np.float32), sample_rate=8000)

@@ -12,7 +12,9 @@ card, a warm run, the card against the CPU) in a process of its own
 ``CUBLAS_WORKSPACE_CONFIG``, with ``:4096:8`` (what ``chip_smoke.py`` sets
 for its deterministic training run, which cuBLAS reads once a process),
 without. Prints the card as ``nvidia-smi`` gives it and, for each run,
-one JSON line of the phase's figures.
+one JSON line of the phase's figures and one of the whisper-settings
+phase's (the same checkpoint under ``chip_smoke.WHISPER_SETTINGS``: 4
+beams, timestamps, conditioning on earlier windows, no repeated trigram).
 """
 
 import json
@@ -30,6 +32,9 @@ import chip_smoke  # noqa: E402
 FIGURES = ("cold_command_s", "load_s", "warm_s", "warm_audio_s_per_s",
            "encoder_ms_per_utterance", "decoder_ms_per_token", "tokens",
            "warm_peak_gib", "checkpoint_write_s", "card_vs_cpu")
+SETTINGS_FIGURES = ("cold_command_s", "warm_s", "decoder_ms_per_step_4_beams",
+                    "beam_steps", "windows", "warm_peak_gib", "phase_s",
+                    "card_vs_cpu")
 
 
 def main() -> int:
@@ -58,9 +63,13 @@ def main() -> int:
                 "whisper_phase", (tmp / f"run{i}", corpus_dir, torch.device("cuda")),
                 tmp / f"run{i}.pkl", daemon=False, drop_env=drop).result()
             os.environ.pop("CUBLAS_WORKSPACE_CONFIG", None)
+            settings = report.pop("settings")
             print(json.dumps({"run": i, "cublas_workspace_config": workspace,
                               "phase_s": time.perf_counter() - t0,
                               **{k: report[k] for k in FIGURES}}), flush=True)
+            print(json.dumps({"run": i, "path": "whisper-settings",
+                              **{k: settings[k] for k in SETTINGS_FIGURES}}),
+                  flush=True)
     return 0
 
 
