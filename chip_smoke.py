@@ -217,8 +217,9 @@ What it does, in order; any failure exits non-zero with no result line:
     the phase's seconds, the card's name and power limit), and the card
     against the CPU worker over the first 32 steps: every beam's
     log-probabilities within 1e-4, the running beams equal up to the CPU's
-    first near-tie (best candidates within 1e-4), the chosen hypothesis
-    equal when none came;
+    first near-tie (best candidates, or the two sides of the
+    timestamp-versus-text rule, within 1e-4), at least one beam step
+    compared, the chosen hypothesis equal when no near-tie came;
 35. **speechbrain-paths**: ``transcribe_speechbrain``, ``create_segments_vad
     --speechbrain_model_path`` and ``diarize_speakers speechbrain`` through
     ``tests/torch_mock_speechbrain.py`` on the card and the CPU: the same
@@ -5761,19 +5762,20 @@ def _beam_record(d):
 def beam_agreement(cpu, card, atol):
     """Beam steps whose log-probabilities agree within ``atol`` (the same
     entries suppressed) and whose running beams (new token and source beam)
-    are equal, up to the first step where the CPU's best candidates lie
-    within ``atol`` of each other (a near-tie the two devices may break
-    apart): (steps compared, the step that stopped the comparison or None,
-    the largest finite difference over the compared steps)."""
+    are equal, up to the first step where the CPU's best candidates, or the
+    two sides of its timestamp-versus-text rule, lie within ``atol`` of each
+    other (a near-tie the two devices may break apart): (steps compared, the
+    step that stopped the comparison or None, the largest finite difference
+    over the compared steps)."""
     compared, stopped, worst = 0, None, 0.0
     for i, (c, g) in enumerate(zip(cpu["scores"], card["scores"])):
+        if cpu["margins"][i] < atol:
+            stopped = i
+            break
         finite = np.isfinite(c)
         _check(np.array_equal(finite, np.isfinite(g)),
                f"beam step {i}: the suppressed tokens differ")
         worst = max(worst, float(np.abs(c[finite] - g[finite]).max()))
-        if cpu["margins"][i] < atol:
-            stopped = i
-            break
         _check(card["tokens"][i] == cpu["tokens"][i]
                and card["sources"][i] == cpu["sources"][i],
                f"beam step {i}: the card ran beams {card['tokens'][i]} from "
@@ -5961,7 +5963,9 @@ def whisper_settings_phase(tmp: Path, corpus, waves, settings_dir: Path, tr, ref
     over the first ``WHISPER_COMPARE_STEPS`` steps: the prompt equal where
     the language detection is no near-tie, every beam's log-probabilities
     within ``WHISPER_LOGITS_ATOL``, the running beams equal up to the CPU's
-    first near-tie, and the chosen hypothesis equal when none came."""
+    first near-tie (best candidates, or the two sides of the
+    timestamp-versus-text rule), at least one beam step compared, and the
+    chosen hypothesis equal when no near-tie came."""
     import shutil
 
     import torch
@@ -6024,6 +6028,8 @@ def whisper_settings_phase(tmp: Path, corpus, waves, settings_dir: Path, tr, ref
                            chosen_equal=card["ids"] == cpu["ids"],
                            chosen_tokens=len(cpu["ids"]))
             checks.append(row)
+    _check(any(row.get("beam_steps_equal", 0) >= 1 for row in checks),
+           "whisper-settings: no beam step was held against the CPU")
     warm_s = sum(utt_s)
     return {
         "path": "whisper-settings", "settings": WHISPER_SETTINGS,

@@ -2,7 +2,8 @@
 checkpoint directory: :mod:`.checkpoint` (settings and weights),
 :mod:`.features` (the log-mel front end), :mod:`.model` (encoder and
 decoder), :mod:`.generate` (greedy and beam decoding under the
-generation config) and :mod:`.tokenizer` (ids to text)."""
+generation config; its function ``generate`` is not re-exported here, as
+the name would hide the module) and :mod:`.tokenizer` (ids to text)."""
 
 from montreal_forced_aligner_tpu_torch.transcription.whisper.checkpoint import (
     GenerationSettings,
@@ -28,6 +29,6 @@ from montreal_forced_aligner_tpu_torch.transcription.whisper.tokenizer import (
 
 __all__ = [
     "Decoded", "FeatureSettings", "GenerationSettings", "LogMel", "Whisper",
-    "WhisperCheckpoint", "WhisperDims", "WhisperTokenizer", "greedy_generate", "load_checkpoint", "mel_filters", "read_safetensors",
-    "read_weights",
+    "WhisperCheckpoint", "WhisperDims", "WhisperTokenizer", "greedy_generate",
+    "load_checkpoint", "mel_filters", "read_safetensors", "read_weights",
 ]

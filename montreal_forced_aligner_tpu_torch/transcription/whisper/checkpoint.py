@@ -113,6 +113,8 @@ _WHISPER_INERT_KEYS = frozenset((
     "alignment_heads", "median_filter_width", "return_token_timestamps",
     "num_frames", "prompt_condition_type", "compression_ratio_threshold",
 ))
+# Whisper's keys that the port holds only at their default
+_WHISPER_DEFAULTS = {"_detect_timestamp_from_logprob": True}
 # keys the port does not decode as ``transformers`` does, by why
 _REFUSED = {
     "do_sample": "transformers samples (a random draw), so no run can be "
@@ -124,6 +126,8 @@ _REFUSED = {
     "return_dict_in_generate": "generate then returns a dict, which the "
                                "transcriber cannot decode to text",
     "num_return_sequences": "only one sequence an utterance is decoded",
+    "_detect_timestamp_from_logprob": "the port always applies the "
+                                      "timestamp-versus-text rule",
 }
 # the Whisper keys :class:`GenerationSettings` holds (besides the standard ones)
 _WHISPER_KEYS = ("lang_to_id", "task_to_id", "is_multilingual",
@@ -189,8 +193,6 @@ class GenerationSettings:
     force_unique_generate_call: Optional[bool] = None
     prev_sot_token_id: Optional[int] = None
     max_initial_timestamp_index: Optional[int] = None
-    # ``_detect_timestamp_from_logprob`` (``WhisperTimeStampLogitsProcessor``)
-    detect_timestamp_from_logprob: bool = True
 
     @classmethod
     def from_dict(cls, data: dict, from_model_config: bool) -> "GenerationSettings":
@@ -212,10 +214,9 @@ class GenerationSettings:
             if key in _STANDARD_KEYS or key in _WHISPER_KEYS:
                 if value is not None:
                     kw[key] = value
-            elif key == "_detect_timestamp_from_logprob":
-                kw["detect_timestamp_from_logprob"] = bool(value)
             elif (value is None or key in _INERT_KEYS or key in _WHISPER_INERT_KEYS
-                  or (standard and value == GENERATION_DEFAULTS[key])):
+                  or (standard and value == GENERATION_DEFAULTS[key])
+                  or (key in _WHISPER_DEFAULTS and value == _WHISPER_DEFAULTS[key])):
                 continue
             elif key == "do_sample" and not merges_defaults:
                 # Whisper's loop clears it, and a file older than 4.50

@@ -100,9 +100,10 @@ class Decoded:
     (num_beams, vocab) log-probabilities), ``language_scores`` the
     detection step's (on the host), when asked for. Beam search also keeps,
     for those steps, each running beam's new token and the beam it grew
-    from (``beam_tokens``, ``beam_sources``) and the smallest gap between
-    the best candidates that chose them (``beam_margins``), and each
-    window's best finished score (``beam_scores``)."""
+    from (``beam_tokens``, ``beam_sources``), the smallest gap between the
+    best candidates that chose them or between the two sides of the
+    timestamp-versus-text rule (``beam_margins``), and each window's best
+    finished score (``beam_scores``)."""
 
     ids: List[int]
     prompt: List[int]
@@ -302,6 +303,9 @@ class LogitsProcessors:
         self.suppress = mask(gen.suppress_tokens)
         self.begin_suppress = mask(gen.begin_suppress_tokens)
         self.timestamp_begin = timestamp_begin
+        # each row's gap between the two sides of the last step's
+        # timestamp-versus-text rule (kept on the device)
+        self.stamp_gaps = torch.empty(0, device=device)
         # the timestamp rule's "text" ends where the end of text is
         self.text_end = gen.eos_token_id or gen.bos_token_id
 
@@ -361,11 +365,11 @@ class LogitsProcessors:
             if gen.max_initial_timestamp_index is not None:
                 scores[:, tb + gen.max_initial_timestamp_index + 1:] = inf
         logprobs = F.log_softmax(scores.float(), dim=-1)
-        if gen.detect_timestamp_from_logprob:
-            stamp = logprobs[:, tb:].logsumexp(dim=-1)
-            text = logprobs[:, :tb].max(dim=-1).values
-            for row in torch.nonzero(stamp > text).flatten().tolist():
-                scores[row, :tb] = inf
+        stamp = logprobs[:, tb:].logsumexp(dim=-1)
+        text = logprobs[:, :tb].max(dim=-1).values
+        self.stamp_gaps = (stamp - text).abs()
+        for row in torch.nonzero(stamp > text).flatten().tolist():
+            scores[row, :tb] = inf
         return scores
 
 
@@ -463,7 +467,8 @@ def _beam_window(model, cross, prompt, limit, procs, gen, out, keep_scores):
         finished = gather(torch.cat((finished, just_finished), dim=1), merged)
         if len(out.beam_tokens) < keep_scores:
             ranked = torch.topk(accumulated[0], k=keep + 1).values
-            gaps = (ranked[:-1] - ranked[1:])[torch.isfinite(ranked[1:])]
+            gaps = torch.cat((ranked[:-1] - ranked[1:], procs.stamp_gaps))
+            gaps = gaps[torch.isfinite(gaps)]
             out.beam_tokens.append(running[0, :, cur_len].tolist())
             out.beam_sources.append(running_sources[0, :, cur_len - prompt_len].tolist())
             out.beam_margins.append(float(gaps.min()) if gaps.numel() else float("inf"))
@@ -558,11 +563,5 @@ def generate(model, features: torch.Tensor, gen: GenerationSettings,
     return out
 
 
-def greedy_generate(model, features: torch.Tensor, gen: GenerationSettings,
-                    **kw) -> Decoded:
-    """:func:`generate` for a config that decodes greedily (``num_beams``
-    unset or 1)."""
-    if gen.num_beams not in (None, 1):
-        raise ValueError(f"the generation config sets num_beams={gen.num_beams}: "
-                         "use generate")
-    return generate(model, features, gen, **kw)
+# a greedy config's :func:`generate` keeps its earlier name
+greedy_generate = generate

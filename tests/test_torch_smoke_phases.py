@@ -499,6 +499,12 @@ def test_smoke_beam_agreement():
         chip_smoke.beam_agreement(cpu, {**card, "tokens": [[1, 0]] * 3}, 1e-3)
     with pytest.raises(RuntimeError, match="suppressed"):
         chip_smoke.beam_agreement(cpu, {**card, "scores": scores[:, :, ::-1]}, 1e-3)
+    # other suppressions at the near-tie step (a timestamp rule decided
+    # within the bar) stop the comparison there
+    flipped = card["scores"].copy()
+    flipped[1] = flipped[1, :, ::-1]
+    assert chip_smoke.beam_agreement(cpu, {**card, "scores": flipped}, 1e-3) == (
+        1, 1, pytest.approx(2e-4))
 
 
 def test_smoke_vocabulary_layout():

@@ -232,7 +232,8 @@ def test_sampling_in_an_older_file_decodes_greedily(variant):
 def test_inert_keys_decode_as_without_them(variant):
     inert = {"temperature": 0.7, "top_k": 5, "top_p": 0.9, "output_scores": True,
              "compression_ratio_threshold": 1.8, "use_cache": True,
-             "alignment_heads": [[1, 0]], "num_assistant_tokens": 7}
+             "alignment_heads": [[1, 0]], "num_assistant_tokens": 7,
+             "_detect_timestamp_from_logprob": True}
     j, p = _pair(variant("stamps", inert))
     plain = PWhisper(variant("stamps"), device="cpu")
     for wave in waves(8)[:2]:
@@ -248,7 +249,8 @@ REFUSED = [("num_beam_groups", 2), ("diversity_penalty", 0.5),
            ("forced_eos_token_id", 5), ("guidance_scale", 1.5),
            ("prompt_lookup_num_tokens", 3), ("max_time", 1.0),
            ("num_return_sequences", 2), ("return_dict_in_generate", True),
-           ("renormalize_logits", True), ("an_unknown_key", 1)]
+           ("renormalize_logits", True), ("an_unknown_key", 1),
+           ("an_unknown_flag", False), ("_detect_timestamp_from_logprob", False)]
 
 
 @pytest.mark.parametrize("key,value", REFUSED)
