@@ -3444,7 +3444,7 @@ def train_ivector_phase(corpus_dir, out_dir, audio_s, device, num_gauss=256,
     from montreal_forced_aligner_tpu_torch.corpus.corpus import Corpus
     from montreal_forced_aligner_tpu_torch.ivector.extractor import IvectorExtractor
     from montreal_forced_aligner_tpu_torch.ivector.pipeline import train_ivector_model
-    from montreal_forced_aligner_tpu_torch.training.base import PhaseClock
+    from montreal_forced_aligner_tpu_torch.tracing import PhaseClock
 
     model = Path(out_dir) / "ivector.npz"
     widths = ["--num_gauss", num_gauss, "--ivector_dim", ivector_dim,

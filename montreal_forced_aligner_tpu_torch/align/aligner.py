@@ -45,6 +45,7 @@ from montreal_forced_aligner_tpu_torch.data import (
     UtteranceAlignment,
     WordCtmInterval,
 )
+from montreal_forced_aligner_tpu_torch import tracing
 from montreal_forced_aligner_tpu_torch.device import resolve_device
 from montreal_forced_aligner_tpu_torch.dictionary.lexicon import (
     Pronunciation,
@@ -526,7 +527,10 @@ class PretrainedAligner:
         # statistics and transforms of the last two-pass run
         self.last_fmllr: Optional[FmllrEstimate] = None
         self.last_phase_seconds: Dict[str, float] = {}
-        # synchronise the card at every phase mark, so that each phase's
+        # (name, t0_ns, t1_ns) of each phase of the last run, on
+        # ``time.perf_counter_ns``: contiguous, in the order they ran
+        self.last_phase_spans: List[tuple] = []
+        # synchronise the card at every phase boundary, so that each phase's
         # seconds include its device work (a measurement switch: it removes
         # the overlap of host and device work)
         self.sync_phases = False
@@ -629,7 +633,7 @@ class PretrainedAligner:
         return self._per_device[key]
 
     # -- pipeline ------------------------------------------------------------
-    def _fmllr_second_pass_feats(self, prepared, num_speakers, mark, utt_spk):
+    def _fmllr_second_pass_feats(self, prepared, num_speakers, phase, utt_spk):
         """Pass 1 with the speaker-independent model, per-speaker fMLLR
         statistics on the device, one fetch of their sums, the host solve,
         and the adapted features (reference ``_fmllr_second_pass_feats``,
@@ -639,6 +643,7 @@ class PretrainedAligner:
         utterance's speaker index."""
         # float64 totals on the first device, one utterance at a time in
         # corpus order (the batches are consecutive slices of it)
+        phase("fmllr_pass1")
         stats = zero_fmllr_totals(num_speakers, self.fmllr.means.shape[2],
                                   self.device)
         for b in prepared:
@@ -656,14 +661,14 @@ class PretrainedAligner:
                 fm.means, fm.inv_vars, fm.gconsts, fm.miv, num_speakers,
                 totals=stats,
             )
-        mark("fmllr_pass1")
+        phase("fmllr_stats_fetch")
         K, G, beta = stats_to_host(*stats)
-        mark("fmllr_stats_fetch")
+        phase("fmllr_solve")
         transforms = estimate_speaker_fmllr(
             K, G, beta, min_count=self.config.fmllr_min_count
         )
         self.last_fmllr = FmllrEstimate(K, G, beta, transforms)
-        mark("fmllr_solve")
+        phase("fmllr_apply")
         trans = torch.from_numpy(transforms)
         trans_on = {d: trans.to(d) for d in {b.ff.device for b in prepared}}
         adapted = [
@@ -671,14 +676,15 @@ class PretrainedAligner:
                 b.ff, b.spk_dev, trans_on[b.ff.device]))
             for b in prepared
         ]
-        mark("fmllr_apply")
         return adapted
 
+    @tracing.traced("align_corpus")
     def align_corpus(self, corpus: Corpus) -> Dict[int, UtteranceAlignment]:
         """Align every utterance; returns {utterance_id: UtteranceAlignment}.
-        Host-clock seconds of each phase are left in ``last_phase_seconds``:
-        dispatch times, since the device runs behind the host until the path
-        fetch, unless ``sync_phases`` is set.
+        Host-clock seconds of each phase are left in ``last_phase_seconds``
+        and the phases' spans in ``last_phase_spans``: dispatch times, since
+        the device runs behind the host until the path fetch, unless
+        ``sync_phases`` is set.
 
         With ``distributed`` under several ranks, every rank is given the
         same corpus and aligns its own speakers of it (a speaker's CMVN and
@@ -713,27 +719,30 @@ class PretrainedAligner:
         return dict(sorted(results.items()))
 
     def _align_local(self, corpus: Corpus) -> Dict[int, UtteranceAlignment]:
-        """``align_corpus`` on this process's devices: batches round-robin
-        over ``self.devices``, per-speaker CMVN sums and fMLLR statistics
-        added on the first, one utterance at a time in corpus order."""
+        """``align_corpus`` on this process's devices, its phases timed."""
+        clock = tracing.PhaseClock(self.device, sync=self.sync_phases)
+        try:
+            return self._align_phases(corpus, clock.start)
+        finally:
+            clock.stop()
+            self.last_phase_seconds = clock.seconds
+            self.last_phase_spans = clock.spans
+            _logger.debug("align phases (host clock): %s", clock.seconds)
+
+    def _align_phases(self, corpus: Corpus, phase) -> Dict[int, UtteranceAlignment]:
+        """Batches round-robin over ``self.devices``, per-speaker CMVN sums
+        and fMLLR statistics added on the first, one utterance at a time in
+        corpus order; ``phase(name)`` starts each phase."""
         from montreal_forced_aligner_tpu_torch.online import alignment as online
 
         cfg = self.config
         dev = self.device
+        phase("transfer_mode")
         transfer_mode = resolve_transfer_mode(cfg.transfer_mode,
                                               device=self.device)
         self.last_transfer_mode = transfer_mode
-        phase = {}
-        t_phase = time.perf_counter()
 
-        def mark(name):
-            nonlocal t_phase
-            if self.sync_phases and dev.type == "cuda":
-                torch.cuda.synchronize(dev)
-            now = time.perf_counter()
-            phase[name] = now - t_phase
-            t_phase = now
-
+        phase("audio_load")
         speaker_index = corpus.speaker_index
         num_speakers = len(corpus.speakers)
         waves: List[np.ndarray] = corpus.load_audio_parallel(
@@ -744,13 +753,14 @@ class PretrainedAligner:
             utt.num_samples = len(w)
             if self.mfcc_config.num_frames(len(w)) > online.LONG_UTTERANCE_FRAMES:
                 long_set.add(i)
-        mark("audio_load")
 
         # very long utterances align one at a time through the chunked exact
         # Viterbi, with their own CMVN (the single-utterance semantics):
         # batched, one would pad its whole batch to its length, and its
         # O(T*S) emissions and backpointers outgrow the card
         results: Dict[int, UtteranceAlignment] = {}
+        if long_set:
+            phase("long_utterances")
         for i in sorted(long_set):
             utt = corpus.utterances[i]
             utt.num_frames = self.mfcc_config.num_frames(len(waves[i]))
@@ -761,8 +771,6 @@ class PretrainedAligner:
                     iv.begin += utt.begin
                     iv.end += utt.begin
             results[i] = aln
-        if long_set:
-            mark("long_utterances")
 
         order = [int(i) for i in np.argsort([len(w) for w in waves], kind="stable")
                  if int(i) not in long_set]
@@ -770,12 +778,12 @@ class PretrainedAligner:
             order[i : i + cfg.batch_size] for i in range(0, len(order), cfg.batch_size)
         ]
         if not batches:
-            self.last_phase_seconds = phase
             return results
 
         # phase A: MFCC + per-speaker CMVN sums, float64 totals on the device
         # added one utterance at a time in corpus order. All batches are
         # dispatched before anything is fetched.
+        phase("phase_a_dispatch")
         D = self.mfcc_config.num_coefficients
         spk_total = torch.zeros((num_speakers, D), dtype=torch.float64, device=dev)
         spk_count = np.zeros(num_speakers, dtype=np.float64)
@@ -832,11 +840,11 @@ class PretrainedAligner:
             stashes.append((batch, feats_dev, flens, pitch, flens_dev, spk_dev))
             for row, i in enumerate(batch):
                 corpus.utterances[i].num_frames = int(flens[row])
-        mark("phase_a_dispatch")
 
         # host graph compilation overlaps the device's phase A (the native
         # core for monophone trees, else the worker pool or this process);
         # long utterances compiled their own
+        phase("graph_compile")
         items = []
         item_utts = []
         for i, utt in enumerate(corpus.utterances):
@@ -865,8 +873,8 @@ class PretrainedAligner:
         graphs: List[Optional[CompiledGraph]] = [None] * len(corpus.utterances)
         for i, g in zip(item_utts, compiled):
             graphs[i] = g
-        mark("graph_compile")
 
+        phase("graph_ship_and_final_feats")
         spk_mean = cmvn_means(spk_total, torch.from_numpy(spk_count).to(dev))
         spk_mean_on = {}
         prepared = []
@@ -885,13 +893,13 @@ class PretrainedAligner:
             prepared.append(
                 _Batch(batch, flens, garrs, graph, ff, flens_dev, band_limits, spk_dev)
             )
-        mark("graph_ship_and_final_feats")
 
         if self.two_pass:
             utt_spk = np.array([speaker_index[u.speaker] for u in corpus.utterances])
-            prepared = self._fmllr_second_pass_feats(prepared, num_speakers, mark,
+            prepared = self._fmllr_second_pass_feats(prepared, num_speakers, phase,
                                                      utt_spk)
 
+        phase("emit_and_align_dispatch")
         pending = []
         for b in prepared:
             gmm = self._on("gmm", b.ff.device)
@@ -909,10 +917,10 @@ class PretrainedAligner:
             if b.graph.state_pdf.shape[1] <= 32767:
                 state_path = state_path.to(torch.int16)
             pending.append((b.utts, b.flens, b.garrs, state_path, scores, conf))
-        mark("emit_and_align_dispatch")
 
         # pad to a common T and concatenate on the device: every path (and
         # confidence) comes back in ONE device->host copy each
+        phase("path_fetch")
         Tmax = max(p[3].shape[1] for p in pending)
 
         def pad_cat(xs):
@@ -924,8 +932,8 @@ class PretrainedAligner:
         all_sp = pad_cat([p[3] for p in pending])
         all_sc = torch.cat([p[4].to(dev) for p in pending]).cpu().numpy()
         all_cf = pad_cat([p[5] for p in pending]) if cfg.compute_confidence else None
-        mark("path_fetch")
 
+        phase("ctm")
         phone_names = self.model.phone_names
         row0 = 0
         for batch, flens, garrs, state_path, _scores, _conf in pending:
@@ -950,12 +958,10 @@ class PretrainedAligner:
                     self.frame_shift,
                     confidence=None if cf is None else cf[row, :Lf],
                 )
-        mark("ctm")
-        self.last_phase_seconds = phase
-        _logger.debug("align phases (host clock): %s", phase)
         return results
 
     # -- export --------------------------------------------------------------
+    @tracing.traced("export_textgrids")
     def export_textgrids(
         self,
         corpus: Corpus,
@@ -981,10 +987,12 @@ class PretrainedAligner:
         by_file: Dict[str, List[Utterance]] = {}
         for utt in corpus.utterances:
             by_file.setdefault(utt.file_name, []).append(utt)
+        with tracing.span("export_read_durations"):
+            durations = {f: read_wave(corpus.files[f]).duration for f in by_file}
         out_paths = []
         for file_name, utts in by_file.items():
             tg = TextGrid()
-            tg.xmax = read_wave(corpus.files[file_name]).duration
+            tg.xmax = durations[file_name]
             speakers = sorted({u.speaker for u in utts})
             for spk in speakers:
                 words: List[Interval] = []

@@ -384,6 +384,8 @@ def _neural_parsers(sub) -> None:
         t.add_argument("output_directory")
         _device(t)
         t.add_argument("--language", default=None, help="decoding language hint")
+        t.add_argument("--profile_dir", default=None,
+                       help="Write a torch.profiler trace of the transcription here")
 
 
 def _segmentation_parsers(sub) -> None:
@@ -661,7 +663,8 @@ def _recipe_from_config(data):
 
 def _profiled(profile_dir, device, name: str):
     """A context that traces its body with ``torch.profiler`` and writes
-    ``<profile_dir>/<name>`` as a Chrome trace; a no-op without a dir."""
+    ``<profile_dir>/<name>`` as a Chrome trace, the port's spans drawn over
+    their kernels; a no-op without a dir."""
     if not profile_dir:
         return contextlib.nullcontext()
 
@@ -672,7 +675,9 @@ def _profiled(profile_dir, device, name: str):
         activities = [ProfilerActivity.CPU]
         if device.type == "cuda":
             activities.append(ProfilerActivity.CUDA)
-        with profile(activities=activities) as prof:
+        from montreal_forced_aligner_tpu_torch import tracing
+
+        with profile(activities=activities) as prof, tracing.on_card_timeline():
             yield
         out = Path(profile_dir)
         out.mkdir(parents=True, exist_ok=True)
@@ -884,66 +889,69 @@ def _align(args) -> int:
         g2p_model_path=args.g2p_model_path, rules_path=args.rules_path,
         device=args.device,
     )
-    corpus = Corpus.load(
-        args.corpus_directory,
-        speaker_characters=args.speaker_characters,
-        audio_directory=args.audio_directory,
-    )
-    print(
-        f"Loaded corpus: {corpus.num_utterances} utterances, "
-        f"{len(corpus.speakers)} speakers"
-    )
+    # the trace covers the corpus load and the export as well as the
+    # alignment, so their spans show in it
     with _profiled(args.profile_dir, aligner.device, "align_trace.json"):
+        corpus = Corpus.load(
+            args.corpus_directory,
+            speaker_characters=args.speaker_characters,
+            audio_directory=args.audio_directory,
+        )
+        print(
+            f"Loaded corpus: {corpus.num_utterances} utterances, "
+            f"{len(corpus.speakers)} speakers"
+        )
         results = aligner.align_corpus(corpus)
-    # several ranks: every rank holds every result; each exports the files
-    # of its own speakers, rank 0 the corpus-wide reports
-    multi = aligner.mesh is not None and aligner.mesh.world_size > 1
-    lead = not multi or aligner.mesh.rank == 0
-    full_corpus = corpus
-    # the phone decode runs on this rank's utterances, numbered from 0
-    phone_corpus, phone_results, phone_csv = (
-        corpus, results, "phone_transcript_evaluation.csv")
-    if multi:
-        corpus = _rank_corpus(corpus, aligner.last_shard)
-        print(f"rank {aligner.mesh.rank}/{aligner.mesh.world_size}: aligned "
-              f"{corpus.num_utterances} utterances")
-        phone_corpus = full_corpus.subset(aligner.last_shard)
-        phone_results = {n: results[o] for n, o in enumerate(aligner.last_shard)
-                         if o in results}
-        phone_csv = f"phone_transcript_evaluation.rank{aligner.mesh.rank}.csv"
-    phone_transcripts = None
-    if use_phone_model:
-        # the reference's precedence (``alignment/base.py:543``): the phone
-        # transcription replaces fine-tuning
-        from montreal_forced_aligner_tpu_torch.transcription.phone_transcriber import (
-            transcribe_phones,
-        )
+        # several ranks: every rank holds every result; each exports the files
+        # of its own speakers, rank 0 the corpus-wide reports
+        multi = aligner.mesh is not None and aligner.mesh.world_size > 1
+        lead = not multi or aligner.mesh.rank == 0
+        full_corpus = corpus
+        # the phone decode runs on this rank's utterances, numbered from 0
+        phone_corpus, phone_results, phone_csv = (
+            corpus, results, "phone_transcript_evaluation.csv")
+        if multi:
+            corpus = _rank_corpus(corpus, aligner.last_shard)
+            print(f"rank {aligner.mesh.rank}/{aligner.mesh.world_size}: aligned "
+                  f"{corpus.num_utterances} utterances")
+            phone_corpus = full_corpus.subset(aligner.last_shard)
+            phone_results = {n: results[o]
+                             for n, o in enumerate(aligner.last_shard)
+                             if o in results}
+            phone_csv = f"phone_transcript_evaluation.rank{aligner.mesh.rank}.csv"
+        phone_transcripts = None
+        if use_phone_model:
+            # the reference's precedence (``alignment/base.py:543``): the phone
+            # transcription replaces fine-tuning
+            from montreal_forced_aligner_tpu_torch.transcription.phone_transcriber import (
+                transcribe_phones,
+            )
 
+            if fine_tune:
+                print("--use_phone_model supersedes --fine_tune (reference "
+                      "behavior); skipping fine-tuning")
+                fine_tune = False
+            phone_transcripts = transcribe_phones(
+                args.acoustic_model_path, phone_corpus, phone_results,
+                batch_size=config.batch_size, phone_lm=aligner.model.phone_lm,
+                device=aligner.device,
+            )
+            print(f"Phone-transcribed {len(phone_transcripts)} utterances")
         if fine_tune:
-            print("--use_phone_model supersedes --fine_tune (reference "
-                  "behavior); skipping fine-tuning")
-            fine_tune = False
-        phone_transcripts = transcribe_phones(
-            args.acoustic_model_path, phone_corpus, phone_results,
-            batch_size=config.batch_size, phone_lm=aligner.model.phone_lm,
-            device=aligner.device,
-        )
-        print(f"Phone-transcribed {len(phone_transcripts)} utterances")
-    if fine_tune:
-        from montreal_forced_aligner_tpu_torch.align.fine_tune import (
-            fine_tune_alignments,
-        )
+            from montreal_forced_aligner_tpu_torch.align.fine_tune import (
+                fine_tune_alignments,
+            )
 
-        results = fine_tune_alignments(aligner, full_corpus, results)
-        print("Fine-tuned boundaries at 1 ms resolution")
-    outs = aligner.export_textgrids(
-        corpus,
-        results,
-        args.output_directory,
-        include_silence=include_silence,
-        output_format=output_format,
-        include_original_text=args.include_original_text,
-    )
+            results = fine_tune_alignments(aligner, full_corpus, results)
+            print("Fine-tuned boundaries at 1 ms resolution")
+        outs = aligner.export_textgrids(
+            corpus,
+            results,
+            args.output_directory,
+            include_silence=include_silence,
+            output_format=output_format,
+            include_original_text=args.include_original_text,
+        )
     # alignment quality analysis: the reference always runs it after align
     # (``command_line/align.py:124``)
     from montreal_forced_aligner_tpu_torch.align.analysis import (
@@ -2240,8 +2248,9 @@ def _transcribe_neural(args, transcriber_class) -> int:
 
     tr = transcriber_class(args.model_path, language=args.language,
                            device=args.device)
-    corpus = Corpus.load(args.corpus_directory, require_transcripts=False)
-    results = tr.transcribe_corpus(corpus)
+    with _profiled(args.profile_dir, tr.device, "transcribe_trace.json"):
+        corpus = Corpus.load(args.corpus_directory, require_transcripts=False)
+        results = tr.transcribe_corpus(corpus)
     _export_transcripts(corpus, results, args.output_directory)
     print(f"Transcribed {len(results)} utterances to {args.output_directory}")
     return 0

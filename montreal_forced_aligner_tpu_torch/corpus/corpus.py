@@ -21,6 +21,7 @@ from typing import Dict, List, Optional
 
 import numpy as np
 
+from montreal_forced_aligner_tpu_torch import tracing
 from montreal_forced_aligner_tpu_torch.io.textgrid import TextGrid
 from montreal_forced_aligner_tpu_torch.io.wav import WaveData, read_wave
 
@@ -75,6 +76,7 @@ class Corpus:
         return {s: i for i, s in enumerate(self.speakers)}
 
     @classmethod
+    @tracing.traced("corpus_load")
     def load(
         cls,
         directory,

@@ -28,6 +28,7 @@ from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 
+from montreal_forced_aligner_tpu_torch import tracing
 from montreal_forced_aligner_tpu_torch.dictionary.lexicon import Lexicon, Pronunciation
 from montreal_forced_aligner_tpu_torch.models.transition_model import KNOPDF, TransitionModel
 from montreal_forced_aligner_tpu_torch.models.tree import ContextDependency
@@ -605,6 +606,17 @@ class AlignmentGraphCompiler:
             meta=meta,
         )
 
+    def _template(self, key: tuple, build_fn) -> dict:
+        """The template cached under ``key``, frozen from ``build_fn`` on a
+        miss (counted: ``graph_template_lookups``, ``graph_template_builds``)."""
+        tracing.count("graph_template_lookups")
+        tpl = self._tpl_cache.get(key)
+        if tpl is None:
+            tracing.count("graph_template_builds")
+            with tracing.span("graph_template_build"):
+                tpl = self._tpl_cache[key] = self._freeze_template(build_fn)
+        return tpl
+
     def expand_variant_cached(
         self, g: _GraphBuilder, pids, word_idx, left_ctxs, rights
     ) -> List[dict]:
@@ -617,14 +629,11 @@ class AlignmentGraphCompiler:
             # context-keyed cache would miss on every novel word pairing.
             # (Single-phone variants keep the per-left instances that the
             # direct expansion creates, preserving tie-breaking order.)
-            key = ("v", tuple(pids))
-            tpl = self._tpl_cache.get(key)
-            if tpl is None:
-                tpl = self._freeze_template(
-                    lambda sg: self._expand_variant(sg, pids, 0, [0], [0])
-                )
-                assert len(tpl["meta"]) == 1
-                self._tpl_cache[key] = tpl
+            tpl = self._template(
+                ("v", tuple(pids)),
+                lambda sg: self._expand_variant(sg, pids, 0, [0], [0]),
+            )
+            assert len(tpl["meta"]) == 1
             base = g.add_template(tpl, word_idx)
             b = tpl["meta"][0]
             return [
@@ -635,13 +644,10 @@ class AlignmentGraphCompiler:
                     exits=[(s + base, w, t) for s, w, t in b["exits"]],
                 )
             ]
-        key = ("v", tuple(pids), tuple(left_ctxs), tuple(rights))
-        tpl = self._tpl_cache.get(key)
-        if tpl is None:
-            tpl = self._freeze_template(
-                lambda sg: self._expand_variant(sg, pids, 0, left_ctxs, rights)
-            )
-            self._tpl_cache[key] = tpl
+        tpl = self._template(
+            ("v", tuple(pids), tuple(left_ctxs), tuple(rights)),
+            lambda sg: self._expand_variant(sg, pids, 0, left_ctxs, rights),
+        )
         base = g.add_template(tpl, word_idx)
         return [
             dict(
@@ -662,16 +668,13 @@ class AlignmentGraphCompiler:
         if self.tree.N == 1:
             # monophone: context-independent template (see
             # expand_variant_cached)
-            key = ("s", phone, word_idx >= 0)
-            tpl = self._tpl_cache.get(key)
-            if tpl is None:
-                tpl = self._freeze_template(
-                    lambda sg: self._expand_single(
-                        sg, phone, 0 if word_idx >= 0 else -1, 0, [0]
-                    )
-                )
-                assert len(tpl["meta"]) == 1
-                self._tpl_cache[key] = tpl
+            tpl = self._template(
+                ("s", phone, word_idx >= 0),
+                lambda sg: self._expand_single(
+                    sg, phone, 0 if word_idx >= 0 else -1, 0, [0]
+                ),
+            )
+            assert len(tpl["meta"]) == 1
             base = g.add_template(tpl, word_idx)
             _rs, entry, exits = tpl["meta"][0]
             return [
@@ -681,15 +684,12 @@ class AlignmentGraphCompiler:
                     [(s + base, w, t) for s, w, t in exits],
                 )
             ]
-        key = ("s", phone, left, tuple(rights), word_idx >= 0)
-        tpl = self._tpl_cache.get(key)
-        if tpl is None:
-            tpl = self._freeze_template(
-                lambda sg: self._expand_single(
-                    sg, phone, 0 if word_idx >= 0 else -1, left, rights
-                )
-            )
-            self._tpl_cache[key] = tpl
+        tpl = self._template(
+            ("s", phone, left, tuple(rights), word_idx >= 0),
+            lambda sg: self._expand_single(
+                sg, phone, 0 if word_idx >= 0 else -1, left, rights
+            ),
+        )
         base = g.add_template(tpl, word_idx)
         return [
             (rs, entry + base, [(s + base, w, t) for s, w, t in exits])

@@ -33,8 +33,8 @@ import torch
 
 from montreal_forced_aligner_tpu_torch.ivector.ubm import DiagUbm
 from montreal_forced_aligner_tpu_torch.device import resolve_device
+from montreal_forced_aligner_tpu_torch.tracing import PhaseClock
 from montreal_forced_aligner_tpu_torch.training.base import (
-    PhaseClock,
     StreamingTreeSum,
     fetch_all,
 )

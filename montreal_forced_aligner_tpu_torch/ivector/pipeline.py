@@ -28,7 +28,7 @@ from montreal_forced_aligner_tpu_torch.ivector.plda import Plda
 from montreal_forced_aligner_tpu_torch.ivector.ubm import train_ubm
 from montreal_forced_aligner_tpu_torch.ops.feats import compute_deltas, sliding_cmn
 from montreal_forced_aligner_tpu_torch.ops.mfcc import MfccConfig, compute_mfcc_batch
-from montreal_forced_aligner_tpu_torch.training.base import PhaseClock
+from montreal_forced_aligner_tpu_torch.tracing import PhaseClock
 
 
 def corpus_feature_batches(

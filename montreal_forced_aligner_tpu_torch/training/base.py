@@ -17,8 +17,6 @@ a run is reproducible bit for bit on one card.
 
 from __future__ import annotations
 
-import contextlib
-import time
 from dataclasses import dataclass
 from typing import Dict, List, NamedTuple, Optional, Tuple
 
@@ -73,6 +71,7 @@ from montreal_forced_aligner_tpu_torch.tokenization.languages import (
     compose_tokenizer,
     get_language_tokenizer,
 )
+from montreal_forced_aligner_tpu_torch.tracing import PhaseClock
 
 
 @dataclass
@@ -113,43 +112,6 @@ def fetch_all(tree):
     if isinstance(tree, (list, tuple)):
         return [fetch_all(x) for x in tree]
     return to_host(tree)
-
-
-class PhaseClock:
-    """Host-clock seconds per training phase, summed over a run
-    (``seconds``). A phase entered inside another is charged to itself
-    only. With ``sync`` set, the card is synchronised at each phase
-    boundary, so a phase's seconds hold its device work; without it they
-    are dispatch times (the card runs behind the host)."""
-
-    def __init__(self, device: torch.device, sync: bool = False):
-        self.device = device
-        self.sync = sync
-        self.seconds: Dict[str, float] = {}
-        self._stack: List[list] = []
-
-    def _charge(self, name: str, t0: float) -> float:
-        if self.sync and self.device.type == "cuda":
-            torch.cuda.synchronize(self.device)
-        now = time.perf_counter()
-        self.seconds[name] = self.seconds.get(name, 0.0) + now - t0
-        return now
-
-    @contextlib.contextmanager
-    def __call__(self, name: str):
-        now = time.perf_counter()
-        if self._stack:
-            outer = self._stack[-1]
-            now = self._charge(outer[0], outer[1])
-        entry = [name, now]
-        self._stack.append(entry)
-        try:
-            yield
-        finally:
-            self._stack.pop()
-            now = self._charge(name, entry[1])
-            if self._stack:
-                self._stack[-1][1] = now
 
 
 class TrainGmm(NamedTuple):

@@ -21,6 +21,7 @@ from typing import Dict, Optional
 import numpy as np
 import torch
 
+from montreal_forced_aligner_tpu_torch import tracing
 from montreal_forced_aligner_tpu_torch.device import resolve_device
 
 logger = logging.getLogger("mfa_tpu")
@@ -103,7 +104,8 @@ class WhisperTranscriber:
             self.language = None
 
     def features(self, samples: np.ndarray) -> torch.Tensor:
-        return self.log_mel(samples)
+        with tracing.span("whisper.features"):
+            return self.log_mel(samples)
 
     def decode(self, samples: np.ndarray, **kw):
         """The :class:`.whisper.Decoded` of one utterance's samples, under
@@ -127,6 +129,7 @@ class WhisperTranscriber:
             )
         return self.tokenizer.decode(self.decode(samples).ids).strip()
 
+    @tracing.traced("transcribe_corpus")
     def transcribe_corpus(self, corpus) -> Dict[int, str]:
         out = {}
         for utt in corpus.utterances:

@@ -25,13 +25,13 @@ from __future__ import annotations
 
 import logging
 import math
-import time
 from dataclasses import dataclass
 from typing import Dict, List, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
 
+from montreal_forced_aligner_tpu_torch import tracing
 from montreal_forced_aligner_tpu_torch.align import aligner as _al
 from montreal_forced_aligner_tpu_torch.corpus.corpus import Corpus
 from montreal_forced_aligner_tpu_torch.data import CtmInterval
@@ -344,7 +344,7 @@ class Transcriber:
         self.word_insertion_penalty = word_insertion_penalty
         self._reset_graph()
         # host-clock seconds of each phase of the last transcribe_corpus;
-        # with sync_phases the card is synchronised at every mark
+        # with sync_phases the card is synchronised at every phase boundary
         self.last_phase_seconds: Dict[str, float] = {}
         self.sync_phases = False
         self.last_fmllr: Optional[FmllrEstimate] = None
@@ -447,6 +447,7 @@ class Transcriber:
         return hit[1], hit[2]
 
     # -- the pipeline ---------------------------------------------------------
+    @tracing.traced("transcribe_corpus")
     def transcribe_corpus(
         self,
         corpus: Corpus,
@@ -461,23 +462,25 @@ class Transcriber:
         reference's ConstArpaLm lattice rescoring)."""
         if not corpus.utterances:
             return {}
-        al = self.aligner
-        if al.use_pitch:
+        if self.aligner.use_pitch:
             raise NotImplementedError(
                 "transcription with a pitch model: the JAX package's "
                 "transcriber has no pitch features either")
+        clock = tracing.PhaseClock(self.device, sync=self.sync_phases)
+        try:
+            return self._transcribe_phases(corpus, nbest, rescore_lm,
+                                           rescore_weight, clock.start)
+        finally:
+            clock.stop()
+            self.last_phase_seconds = clock.seconds
+            logger.debug("transcribe phases (host clock): %s", clock.seconds)
+
+    def _transcribe_phases(self, corpus, nbest, rescore_lm, rescore_weight, phase):
+        """``transcribe_corpus``'s pipeline; ``phase(name)`` starts each
+        phase."""
+        al = self.aligner
         dev = self.device
-        phase: Dict[str, float] = {}
-        t_phase = time.perf_counter()
-
-        def mark(name):
-            nonlocal t_phase
-            if self.sync_phases and dev.type == "cuda":
-                torch.cuda.synchronize(dev)
-            now = time.perf_counter()
-            phase[name] = now - t_phase
-            t_phase = now
-
+        phase("audio_load")
         if self.lm is None:
             self.train_lm_from_corpus(corpus)
         self.last_state_paths = {}
@@ -487,11 +490,11 @@ class Transcriber:
         )
         for utt, w in zip(corpus.utterances, waves):
             utt.num_samples = len(w)
-        mark("audio_load")
         # the corpus's longest utterance gates the cross-word LVCSR build
+        phase("decoding_graph")
         graph = self._ensure_graph(
             nominal_frames=cfg.num_frames(max(len(w) for w in waves)))
-        mark("decoding_graph")
+        phase("phase_a_dispatch")
         speaker_index = corpus.speaker_index
         num_speakers = len(corpus.speakers)
         order = np.argsort([len(w) for w in waves], kind="stable")
@@ -534,7 +537,7 @@ class Transcriber:
             add_to_speakers(spk_total, sums, spk_idx)
             np.add.at(spk_count, spk_idx, flens.astype(np.float64))
             stashes.append((batch, flens, feats, flens_dev, spk_dev))
-        mark("phase_a_dispatch")
+        phase("graph_ship_and_final_feats")
         spk_mean = cmvn_means(spk_total, torch.from_numpy(spk_count).to(dev))
         prepared = []
         for batch, flens, feats, flens_dev, spk_dev in stashes:
@@ -542,36 +545,39 @@ class Transcriber:
             garrs, bgraph = self._shared_graph_on_device(graph, len(batch))
             prepared.append(
                 _TBatch(batch, flens, garrs, bgraph, ff, flens_dev, spk_dev))
-        mark("graph_ship_and_final_feats")
 
+        # the row split and the speakers' map count in the phase after them
+        if al.two_pass:
+            phase("fmllr_pass1")
+        elif self._lvcsr is not None:
+            phase("decode_dispatch" if nbest <= 1 else "nbest_decode_and_words")
         if self._lvcsr is not None:
             # split before the fMLLR first pass too: its LVCSR decode holds
             # the same records as the final decode
             prepared = self._lvcsr_split_rows(prepared, nbest)
         if al.two_pass:
             utt_spk = np.array([speaker_index[u.speaker] for u in corpus.utterances])
-            prepared = self._fmllr_decode_feats(prepared, num_speakers, mark,
+            prepared = self._fmllr_decode_feats(prepared, num_speakers, phase,
                                                 utt_spk)
         if self._lvcsr is not None:
             results = self._transcribe_prepared_lvcsr(
                 prepared, corpus, al.frame_shift, nbest, rescore_lm,
-                rescore_weight, mark,
+                rescore_weight, phase,
             )
         else:
             results = self._transcribe_prepared_dense(
                 prepared, corpus, al.frame_shift, nbest, rescore_lm,
-                rescore_weight, mark,
+                rescore_weight, phase,
             )
-        self.last_phase_seconds = phase
-        logger.debug("transcribe phases (host clock): %s", phase)
         return results
 
     def _transcribe_prepared_dense(self, prepared, corpus, fs, nbest,
-                                   rescore_lm, rescore_weight, mark):
+                                   rescore_lm, rescore_weight, phase):
         al = self.aligner
         results: Dict[int, TranscriptionResult] = {}
         pending = []
         if nbest <= 1:
+            phase("decode_dispatch")
             for b in prepared:
                 state_path, scores = _al._emit_and_align(
                     b.ff, b.flens_dev, b.graph, al.gmm, self.acoustic_scale,
@@ -580,15 +586,15 @@ class Transcriber:
                 if b.graph.state_pdf.shape[1] <= 32767:
                     state_path = state_path.to(torch.int16)
                 pending.append((state_path, scores))
-            mark("decode_dispatch")
             # one device->host copy of every path
+            phase("path_fetch")
             Tmax = max(sp.shape[1] for sp, _s in pending)
             all_sp = torch.cat([
                 torch.nn.functional.pad(sp, (0, Tmax - sp.shape[1]))
                 for sp, _s in pending
             ]).cpu().numpy().astype(np.int64)
             all_scores = torch.cat([s for _sp, s in pending]).cpu().numpy()
-            mark("path_fetch")
+        phase("words" if nbest <= 1 else "nbest_decode_and_words")
         r0 = 0
         for bi, b in enumerate(prepared):
             garrs, flens = b.garrs, b.flens
@@ -659,7 +665,6 @@ class Transcriber:
                     if sp.shape[1] > 1
                     else None,
                 )
-        mark("words" if nbest <= 1 else "nbest_decode_and_words")
         return results
 
     # -- LVCSR ---------------------------------------------------------------
@@ -947,21 +952,22 @@ class Transcriber:
         return words
 
     def _transcribe_prepared_lvcsr(self, prepared, corpus, fs, nbest,
-                                   rescore_lm, rescore_weight, mark):
+                                   rescore_lm, rescore_weight, phase):
         al = self.aligner
         results: Dict[int, TranscriptionResult] = {}
         if nbest <= 1:
             # decode then backtrace each batch before the next decode, so
             # one batch's checkpoints are alive at a time
+            phase("decode_dispatch")
             bts = []
             for b in prepared:
                 handle = self._lvcsr_decode_device(b.ff, b.flens_dev, al.gmm)
                 bts.append(self._lvcsr_backtrace_device_dispatch(
                     handle, b.flens_dev, int(b.ff.shape[1])))
                 del handle
-            mark("decode_dispatch")
+            phase("path_fetch")
             host = [self._lvcsr_rows(bt, b.flens) for bt, b in zip(bts, prepared)]
-            mark("path_fetch")
+        phase("words" if nbest <= 1 else "nbest_decode_and_words")
         for bi, b in enumerate(prepared):
             if nbest <= 1:
                 g_used = self._lvcsr
@@ -993,15 +999,14 @@ class Transcriber:
                     else None,
                     cross_word_fallback=self.cross_word_fallback,
                 )
-        mark("words" if nbest <= 1 else "nbest_decode_and_words")
         return results
 
     # -- SAT two-pass ----------------------------------------------------------
-    def _fmllr_decode_feats(self, prepared, num_speakers, mark, utt_spk):
-        """Two-pass SAT decoding: a first-pass decode with the
-        speaker-independent model, per-speaker fMLLR from the first-pass
-        labels (silence weighted), then adapted features for the final
-        decode (reference ``transcription/transcriber.py:1120-1198``). The
+    def _fmllr_decode_feats(self, prepared, num_speakers, phase, utt_spk):
+        """Two-pass SAT decoding, from inside the ``fmllr_pass1`` phase: a
+        first-pass decode with the speaker-independent model, per-speaker
+        fMLLR from the first-pass labels (silence weighted), then adapted
+        features for the final decode (reference ``transcription/transcriber.py:1120-1198``). The
         statistics are float64 totals on the device, each utterance added
         to its speaker's in corpus order (``utt_spk``: each corpus
         utterance's speaker index), fetched once."""
@@ -1026,20 +1031,19 @@ class Transcriber:
                 fm.means, fm.inv_vars, fm.gconsts, fm.miv, num_speakers,
                 totals=stats,
             )
-        mark("fmllr_pass1")
+        phase("fmllr_stats_fetch")
         K, G, beta = stats_to_host(*stats)
-        mark("fmllr_stats_fetch")
+        phase("fmllr_solve")
         transforms = estimate_speaker_fmllr(
             K, G, beta, min_count=al.config.fmllr_min_count
         )
         self.last_fmllr = FmllrEstimate(K, G, beta, transforms)
-        mark("fmllr_solve")
+        phase("fmllr_apply")
         trans_dev = torch.from_numpy(transforms).to(self.device)
         adapted = [
             b._replace(ff=apply_per_speaker_transform(b.ff, b.spk_dev, trans_dev))
             for b in prepared
         ]
-        mark("fmllr_apply")
         return adapted
 
     def transcribe_corpus_per_speaker(

@@ -50,6 +50,7 @@ from typing import List, Optional, Tuple
 import torch
 import torch.nn.functional as F
 
+from montreal_forced_aligner_tpu_torch import tracing
 from montreal_forced_aligner_tpu_torch.transcription.whisper.checkpoint import (
     DEFAULT_MAX_LENGTH,
     GenerationSettings,
@@ -178,15 +179,16 @@ def init_tokens(model, cross, gen: GenerationSettings, language=None, task=None,
     if language is not None:
         lang_id = language_token_id(language, gen)
     elif gen.lang_to_id is not None and lang_undefined:
-        device = cross[0][0].device
-        start = torch.tensor([[gen.decoder_start_token_id]], device=device)
-        logits, _ = _decoder_step(model, start, cross)
-        mask = torch.ones(logits.shape[-1], dtype=torch.bool, device=device)
-        mask[list(gen.lang_to_id.values())] = False
-        logits[:, mask] = -float("inf")
-        lang_id = int(logits.argmax(-1)[0])
-        if keep_scores:
-            detected = logits[0].cpu()
+        with tracing.span("whisper.detect_language"):
+            device = cross[0][0].device
+            start = torch.tensor([[gen.decoder_start_token_id]], device=device)
+            logits, _ = _decoder_step(model, start, cross)
+            mask = torch.ones(logits.shape[-1], dtype=torch.bool, device=device)
+            mask[list(gen.lang_to_id.values())] = False
+            logits[:, mask] = -float("inf")
+            lang_id = int(logits.argmax(-1)[0])
+            if keep_scores:
+                detected = logits[0].cpu()
     if lang_id is not None:
         if len(tokens) > 1:
             tokens[1] = lang_id
@@ -377,24 +379,32 @@ def _expand(cross, rows):
     return [(k.expand(rows, -1, -1, -1), v.expand(rows, -1, -1, -1)) for k, v in cross]
 
 
+@tracing.traced("whisper.greedy_window")
 def _greedy_window(model, cross, prompt, limit, procs, out, keep_scores):
     """One window decoded greedily: the generated tokens, end of text
-    included (``GenerationMixin._sample`` without sampling)."""
+    included (``GenerationMixin._sample`` without sampling). Each step's
+    host work (the decoder step's launches, the logits processors) and its
+    wait on the card (the argmax to a Python int) are spans of their own."""
     device = cross[0][0].device
     eos = set(procs.eos)
     seq = list(prompt)
-    logits, past = _decoder_step(model, torch.tensor([prompt], device=device), cross)
+    ids, past = [prompt], None
     while True:
-        scores = procs([seq], logits, len(prompt))
-        token = int(scores.argmax(-1)[0])
+        with tracing.span("whisper.decoder_step"):
+            logits, past = _decoder_step(model, torch.tensor(ids, device=device), cross,
+                                         past)
+        with tracing.span("whisper.logits_processors"):
+            scores = procs([seq], logits, len(prompt))
+        with tracing.span("whisper.token_fetch"):
+            token = int(scores.argmax(-1)[0])
         if len(out.scores) < keep_scores:
             out.scores.append(scores[0].cpu())
         seq.append(token)
         out.steps += 1
+        tracing.count("whisper.decoder_steps")
         if token in eos or len(seq) >= limit:
             return seq[len(prompt):]
-        logits, past = _decoder_step(
-            model, torch.tensor([[token]], device=device), cross, past)
+        ids = [[token]]
 
 
 def _beam_window(model, cross, prompt, limit, procs, gen, out, keep_scores):
@@ -526,7 +536,10 @@ def generate(model, features: torch.Tensor, gen: GenerationSettings,
             segment = features[:, :, seek:seek + num]
             if num < window:
                 segment = F.pad(segment, (0, window - num))
-            cross = model.model.decoder.cross_kv(model.encode(segment))
+            with tracing.span("whisper.encode"):
+                encoded = model.encode(segment)
+            with tracing.span("whisper.cross_kv"):
+                cross = model.model.decoder.cross_kv(encoded)
             if out.windows == 0:
                 # detection reads the whole input; one 30 s window here
                 out.prompt, out.language_scores = init_tokens(
@@ -546,6 +559,7 @@ def generate(model, features: torch.Tensor, gen: GenerationSettings,
                 tokens = _greedy_window(model, cross, prompt, limit, procs, out,
                                         keep_scores)
             out.windows += 1
+            tracing.count("whisper.windows")
             if gen.force_unique_generate_call:
                 out.ids = prompt + tokens
                 break

@@ -323,8 +323,11 @@ def test_sat_two_pass_decode_matches_jax(sat, monkeypatch):
     pr = pt.transcribe_corpus(PCorpus.load(corpus_dir))
     _same_results(jr, pr)
     assert pt.last_fmllr is not None
-    assert {"fmllr_pass1", "fmllr_solve", "decode_dispatch",
-            "path_fetch"} <= set(pt.last_phase_seconds)
+    # the phases in the order they ran, each once
+    assert list(pt.last_phase_seconds) == [
+        "audio_load", "decoding_graph", "phase_a_dispatch",
+        "graph_ship_and_final_feats", "fmllr_pass1", "fmllr_stats_fetch",
+        "fmllr_solve", "fmllr_apply", "decode_dispatch", "path_fetch", "words"]
 
 
 def test_per_speaker_decode_and_evaluate_match_jax(sat, monkeypatch):
