@@ -18,7 +18,10 @@ package's transcriber calls with no other argument:
   (``WhisperTimeStampLogitsProcessor``: pairs, no going back,
   ``max_initial_timestamp_index``, and a timestamp whenever their summed
   probability beats every text token's);
-- greedy decoding, or beam search (``num_beams`` > 1: ``_beam_search``
+- greedy decoding (the prompt in one eager step, then one token a step
+  over a :class:`.model.StaticCache`, each step on the card the replay of
+  a CUDA graph: :class:`GreedyStep`), or beam search (``num_beams`` > 1:
+  ``_beam_search``
   with ``length_penalty`` and ``early_stopping``, the beams a batch of
   rows through the decoder, the encoder's cross keys and values computed
   once and shared, the self-attention cache reordered by beam each step,
@@ -55,6 +58,12 @@ from montreal_forced_aligner_tpu_torch.transcription.whisper.checkpoint import (
     DEFAULT_MAX_LENGTH,
     GenerationSettings,
 )
+from montreal_forced_aligner_tpu_torch.transcription.whisper.model import StaticCache
+
+# a greedy step attends over the static cache's positions up to the
+# current one rounded up to a multiple of this (at most
+# ``max_target_positions``): one CUDA graph per multiple
+BUCKET = 64
 
 # Whisper's languages by code (``tokenization_whisper.LANGUAGES``)
 LANGUAGES = {
@@ -379,24 +388,96 @@ def _expand(cross, rows):
     return [(k.expand(rows, -1, -1, -1), v.expand(rows, -1, -1, -1)) for k, v in cross]
 
 
+class GreedyStep:
+    """Greedy decoding's single-token step over one :class:`.model.StaticCache`
+    (:meth:`.model.Decoder.step` and the tied logits). On the card each
+    attention length (the step's length rounded up to a multiple of
+    ``BUCKET``) is captured once into a CUDA graph, lazily, after a warm-up
+    call on a side stream, all of them in one memory pool; a step then
+    copies its token id on the card and replays the graph, whose logits
+    stay at a fixed address. Elsewhere the same step runs eagerly. One a
+    model and device (:func:`greedy_step`)."""
+
+    def __init__(self, model, device: torch.device):
+        # the decoder, not the model: the model keeps its step
+        self.decoder = model.model.decoder
+        self.positions = model.dims.max_target_positions
+        self.device = device
+        self.cache = StaticCache(model.dims, device)
+        self.graphed = device.type == "cuda"
+        self.graphs = {}  # attention length -> (CUDAGraph, its logits)
+        self.pool = None
+
+    def __call__(self, token: torch.Tensor, length: int) -> torch.Tensor:
+        """The (1, vocab) logits after ``token`` (a device tensor of one
+        id), the ``length``-th token of the sequence."""
+        if length > self.positions:
+            raise ValueError(f"decoder position {length - 1} is past the model's "
+                             f"{self.positions} positions")
+        self.cache.ids.copy_(token.view(1, 1))
+        self.cache.pos.fill_(length - 1)
+        span = min(-(-length // BUCKET) * BUCKET, self.positions)
+        if not self.graphed:
+            return self._run(span)
+        hit = self.graphs.get(span)
+        if hit is None:
+            hit = self.graphs[span] = self._capture(span)
+        hit[0].replay()
+        return hit[1]
+
+    def _run(self, span: int) -> torch.Tensor:
+        return self.decoder.logits(self.decoder.step(self.cache, span)[:, -1])
+
+    def _capture(self, span: int):
+        """The step at attention length ``span`` as a CUDA graph and its
+        logits. The warm-up computes the current step, which the first
+        replay computes again."""
+        if self.pool is None:
+            self.pool = torch.cuda.graph_pool_handle()
+        stream = torch.cuda.current_stream(self.device)
+        side = torch.cuda.Stream(device=self.device)
+        side.wait_stream(stream)
+        with torch.cuda.stream(side):
+            self._run(span)
+        stream.wait_stream(side)
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph, pool=self.pool):
+            logits = self._run(span)
+        tracing.count("whisper.decoder_graph_captures")
+        return graph, logits
+
+
+def greedy_step(model, device: torch.device) -> GreedyStep:
+    """The model's :class:`GreedyStep` on ``device``, made on first use and
+    kept on the model, so its graphs are captured once a model and
+    process."""
+    step = getattr(model, "greedy_step", None)
+    if step is None or step.device != device:
+        step = model.greedy_step = GreedyStep(model, device)
+    return step
+
+
 @tracing.traced("whisper.greedy_window")
 def _greedy_window(model, cross, prompt, limit, procs, out, keep_scores):
     """One window decoded greedily: the generated tokens, end of text
-    included (``GenerationMixin._sample`` without sampling). Each step's
-    host work (the decoder step's launches, the logits processors) and its
-    wait on the card (the argmax to a Python int) are spans of their own."""
+    included (``GenerationMixin._sample`` without sampling). The prompt
+    runs in one eager step that fills the static cache, each further token
+    in a :class:`GreedyStep`, its id passed on the card. Each step's host
+    work (the decoder step's launches, the logits processors) and its wait
+    on the card (the argmax to a Python int) are spans of their own."""
     device = cross[0][0].device
     eos = set(procs.eos)
     seq = list(prompt)
-    ids, past = [prompt], None
+    step = greedy_step(model, device)
+    with tracing.span("whisper.decoder_step"):
+        logits, past = _decoder_step(model, torch.tensor([prompt], device=device), cross)
+        step.cache.load(cross, past)
     while True:
-        with tracing.span("whisper.decoder_step"):
-            logits, past = _decoder_step(model, torch.tensor(ids, device=device), cross,
-                                         past)
         with tracing.span("whisper.logits_processors"):
             scores = procs([seq], logits, len(prompt))
         with tracing.span("whisper.token_fetch"):
-            token = int(scores.argmax(-1)[0])
+            best = scores.argmax(-1)
+            token = int(best[0])
         if len(out.scores) < keep_scores:
             out.scores.append(scores[0].cpu())
         seq.append(token)
@@ -404,7 +485,11 @@ def _greedy_window(model, cross, prompt, limit, procs, out, keep_scores):
         tracing.count("whisper.decoder_steps")
         if token in eos or len(seq) >= limit:
             return seq[len(prompt):]
-        ids = [[token]]
+        with tracing.span("whisper.decoder_step"):
+            logits = step(best, len(seq))
+        # present at 0 where the step runs eagerly, so a reader can tell
+        # an eager step from a program without the counter
+        tracing.count("whisper.decoder_graph_replays", int(step.graphed))
 
 
 def _beam_window(model, cross, prompt, limit, procs, gen, out, keep_scores):

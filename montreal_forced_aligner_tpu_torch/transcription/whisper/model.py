@@ -8,8 +8,12 @@ self-attention blocks and a final LayerNorm; the decoder adds learned
 positions to the token embeddings, runs pre-LN blocks of causal
 self-attention (with a key/value cache), cross-attention to the encoder
 (its keys and values computed once an utterance) and a feed-forward
-layer, and takes its logits from the token embedding. Attention is
-``F.scaled_dot_product_attention`` on queries scaled before the product,
+layer, and takes its logits from the token embedding. The cache either
+grows by a concatenation a step (:meth:`Decoder.forward`) or is a
+:class:`StaticCache` preallocated at ``max_target_positions``, written in
+place at a position held on the device (:meth:`Decoder.step`), so a step
+has one shape for each attention length and a CUDA graph can hold it.
+Attention is ``F.scaled_dot_product_attention`` on queries scaled before the product,
 as the reference's SDPA path computes it; float32 throughout, with TF32
 off (set at the package's import).
 """
@@ -59,10 +63,13 @@ class Attention(nn.Module):
     def project_kv(self, x: torch.Tensor) -> KV:
         return self._split(self.k_proj(x)), self._split(self.v_proj(x))
 
-    def forward(self, x: torch.Tensor, kv: KV, causal: bool = False) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, kv: KV, causal: bool = False,
+                mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """``mask`` (boolean, broadcast over the scores) marks the keys
+        attended to."""
         b, t, _ = x.shape
         q = self._split(self.q_proj(x) * self.scaling)
-        out = F.scaled_dot_product_attention(q, kv[0], kv[1], scale=1.0,
+        out = F.scaled_dot_product_attention(q, kv[0], kv[1], attn_mask=mask, scale=1.0,
                                              is_causal=causal)
         return self.out_proj(out.transpose(1, 2).reshape(b, t, -1))
 
@@ -106,8 +113,25 @@ class DecoderLayer(nn.Module):
         if past is not None:
             k, v = torch.cat([past[0], k], dim=-2), torch.cat([past[1], v], dim=-2)
         x = x + self.self_attn(h, (k, v), causal=past is None and x.shape[1] > 1)
+        return self._rest(x, cross), (k, v)
+
+    def step(self, x: torch.Tensor, pos: torch.Tensor, cache: KV, length: int,
+             mask: torch.Tensor, cross: KV) -> torch.Tensor:
+        """One token at device position ``pos``: its key and value written
+        into the layer's static ``cache`` there, attention over the first
+        ``length`` positions under ``mask``."""
+        h = self.self_attn_layer_norm(x)
+        k, v = self.self_attn.project_kv(h)
+        cache[0].index_copy_(2, pos, k)
+        cache[1].index_copy_(2, pos, v)
+        x = x + self.self_attn(h, (cache[0][:, :, :length], cache[1][:, :, :length]),
+                               mask=mask)
+        return self._rest(x, cross)
+
+    def _rest(self, x: torch.Tensor, cross: KV) -> torch.Tensor:
+        """Cross-attention and the feed-forward layer."""
         x = x + self.encoder_attn(self.encoder_attn_layer_norm(x), cross)
-        return _ffn(self, x), (k, v)
+        return _ffn(self, x)
 
 
 class Encoder(nn.Module):
@@ -164,6 +188,58 @@ class Decoder(nn.Module):
             cache.append(kv)
         return self.layer_norm(x), cache
 
+    def step(self, cache: "StaticCache", length: int) -> torch.Tensor:
+        """The token ``cache.ids`` at position ``cache.pos`` (both on the
+        device) -> (1, 1, d_model) final state, its keys and values written
+        into ``cache``; self-attention reads the first ``length`` positions,
+        those after ``pos`` masked out. Nothing here waits on the card or
+        reads a device value on the host."""
+        pos = cache.pos
+        x = self.embed_tokens(cache.ids) + self.embed_positions.weight.index_select(0, pos)
+        mask = (cache.positions[:length] <= pos).view(1, 1, 1, length)
+        for layer, kv, cross in zip(self.layers, cache.self_kv, cache.cross):
+            x = layer.step(x, pos, kv, length, mask, cross)
+        return self.layer_norm(x)
+
+    def logits(self, states: torch.Tensor) -> torch.Tensor:
+        """The output projection, tied to the token embedding."""
+        return F.linear(states, self.embed_tokens.weight)
+
+
+class StaticCache:
+    """One row's decoder state at fixed addresses: each layer's
+    self-attention keys and values at full size, (1, heads,
+    ``max_target_positions``, head_dim), the window's cross-attention keys
+    and values, the token id and its position. Float32 zeros at first, so
+    a masked position holds a finite value (a masked key's weight is
+    exactly 0, and 0 times a finite value is 0)."""
+
+    def __init__(self, dims: WhisperDims, device):
+        heads = dims.decoder_attention_heads
+        head_dim = dims.d_model // heads
+
+        def pairs(length):
+            shape = (1, heads, length, head_dim)
+            return [(torch.zeros(shape, device=device), torch.zeros(shape, device=device))
+                    for _ in range(dims.decoder_layers)]
+
+        self.self_kv = pairs(dims.max_target_positions)
+        self.cross = pairs(dims.max_source_positions)
+        self.positions = torch.arange(dims.max_target_positions, device=device)
+        self.ids = torch.zeros((1, 1), dtype=torch.long, device=device)
+        self.pos = torch.zeros(1, dtype=torch.long, device=device)
+
+    def load(self, cross: List[KV], prompt: List[KV]) -> None:
+        """A window's cross keys and values, and its prompt's
+        self-attention keys and values at positions 0 to p - 1."""
+        for (k, v), (ck, cv) in zip(cross, self.cross):
+            ck.copy_(k)
+            cv.copy_(v)
+        for (k, v), (sk, sv) in zip(prompt, self.self_kv):
+            n = k.shape[-2]
+            sk[:, :, :n].copy_(k)
+            sv[:, :, :n].copy_(v)
+
 
 class WhisperCore(nn.Module):
     def __init__(self, dims: WhisperDims):
@@ -189,7 +265,7 @@ class Whisper(nn.Module):
         return self.model.encoder(features)
 
     def logits(self, states: torch.Tensor) -> torch.Tensor:
-        return F.linear(states, self.model.decoder.embed_tokens.weight)
+        return self.model.decoder.logits(states)
 
     @classmethod
     def from_weights(cls, dims: WhisperDims, state_dict) -> "Whisper":

@@ -44,6 +44,7 @@ from torch_port_inputs import (  # noqa: E402
     fmllr_inputs,
     fmllr_system,
     gmm_arrays,
+    growing_greedy_window,
     leaves_range_across_chunks,
 )
 
@@ -570,3 +571,69 @@ def test_graph_pool_workers_open_no_cuda_context(cuda_device):
         assert pool._pool.submit(torch.cuda.is_initialized).result(timeout=300) is False
     finally:
         pool.close(wait=True)
+
+
+# Whisper at tiny widths, 64 decoder positions (``chip_smoke``'s writer,
+# random weights, so a window runs to its 64-position limit)
+WHISPER_TINY = {
+    "vocab_size": 459, "num_mel_bins": 128, "d_model": 64, "encoder_layers": 2,
+    "encoder_attention_heads": 4, "encoder_ffn_dim": 128, "decoder_layers": 2,
+    "decoder_attention_heads": 4, "decoder_ffn_dim": 128,
+    "max_source_positions": 1500, "max_target_positions": 64,
+}
+WHISPER_TINY_TEXT = {"n_base": 300, "n_languages": 100, "n_timestamps": 51}
+
+
+def test_whisper_graphed_greedy_matches_eager(cuda_device, tmp_path, monkeypatch):
+    """Greedy decoding on the card, each step after the prompt replayed
+    as a CUDA graph (buckets of 8 positions), against the same static-cache
+    step run eagerly on the card and against the growing cache: the same
+    ids, every step's scores within 1e-5, one capture at most per bucket
+    touched (none on a second decode), and one replay per step but each
+    window's first."""
+    from montreal_forced_aligner_tpu_torch import tracing
+    from montreal_forced_aligner_tpu_torch.transcription.torch_models import (
+        WhisperTranscriber,
+    )
+    from montreal_forced_aligner_tpu_torch.transcription.whisper import generate as PG
+
+    ckpt = chip_smoke.write_whisper_checkpoint(tmp_path / "w", WHISPER_TINY,
+                                               WHISPER_TINY_TEXT, seed=0)
+    monkeypatch.setattr(PG, "BUCKET", 8)
+    graphed = WhisperTranscriber(ckpt, device=cuda_device)
+    eager = WhisperTranscriber(ckpt, device=cuda_device)
+    # the same static-cache step, run eagerly on the card
+    PG.greedy_step(eager.model, torch.device("cuda", torch.cuda.current_device())).graphed = False
+    rng = np.random.RandomState(0)
+    captured = set()
+    for n in (16000, 96000, 96000):
+        wave = (3000 * np.sin(2 * np.pi * 300 * np.arange(n) / 16000)
+                + 800 * rng.randn(n)).astype(np.float32)
+        want = eager.decode(wave, keep_scores=10 ** 6)
+        with monkeypatch.context() as m:
+            m.setattr(PG, "_greedy_window", growing_greedy_window)
+            growing = eager.decode(wave, keep_scores=10 ** 6)
+        tracing.reset()
+        try:
+            with tracing.collect():
+                got = graphed.decode(wave, keep_scores=10 ** 6)
+            counters = tracing.recorded()["counters"]
+        finally:
+            tracing.reset()
+        assert got.ids == want.ids == growing.ids
+        assert got.windows == 1
+        assert got.steps == len(got.scores) == len(want.scores) == len(growing.scores)
+        for g, w, r in zip(got.scores, want.scores, growing.scores):
+            for other in (w, r):
+                finite = torch.isfinite(other)
+                assert torch.equal(finite, torch.isfinite(g))
+                assert (g[finite] - other[finite]).abs().max() <= 1e-5
+        p = len(got.prompt)
+        touched = {min(-(-k // 8) * 8, 64) for k in range(p + 1, p + got.steps)}
+        assert len(touched) > 2
+        new = touched - captured
+        assert counters.get("whisper.decoder_graph_captures", 0) <= len(new)
+        captured |= touched
+        assert counters["whisper.decoder_graph_replays"] == got.steps - got.windows
+    assert not eager.model.greedy_step.graphs
+    assert set(graphed.model.greedy_step.graphs) == captured

@@ -38,6 +38,7 @@ from montreal_forced_aligner_tpu_torch.transcription.whisper import (
 
 from helpers import build_tiny_whisper_checkpoint
 from test_torch_gated import _small_corpus
+from torch_port_inputs import growing_greedy_window
 
 REPO = Path(__file__).resolve().parent.parent
 sys.path.insert(0, str(REPO))
@@ -468,3 +469,55 @@ def test_smoke_writer_loads_in_transformers(written):
     for _ in range(300):
         ids = rng.randint(0, TINY_TURBO["vocab_size"], rng.randint(1, 30)).tolist()
         assert p.tokenizer.decode(ids) == tok.decode(ids, skip_special_tokens=True)
+
+
+# (checkpoint, bucket width): ``tiny``'s windows end at 8 positions,
+# ``detect``'s at 24, ``written``'s at 64
+@pytest.mark.parametrize("name,bucket", [("tiny", 3), ("detect", 8), ("written", 8)])
+def test_static_cache_steps_match_growing_cache(pairs, written, monkeypatch, name, bucket):
+    """Greedy decoding over the static cache, with buckets narrow enough
+    that each window crosses several: every step's scores within 1e-5 of
+    the growing cache's, and the ids equal."""
+    p = PWhisper(written, device="cpu") if name == "written" else pairs(name, None)[1]
+    monkeypatch.setattr(PG, "BUCKET", bucket)
+    longest = 0
+    for wave in waves(8):
+        static = p.decode(wave, keep_scores=10 ** 6)
+        with monkeypatch.context() as m:
+            m.setattr(PG, "_greedy_window", growing_greedy_window)
+            growing = p.decode(wave, keep_scores=10 ** 6)
+        assert static.ids == growing.ids
+        assert static.steps == growing.steps == len(static.scores)
+        for got, want in zip(static.scores, growing.scores):
+            finite = torch.isfinite(want)
+            assert torch.equal(finite, torch.isfinite(got))
+            assert (got[finite] - want[finite]).abs().max() <= 1e-5
+        longest = max(longest, len(static.prompt) + static.steps // static.windows)
+    assert longest > 2 * bucket
+
+
+def test_graph_never_engages_on_the_cpu(pairs):
+    """Off the card the static step runs eagerly: no capture, the replay
+    counter present at 0, so the benchmark's reader reads 0 (and None
+    where the program keeps no such counter)."""
+    from montreal_forced_aligner_tpu_torch import tracing
+    from portbench import harness
+
+    reader = harness.load_file(harness.BENCH_DIR / "layers"
+                               / "decoder_graph_step_pct.transcribe.py")
+    _, p = pairs("detect", None)
+    tracing.reset()
+    try:
+        with tracing.collect():
+            d = p.decode(waves(9)[0])
+        counters = tracing.recorded()["counters"]
+        assert d.steps > 1
+        assert counters["whisper.decoder_steps"] == d.steps
+        assert counters["whisper.decoder_graph_replays"] == 0
+        assert "whisper.decoder_graph_captures" not in counters
+        assert not p.model.greedy_step.graphed and p.model.greedy_step.graphs == {}
+        assert reader.read({}) == 0.0
+        tracing.reset()
+        assert reader.read({}) is None
+    finally:
+        tracing.reset()

@@ -219,6 +219,37 @@ def test_step_and_beam_scores_match(variant, setting):
             assert abs(d.beam_scores[-1] - want_score) <= SCORE_ATOL
 
 
+@pytest.mark.parametrize("name,setting", [
+    ("stamps", "num_beams"), ("stamps", "length_penalty"),
+    ("stamps", "early_stopping_never"), ("detect", "num_beams")])
+def test_beam_and_detection_keep_the_growing_cache(variant, monkeypatch, name, setting):
+    """Beam search and language detection keep their own eager path over
+    the growing cache: with greedy decoding's static step out of reach
+    they decode the JAX package's ids, detect its language, and each
+    step's log-probabilities (every beam) lie within 1e-4 of its own."""
+    from transformers import LogitsProcessorList
+
+    def unreachable(*a, **kw):
+        raise AssertionError("greedy decoding's static step reached")
+
+    monkeypatch.setattr(PG, "greedy_step", unreachable)
+    j, p = _pair(variant(name, SETTINGS[setting]))
+    for wave in waves(6)[:2]:
+        d = _assert_decodes_alike(j, p, wave)
+        want_lang = int(j.model.detect_language(_jax_features(j, wave))[0])
+        assert d.prompt[1] == want_lang
+        rec = _Recorder()
+        _jax_ids(j, wave, logits_processor=LogitsProcessorList([rec]))
+        steps = min(len(rec.calls), 40)
+        d = p.decode(wave, keep_scores=steps)
+        for s in range(steps):
+            want = rec.calls[s][1]
+            got = d.scores[s].reshape(want.shape)
+            finite = torch.isfinite(want)
+            assert torch.equal(finite, torch.isfinite(got)), s
+            assert (got[finite] - want[finite]).abs().max() <= SCORE_ATOL, s
+
+
 def test_sampling_in_an_older_file_decodes_greedily(variant):
     """``do_sample`` comes back into ``generate``'s config only from files
     of transformers 4.50 on; an older file decodes greedily, on both

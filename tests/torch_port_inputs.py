@@ -1,5 +1,6 @@
-"""Inputs for the port's kernel tests, made with numpy from a seed (no JAX,
-so the card's tests can import them where JAX is not installed)."""
+"""Inputs for the port's kernel tests, made with numpy from a seed, and
+plain references they are held to (no JAX, so the card's tests can import
+them where JAX is not installed)."""
 
 import numpy as np
 
@@ -191,3 +192,27 @@ def tree_event_inputs(seed, num_phones=9, n_utts=40, dim=4):
                     events[key] = (n, s, ss)
     groups = [[p] for p in range(1, num_phones + 1)]
     return events, groups
+
+
+def growing_greedy_window(model, cross, prompt, limit, procs, out, keep_scores):
+    """A Whisper greedy window over the growing cache (one concatenation a
+    step), as ``generate._greedy_window`` decoded before the static cache:
+    the reference of the static-cache step."""
+    import torch
+
+    from montreal_forced_aligner_tpu_torch.transcription.whisper import generate
+
+    device = cross[0][0].device
+    seq, ids, past = list(prompt), [prompt], None
+    while True:
+        logits, past = generate._decoder_step(model, torch.tensor(ids, device=device),
+                                              cross, past)
+        scores = procs([seq], logits, len(prompt))
+        token = int(scores.argmax(-1)[0])
+        if len(out.scores) < keep_scores:
+            out.scores.append(scores[0].cpu())
+        seq.append(token)
+        out.steps += 1
+        if token in procs.eos or len(seq) >= limit:
+            return seq[len(prompt):]
+        ids = [[token]]
