@@ -6,10 +6,13 @@ Counterpart of ``montreal_forced_aligner_tpu/transcription/torch_models.py``
 own PyTorch model (:mod:`.whisper`) from a local Hugging Face checkpoint
 directory, with the same token ids and text as the JAX package's
 ``transformers`` wrapper; no ``transformers`` is needed, so the JAX
-package's ``found_transformers`` has no counterpart. The SpeechBrain
-checkpoints are built by the package's own hparams, so that wrapper needs
-the ``speechbrain`` package, as the JAX package's does, and runs the model
-on the given device. Both transcribe one utterance at a time.
+package's ``found_transformers`` has no counterpart. ``SpeechbrainTranscriber``
+runs a Hugging Face ``Wav2Vec2ForCTC`` directory (the encoder-only CTC
+family of SpeechBrain's wav2vec2 recipes) as the port's own model
+(:mod:`.wav2vec2`), with no ``speechbrain`` package; any other SpeechBrain
+checkpoint is built by the package's own hparams, so that route needs the
+``speechbrain`` package, as the JAX package's does, and runs the model on
+the given device. All transcribe one utterance at a time.
 """
 
 from __future__ import annotations
@@ -152,10 +155,29 @@ class SpeechbrainTranscriber:
     (reference ``SpeechbrainTranscriber``,
     ``transcription/transcriber.py:1967``; worker spec
     ``transcription/multiprocessing.py:583-1001``), its modules and inputs
-    on ``device``."""
+    on ``device``. A ``Wav2Vec2ForCTC`` directory (``config.json`` with
+    ``model_type: wav2vec2``) runs as the port's own model: the
+    waveform's CTC log-probabilities, greedy decoding and the vocabulary's
+    characters (``ctc`` is then set); other directories need the
+    ``speechbrain`` package."""
 
     def __init__(self, model_path, language: Optional[str] = None, device="cuda"):
+        from montreal_forced_aligner_tpu_torch.transcription import wav2vec2
+
         self.device = resolve_device(device)
+        self.ctc = wav2vec2.is_ctc_checkpoint(model_path)
+        if self.ctc:
+            ckpt = wav2vec2.load_checkpoint(model_path, self.device)
+            rate = ckpt.preprocessor.get("sampling_rate", MODEL_SAMPLE_RATE)
+            if rate != MODEL_SAMPLE_RATE:
+                raise ValueError(f"{model_path}: sampling_rate {rate}; the port "
+                                 f"runs {MODEL_SAMPLE_RATE} Hz checkpoints")
+            self.model = wav2vec2.Wav2Vec2ForCTC.from_weights(
+                ckpt.dims, ckpt.state_dict,
+                do_normalize=bool(ckpt.preprocessor.get("do_normalize", True)))
+            self.vocab = ckpt.vocab
+            self._note_language(language)
+            return
         if not found_speechbrain():
             raise RuntimeError(
                 "speechbrain is not available; install it and provide a "
@@ -170,6 +192,9 @@ class SpeechbrainTranscriber:
             source=str(model_path), savedir=str(model_path),
             run_opts={"device": str(self.device)},
         )
+        self._note_language(language)
+
+    def _note_language(self, language) -> None:
         if language is not None:
             # speechbrain ASR checkpoints are single-language; the hint only
             # documents intent (unlike whisper there is nothing to condition)
@@ -187,6 +212,8 @@ class SpeechbrainTranscriber:
                 f"speechbrain expects {MODEL_SAMPLE_RATE} Hz input, got "
                 f"{sample_rate}; resample first (transcribe_corpus does)"
             )
+        if self.ctc:
+            return self._transcribe_ctc(samples)
         wav = torch.from_numpy(
             np.asarray(samples, dtype=np.float32) / 32768.0
         ).unsqueeze(0).to(self.device)
@@ -195,6 +222,24 @@ class SpeechbrainTranscriber:
             preds, _ = self.model.transcribe_batch(wav, lens)
         return preds[0].strip().lower()
 
+    def _transcribe_ctc(self, samples: np.ndarray) -> str:
+        from montreal_forced_aligner_tpu_torch.transcription.wav2vec2 import ctc
+
+        with torch.no_grad():
+            with tracing.span("wav2vec2.feature_encoder"):
+                wave = torch.from_numpy(np.asarray(samples, dtype=np.float32))
+                features = self.model.extract(wave.to(self.device))
+            with tracing.span("wav2vec2.encode"):
+                states = self.model.encode(features)
+            with tracing.span("wav2vec2.ctc_head"):
+                log_probs = self.model.log_probs(states)
+            with tracing.span("ctc.decode"):
+                text = ctc.decode(log_probs, self.vocab)
+        tracing.count("wav2vec2.utterances")
+        tracing.count("wav2vec2.frames", log_probs.shape[0])
+        return text.lower()
+
+    @tracing.traced("transcribe_corpus")
     def transcribe_corpus(self, corpus) -> Dict[int, str]:
         out = {}
         for utt in corpus.utterances:

@@ -44,14 +44,18 @@ def sinusoids(length: int, channels: int, max_timescale: float = 10000.0) -> tor
 
 
 class Attention(nn.Module):
-    def __init__(self, d_model: int, heads: int):
+    """Multi-head attention with biased query, value and output projections;
+    the key projection has a bias only with ``key_bias`` (Whisper's has
+    none, wav2vec 2.0's has one)."""
+
+    def __init__(self, d_model: int, heads: int, key_bias: bool = False):
         super().__init__()
         self.heads = heads
         self.head_dim = d_model // heads
         if self.head_dim * heads != d_model:
             raise ValueError(f"d_model {d_model} is not divisible by {heads} heads")
         self.scaling = self.head_dim ** -0.5
-        self.k_proj = nn.Linear(d_model, d_model, bias=False)
+        self.k_proj = nn.Linear(d_model, d_model, bias=key_bias)
         self.v_proj = nn.Linear(d_model, d_model)
         self.q_proj = nn.Linear(d_model, d_model)
         self.out_proj = nn.Linear(d_model, d_model)
@@ -79,14 +83,17 @@ def _ffn(layer, x: torch.Tensor) -> torch.Tensor:
 
 
 class EncoderLayer(nn.Module):
-    def __init__(self, dims: WhisperDims):
+    """A pre-LN block of bidirectional self-attention and a GELU
+    feed-forward layer: Whisper's encoder block, and with ``key_bias``
+    wav2vec 2.0's "stable layer norm" block (:mod:`..wav2vec2.model`)."""
+
+    def __init__(self, d_model: int, heads: int, ffn_dim: int, key_bias: bool = False):
         super().__init__()
-        d = dims.d_model
-        self.self_attn = Attention(d, dims.encoder_attention_heads)
-        self.self_attn_layer_norm = nn.LayerNorm(d)
-        self.fc1 = nn.Linear(d, dims.encoder_ffn_dim)
-        self.fc2 = nn.Linear(dims.encoder_ffn_dim, d)
-        self.final_layer_norm = nn.LayerNorm(d)
+        self.self_attn = Attention(d_model, heads, key_bias)
+        self.self_attn_layer_norm = nn.LayerNorm(d_model)
+        self.fc1 = nn.Linear(d_model, ffn_dim)
+        self.fc2 = nn.Linear(ffn_dim, d_model)
+        self.final_layer_norm = nn.LayerNorm(d_model)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         h = self.self_attn_layer_norm(x)
@@ -141,7 +148,9 @@ class Encoder(nn.Module):
         self.conv1 = nn.Conv1d(dims.num_mel_bins, d, kernel_size=3, padding=1)
         self.conv2 = nn.Conv1d(d, d, kernel_size=3, stride=2, padding=1)
         self.embed_positions = nn.Embedding(dims.max_source_positions, d)
-        self.layers = nn.ModuleList(EncoderLayer(dims) for _ in range(dims.encoder_layers))
+        self.layers = nn.ModuleList(
+            EncoderLayer(d, dims.encoder_attention_heads, dims.encoder_ffn_dim)
+            for _ in range(dims.encoder_layers))
         self.layer_norm = nn.LayerNorm(d)
 
     def forward(self, features: torch.Tensor) -> torch.Tensor:

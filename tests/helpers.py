@@ -310,3 +310,119 @@ def build_tiny_whisper_checkpoint(tmp_path):
     proc.save_pretrained(out)
     model.save_pretrained(out)
     return out
+
+
+# wav2vec2-large-960h-lv60-self's vocab.json: the CTC blank, three special
+# tokens, the word delimiter, then the characters by frequency
+WAV2VEC2_VOCAB = ["<pad>", "<s>", "</s>", "<unk>", "|"] + list("ETAONIHSRDLUMWCFGYPBVK'XJQZ")
+
+
+def write_safetensors(path, tensors) -> None:
+    """A float32 ``.safetensors`` file of ``{name: array}``."""
+    import json
+    import struct
+
+    header, offset, blobs = {}, 0, []
+    for name, arr in tensors.items():
+        data = np.ascontiguousarray(arr, dtype="<f4").tobytes()
+        header[name] = {"dtype": "F32", "shape": list(np.shape(arr)),
+                        "data_offsets": [offset, offset + len(data)]}
+        offset += len(data)
+        blobs.append(data)
+    header["__metadata__"] = {"format": "pt"}
+    head = json.dumps(header).encode()
+    head += b" " * (-len(head) % 8)
+    with open(path, "wb") as f:
+        f.write(struct.pack("<Q", len(head)) + head + b"".join(blobs))
+
+
+def tiny_wav2vec2_config() -> dict:
+    """A ``Wav2Vec2ForCTC`` config.json in the large models' layout at a
+    test's size: three convolutions, 2 blocks of width 64 and 4 heads, a
+    positional convolution of 16 taps in 4 groups, 32 characters."""
+    return {
+        "architectures": ["Wav2Vec2ForCTC"], "model_type": "wav2vec2",
+        "vocab_size": len(WAV2VEC2_VOCAB), "hidden_size": 64, "num_hidden_layers": 2,
+        "num_attention_heads": 4, "intermediate_size": 128,
+        "conv_dim": [32, 32, 32], "conv_kernel": [10, 3, 3], "conv_stride": [5, 2, 2],
+        "num_feat_extract_layers": 3, "conv_bias": True,
+        "num_conv_pos_embeddings": 16, "num_conv_pos_embedding_groups": 4,
+        "feat_extract_norm": "layer", "feat_extract_activation": "gelu",
+        "hidden_act": "gelu", "do_stable_layer_norm": True, "layer_norm_eps": 1e-5,
+        "pad_token_id": 0, "bos_token_id": 1, "eos_token_id": 2,
+        "initializer_range": 0.02,
+    }
+
+
+def tiny_wav2vec2_weights(cfg: dict, seed: int = 0, layout: str = "weight_g") -> dict:
+    """Seeded float32 tensors under ``Wav2Vec2ForCTC``'s stored names:
+    every weight, bias and LayerNorm random, the positional convolution's
+    weight norm as ``weight_g``/``weight_v`` or, with ``layout`` set to
+    "parametrizations", under the newer names."""
+    rng = np.random.RandomState(seed)
+    d, ffn, V = cfg["hidden_size"], cfg["intermediate_size"], cfg["vocab_size"]
+    w = {}
+
+    def normal(name, shape, std):
+        w[name] = (rng.randn(*shape) * std).astype(np.float32)
+
+    def norm(p, n):
+        w[p + ".weight"] = (1.0 + 0.1 * rng.randn(n)).astype(np.float32)
+        normal(p + ".bias", (n,), 0.1)
+
+    c_in = 1
+    for i, (c, k) in enumerate(zip(cfg["conv_dim"], cfg["conv_kernel"])):
+        p = f"wav2vec2.feature_extractor.conv_layers.{i}"
+        normal(p + ".conv.weight", (c, c_in, k), (2.0 / (c_in * k)) ** 0.5)
+        normal(p + ".conv.bias", (c,), 0.1)
+        norm(p + ".layer_norm", c)
+        c_in = c
+    norm("wav2vec2.feature_projection.layer_norm", c_in)
+    normal("wav2vec2.feature_projection.projection.weight", (d, c_in), c_in ** -0.5)
+    normal("wav2vec2.feature_projection.projection.bias", (d,), 0.1)
+    taps, groups = cfg["num_conv_pos_embeddings"], cfg["num_conv_pos_embedding_groups"]
+    p = "wav2vec2.encoder.pos_conv_embed.conv."
+    gain, direction = (("weight_g", "weight_v") if layout == "weight_g" else
+                       ("parametrizations.weight.original0",
+                        "parametrizations.weight.original1"))
+    normal(p + direction, (d, d // groups, taps), 2.0 * (1.0 / (taps * d)) ** 0.5)
+    v = w[p + direction]
+    w[p + gain] = (np.sqrt((v * v).sum(axis=(0, 1), keepdims=True))
+                   * rng.uniform(0.5, 1.5, (1, 1, taps))).astype(np.float32)
+    normal(p + "bias", (d,), 0.1)
+    for i in range(cfg["num_hidden_layers"]):
+        p = f"wav2vec2.encoder.layers.{i}"
+        for proj in ("q_proj", "k_proj", "v_proj", "out_proj"):
+            normal(f"{p}.attention.{proj}.weight", (d, d), d ** -0.5)
+            normal(f"{p}.attention.{proj}.bias", (d,), 0.1)
+        norm(p + ".layer_norm", d)
+        normal(p + ".feed_forward.intermediate_dense.weight", (ffn, d), d ** -0.5)
+        normal(p + ".feed_forward.intermediate_dense.bias", (ffn,), 0.1)
+        normal(p + ".feed_forward.output_dense.weight", (d, ffn), ffn ** -0.5)
+        normal(p + ".feed_forward.output_dense.bias", (d,), 0.1)
+        norm(p + ".final_layer_norm", d)
+    norm("wav2vec2.encoder.layer_norm", d)
+    normal("wav2vec2.masked_spec_embed", (d,), 1.0)
+    normal("lm_head.weight", (V, d), d ** -0.5)
+    normal("lm_head.bias", (V,), 0.1)
+    return w
+
+
+def build_tiny_wav2vec2_checkpoint(tmp_path, seed: int = 0, layout: str = "weight_g",
+                                   config: dict = None):
+    """A ``Wav2Vec2ForCTC`` directory (config.json, model.safetensors,
+    vocab.json, preprocessor_config.json) at a test's size, written
+    without ``transformers``."""
+    import json
+
+    out = Path(tmp_path)
+    out.mkdir(parents=True, exist_ok=True)
+    cfg = config or tiny_wav2vec2_config()
+    (out / "config.json").write_text(json.dumps(cfg))
+    (out / "vocab.json").write_text(json.dumps({c: i for i, c in enumerate(WAV2VEC2_VOCAB)}))
+    (out / "preprocessor_config.json").write_text(json.dumps({
+        "do_normalize": True, "feature_extractor_type": "Wav2Vec2FeatureExtractor",
+        "feature_size": 1, "padding_side": "right", "padding_value": 0.0,
+        "return_attention_mask": True, "sampling_rate": 16000}))
+    write_safetensors(out / "model.safetensors", tiny_wav2vec2_weights(cfg, seed, layout))
+    return out

@@ -19,13 +19,17 @@ from montreal_forced_aligner_tpu_torch.align.aligner import AlignerConfig, Pretr
 from montreal_forced_aligner_tpu_torch.cli import main as cli_main
 from montreal_forced_aligner_tpu_torch.corpus.corpus import Corpus
 from montreal_forced_aligner_tpu_torch.io.wav import write_wave
-from montreal_forced_aligner_tpu_torch.transcription.torch_models import WhisperTranscriber
+from montreal_forced_aligner_tpu_torch.transcription.torch_models import (
+    SpeechbrainTranscriber,
+    WhisperTranscriber,
+)
 from montreal_forced_aligner_tpu_torch.transcription.whisper.generate import generate
 
 from helpers import (
     build_sat_scale_model,
     build_synthetic_corpus,
     build_synthetic_model,
+    build_tiny_wav2vec2_checkpoint,
     build_tiny_whisper_checkpoint,
 )
 
@@ -288,6 +292,28 @@ def test_whisper_transcribe_corpus_is_one_request(whisper, tmp_path):
     steps = _closed(rec, "whisper.decoder_step")
     assert len(steps) == rec["counters"]["whisper.decoder_steps"]
     assert all(s.request == top.request for s in steps)
+
+
+def test_wav2vec2_transcription_spans_and_counters(tmp_path):
+    """One CPU transcription with a CTC checkpoint: each utterance opens the
+    four spans in order inside ``transcribe_corpus``; the counters hold the
+    utterances and the encoder frames by the convolutions' arithmetic."""
+    tr = SpeechbrainTranscriber(build_tiny_wav2vec2_checkpoint(tmp_path / "ckpt"),
+                                device="cpu")
+    lengths = [1.5, 2.5, 0.75]
+    corpus = Corpus.load(_tone_corpus(tmp_path / "c", lengths), require_transcripts=False)
+    with tracing.collect():
+        tr.transcribe_corpus(corpus)
+    rec = tracing.recorded()
+    (top,) = _closed(rec, "transcribe_corpus")
+    names = ["wav2vec2.feature_encoder", "wav2vec2.encode", "wav2vec2.ctc_head", "ctc.decode"]
+    spans = [s for s in rec["spans"] if s.name in names]
+    assert [s.name for s in spans] == names * len(lengths)
+    assert all(s.request == top.request and s.t1_ns is not None for s in spans)
+    assert rec["counters"]["wav2vec2.utterances"] == len(corpus.utterances) == len(lengths)
+    # kernels (10, 3, 3), strides (5, 2, 2): 24,000 samples -> 4,799 -> 2,399
+    # -> 1,199 frames; 40,000 -> 1,999; 12,000 -> 599
+    assert rec["counters"]["wav2vec2.frames"] == 1199 + 1999 + 599
 
 
 def _trace_names(path: Path) -> set:
